@@ -21,7 +21,7 @@ from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.geometry.rectify import (init_undistort_rectify_map,
                                                stereo_rectify)
 from openvo_tpu_torch.geometry.reproject import reproject_image_to_3d
-from openvo_tpu_torch.ops.remap import remap_bilinear
+from openvo_tpu_torch.ops.remap import make_remap, remap_bilinear
 from openvo_tpu_torch.ops.sgbm import sgbm_disparity
 
 SGBM_KEYS = ("minDisparity", "numDisparities", "blockSize", "P1", "P2",
@@ -94,6 +94,8 @@ class StereoCamera:
                                             self.img_size)
         self.map_left = tuple(map(to_dev, maps_l))
         self.map_right = tuple(map(to_dev, maps_r))
+        self._remap_left = make_remap(*self.map_left)
+        self._remap_right = make_remap(*self.map_right)
 
         if isinstance(sgbm_params, SGBMParams):
             self.sgbm = sgbm_params
@@ -135,7 +137,7 @@ class StereoCamera:
         cropped, on the camera's device. Invalid disparity (the
         minDisparity - 1 marker) reprojects to inf, so the inf-aware
         sampler drops it."""
-        maps_l, maps_r, q = self.map_left, self.map_right, self._q_dev
+        remap_l, remap_r, q = self._remap_left, self._remap_right, self._q_dev
         params = self.sgbm
         sl = self.crop_slice
 
@@ -146,8 +148,8 @@ class StereoCamera:
             img_left = img_left.to(torch.float32)
             img_right = img_right.to(torch.float32)
             if not preprocessed:
-                img_left = remap_bilinear(img_left, *maps_l)
-                img_right = remap_bilinear(img_right, *maps_r)
+                img_left = remap_l(img_left)
+                img_right = remap_r(img_right)
             disparity = sgbm_disparity(img_left, img_right, params)
             img_3d = reproject_image_to_3d(disparity, q)
             valid = disparity >= (params.min_disparity - 0.75)

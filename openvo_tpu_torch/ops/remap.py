@@ -1,6 +1,8 @@
 """Undistort/rectify remap with bilinear interpolation, PyTorch port of
-``openvo_tpu/ops/remap.py`` (the gather form, ``remap_bilinear``; the JAX
-package's bounded roll+select form is recorded there as exact against it).
+``openvo_tpu/ops/remap.py``: :func:`remap_bilinear` is its gather form with
+the maps as inputs; :func:`make_remap` is what the JAX camera computes,
+whose maps are constants of its compiled program (both the gather and the
+bounded roll+select forms give those bits).
 
 Border behaviour matches ``cv2.remap``'s BORDER_CONSTANT(0): a neighbour
 outside the source contributes 0 with its bilinear weight.
@@ -50,3 +52,39 @@ def remap_bilinear(src, map_x, map_y):
     out = fma(p10 * (1 - wx), wy, out)
     out = fma(p11 * wx, wy, out)
     return out[..., 0] if squeeze else out
+
+
+def make_remap(map_x, map_y):
+    """The remap of one constant (H, W) map pair onto (H, W) sources, as the
+    JAX camera's compiled program computes it: XLA folds each bilinear
+    weight (1-fx)(1-fy), fx(1-fy), (1-fx)fy, fx*fy into one rounded float32
+    product and contracts the sum into multiply-adds. Fractional maps (a
+    distorting camera) give other bits than :func:`remap_bilinear`; the
+    taps' indices and weights are computed here once."""
+    H, W = map_x.shape
+    x = map_x.to(torch.float32)
+    y = map_y.to(torch.float32)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    taps = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yi, xi = y0i + dy, x0i + dx
+        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        taps.append((valid, yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)))
+    w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+
+    def remap(src):
+        if tuple(src.shape) != (H, W):
+            raise ValueError(f"remap: source shape {tuple(src.shape)}, "
+                             f"maps {(H, W)}")
+        flat = src.to(torch.float32).reshape(-1)
+        p = [torch.where(valid, flat[idx], 0.0) for valid, idx in taps]
+        out = fma(p[0], w[0], p[1] * w[1])
+        out = fma(p[2], w[2], out)
+        return fma(p[3], w[3], out)
+
+    return remap

@@ -4,19 +4,28 @@
 Contract (as ``cv2.StereoSGBM.compute`` and the JAX package): int16
 disparity on the x16 grid, invalid = (minDisparity - 1) * 16. Stages:
 x-Sobel prefilter clipped to preFilterCap, Birchfield-Tomasi cost over D
-disparities, blockSize^2 box sum, 5-path SGM aggregation (left-right,
-right-left, top-down vertical and both top-down diagonals), WTA with
-uniqueness ratio, parabolic subpixel, left-right check (disp12MaxDiff).
+disparities, blockSize^2 box sum, 4-, 5- or 8-path SGM aggregation, WTA
+with uniqueness ratio, parabolic subpixel, left-right check
+(disp12MaxDiff), and the optional speckle filter.
 
-The volume stages run as three kernels (``ops/sgbm_cuda.py``): a CPU tensor
-takes their plain versions, a CUDA tensor the kernels. Both reproduce the
-JAX package's CPU path bit for bit, which is the tier-1 oracle.
+The volume stages run as kernels (``ops/sgbm_cuda.py``); a CPU tensor takes
+their plain versions, a CUDA tensor the kernels. Both reproduce the JAX
+package's CPU path bit for bit, which is the tier-1 oracle, including its
+bfloat16 cost arithmetic for ``2*preFilterCap <= 127`` on non-integer
+images (a distorting camera's remap). Per frame:
 
-Envelope of this port (``NotImplementedError`` outside it, on every
-device): an int16 sentinel exists for (blockSize, preFilterCap), 5 paths,
-speckle filter off. The exact x2-grid arithmetic also assumes
-integer-valued input images (uint8 frames through an integer remap); the
-JAX package computes the cost in bfloat16 and would round other inputs.
+- with an int16 sentinel for (blockSize, preFilterCap): H1 (cost, box sum,
+  left-to-right scan) -> H2 (the vertical scans of the path count) -> H3
+  over int16 costs (right-to-left scan, WTA, checks);
+- without one (blockSize >= 13 at preFilterCap 63, or preFilterCap > 327
+  at blockSize 5): the int32 cost volume and box sum in plain PyTorch, as
+  the JAX package leaves them to XLA -> H5 (left-to-right scan) -> H2 ->
+  H3 over int32 costs. On non-integer images this path truncates the cost
+  to the x2 grid where the JAX package keeps it in float32.
+
+The speckle filter is plain PyTorch (:func:`speckle_filter`).
+``NotImplementedError`` is raised, on every device, only where the packed
+int32 argmin key of H3 could overflow.
 """
 
 from __future__ import annotations
@@ -53,23 +62,61 @@ def prefilter_xsobel(img, cap: int):
     return torch.clamp(dx, -cap, cap) + cap
 
 
-def _check_envelope(params: SGBMParams, sentinel: int | None) -> None:
-    if sentinel is None:
-        raise NotImplementedError(
-            "SGBM without an int16 sentinel (large blockSize or "
-            "preFilterCap) is not ported yet")
-    if params.num_paths != 5:
-        raise NotImplementedError(
-            f"SGBM with {params.num_paths} paths is not ported yet")
-    if params.speckle_window_size > 0 and params.speckle_range > 0:
-        raise NotImplementedError("the speckle filter is not ported yet")
-    # The packed (S * D + d) argmin key must stay inside int32: S is at most
-    # 5 paths x (box-summed sentinel + the larger of 2*P2 and the 64 a
-    # fresh start can add).
-    s_max = 5 * (params.block_size ** 2 * sentinel
-                 + max(2 * params.effective_p2, 64))
+def _check_envelope(params: SGBMParams, cost_max: int) -> None:
+    # The packed (S * D + d) argmin key must stay inside int32. S is at most
+    # num_paths x (the largest box-summed cost + the larger of 2*P2 and the
+    # 64 a fresh start can add).
+    s_max = params.num_paths * (cost_max + max(2 * params.effective_p2, 64))
     if (s_max + 1) * params.num_disparities >= 2 ** 31:
         raise NotImplementedError("SGBM penalties too large for int32 keys")
+
+
+def speckle_filter(disp16, valid, params: SGBMParams):
+    """The valid mask after speckle rejection (``cv2.filterSpeckles``
+    semantics, the JAX package's ``_speckle_filter``): 4-connected
+    components of valid pixels whose x16 disparities differ by at most
+    16*speckleRange are invalidated when they hold <= speckleWindowSize
+    pixels; invalid pixels are singletons.
+
+    Any exact labelling gives the JAX package's components, whose min-scan
+    labelling runs to convergence. Here: hooking (every edge between two
+    labels sets the larger label's root to the smaller label) and
+    log2(H*W) pointer jumps, repeated until no edge joins two labels, then
+    ``torch.bincount`` of the labels for the sizes. Each round costs one
+    host sync (the convergence test), counted in ``speckle_filter.syncs``.
+    Labels only decrease, so the loop ends; on raster-ordered blobs one
+    round merges a whole convex component."""
+    H, W = disp16.shape
+    n = H * W
+    dev = disp16.device
+    d = disp16.to(torch.int32)
+    max_diff = 16 * params.speckle_range
+    idx = torch.arange(n, device=dev).view(H, W)
+    conn_x = (valid[:, 1:] & valid[:, :-1]
+              & ((d[:, 1:] - d[:, :-1]).abs() <= max_diff))
+    conn_y = (valid[1:] & valid[:-1] & ((d[1:] - d[:-1]).abs() <= max_diff))
+    # every pixel's edge to its left and upper neighbour; a missing edge is
+    # a self-loop
+    src = torch.cat([idx[:, 1:].reshape(-1), idx[1:].reshape(-1)])
+    dst = torch.cat([torch.where(conn_x, idx[:, :-1], idx[:, 1:]).reshape(-1),
+                     torch.where(conn_y, idx[:-1], idx[1:]).reshape(-1)])
+    labels = torch.arange(n, device=dev)
+    jumps = max(1, (n - 1).bit_length())
+    while True:
+        lu, lv = labels[src], labels[dst]
+        speckle_filter.syncs += 1
+        if torch.equal(lu, lv):
+            break
+        labels = labels.scatter_reduce(0, torch.maximum(lu, lv),
+                                       torch.minimum(lu, lv), "amin")
+        for _ in range(jumps):
+            labels = labels[labels]
+    size = torch.bincount(labels, minlength=n)
+    keep = (size[labels] > params.speckle_window_size).view(H, W)
+    return valid & keep
+
+
+speckle_filter.syncs = 0
 
 
 def sgbm_disparity16(left, right, params: SGBMParams):
@@ -77,19 +124,32 @@ def sgbm_disparity16(left, right, params: SGBMParams):
     device; invalid = (minDisparity - 1) * 16."""
     cap = max(params.pre_filter_cap, 15) | 1
     sent = int16_sentinel(params.block_size, cap)
-    _check_envelope(params, sent)
+    cost_sentinel = 8 * cap if sent is None else sent
+    _check_envelope(params, params.block_size ** 2 * cost_sentinel)
     if left.device != right.device:
         raise ValueError(f"device mismatch: {left.device} vs {right.device}")
     lp = prefilter_xsobel(left, cap)
     rp = prefilter_xsobel(right, cap)
     p1, p2 = 2 * params.effective_p1, 2 * params.effective_p2
-    C, s1 = sgbm_cuda.cost_hsweep(lp, rp, params.min_disparity,
-                                  params.num_disparities, params.block_size,
-                                  sent, p1, p2)
-    sv = sgbm_cuda.vsweep3(C, p1, p2)
-    return sgbm_cuda.hsweep_wta_lr(C, s1, sv, p1, p2, params.min_disparity,
-                                   params.uniqueness_ratio,
-                                   params.disp12_max_diff)
+    bf16 = 2 * cap <= 127
+    cost_args = (lp, rp, params.min_disparity, params.num_disparities,
+                 params.block_size, cost_sentinel)
+    if sent is not None:
+        C, s1 = sgbm_cuda.cost_hsweep(*cost_args, p1, p2, bf16)
+    else:
+        C = sgbm_cuda.cost_volume(*cost_args, bf16)
+        s1 = sgbm_cuda.hsweep(C, p1, p2)
+    paths = params.num_paths
+    sv = sgbm_cuda.vsweep(C, p1, p2, diagonals=paths != 4, down=True,
+                          up=paths != 5)
+    out = sgbm_cuda.hsweep_wta_lr(C, s1, sv, p1, p2, params.min_disparity,
+                                  params.uniqueness_ratio,
+                                  params.disp12_max_diff)
+    if params.speckle_window_size > 0 and params.speckle_range > 0:
+        invalid = (params.min_disparity - 1) * 16
+        keep = speckle_filter(out, out != invalid, params)
+        out = torch.where(keep, out, invalid)
+    return out
 
 
 def sgbm_disparity(left, right, params: SGBMParams):

@@ -74,13 +74,13 @@ def test_cost_volume_and_forward_partials(block, min_disp):
                                               block_size=block, cap=63),
                          block)
     C, s1 = sgbm_cuda.cost_hsweep(lt, rt, min_disp, D, block, sent, 400,
-                                  1600)
+                                  1600, True)
     np.testing.assert_array_equal(C.numpy(), np.asarray(Cj))
     s1j = jnp.swapaxes(jsgbm._scan_dirs(jnp.swapaxes(Cj, 0, 1), (0,), 200.0,
                                         800.0, False), 0, 1)
     np.testing.assert_array_equal(s1.numpy(), 2 * np.asarray(s1j))
     svj = jsgbm._scan_dirs(Cj, (0, 1, -1), 200.0, 800.0, False)
-    sv = sgbm_cuda.vsweep3(C, 400, 1600)
+    sv = sgbm_cuda.vsweep(C, 400, 1600, diagonals=True)
     np.testing.assert_array_equal(sv.numpy(), 2 * np.asarray(svj))
 
 
@@ -108,9 +108,8 @@ def test_sgbm_disparity_is_disp16_over_16():
 
 
 @pytest.mark.parametrize("change", [
-    dict(num_paths=8), dict(num_paths=4),
-    dict(speckle_window_size=100, speckle_range=2),
-    dict(block_size=13),   # no int16 sentinel at cap 63
+    # 5 paths x (25 x 504 + 2 x P2) x 32 disparities passes 2^31
+    dict(p2=20_000_000),
 ])
 def test_outside_envelope_raises(change):
     left, right = stereo_pair(32, 64)
@@ -123,13 +122,16 @@ def test_outside_envelope_raises(change):
 def test_cpu_tensors_take_the_plain_version_without_counting():
     lj, rj, lt, rt = prefiltered(24, 48)
     before = [k.launches for k in sgbm_cuda.KERNELS]
-    C, s1 = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, 5, 504, 400, 1600)
-    sv = sgbm_cuda.vsweep3(C, 400, 1600)
-    sgbm_cuda.hsweep_wta_lr(C, s1, sv, 400, 1600, 0, 10, 1)
+    C, s1 = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, 5, 504, 400, 1600, True)
+    sv = sgbm_cuda.vsweep(C, 400, 1600, diagonals=True, up=True)
+    C32 = C.to(torch.int32)
+    sgbm_cuda.hsweep(C32, 400, 1600, reverse=True, accum=sv)
+    sgbm_cuda.hsweep_wta_lr(C32, s1, sv, 400, 1600, 0, 10, 1)
     assert [k.launches for k in sgbm_cuda.KERNELS] == before
 
 
 def test_device_mismatch_raises():
     lt = torch.zeros((8, 40))
     with pytest.raises(ValueError, match="device mismatch"):
-        sgbm_cuda.cost_hsweep(lt, lt.to("meta"), 0, 32, 5, 504, 400, 1600)
+        sgbm_cuda.cost_hsweep(lt, lt.to("meta"), 0, 32, 5, 504, 400, 1600,
+                              True)
