@@ -38,17 +38,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaError_t of its launch.
 SIGNATURES = {
     # lp, rp, C, s1, H, W, D, min_disp, radius, sentinel, P1, P2, bf16,
-    # stream
-    "ovo_cost_hsweep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P),
-    # C, C's element bytes, sv, H, W, D, P1, P2, diagonals, down, up, stream
-    "ovo_vsweep": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # C, accumulator (or NULL), out, H, W, D, P1, P2, reverse, stream
-    "ovo_hsweep": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # C, C's element bytes, s1, sv, disp16, H, W, D, P1, P2, min_disp,
-    # uniqueness, disp12, stream
-    "ovo_hsweep_wta_lr": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P),
+    # row0, rows, clamp_lo, clamp_hi, stream
+    "ovo_cost_hsweep": (_P, _P, _P, _P) + (_I,) * 13 + (_P,),
+    # C, C is float32, sv, H, W, D, P1, P2, dir0, ndirs, down, up,
+    # init carry (or NULL), carry out (or NULL), stream
+    "ovo_vsweep": (_P, _I, _P) + (_I,) * 9 + (_P, _P, _P),
+    # C, out, H, W, D, P1, P2, stream
+    "ovo_hsweep": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # C, C is float32, s1, sv, svu (or NULL), disp16, H, W, D, P1, P2,
+    # min_disp, uniqueness, disp12, stream
+    "ovo_hsweep_wta_lr": (_P, _I, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     # wins, idx_p, idx_q, valid, out, K, S, N, stream
     "ovo_brief_describe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -18,14 +18,15 @@ images (a distorting camera's remap). Per frame:
   left-to-right scan) -> H2 (the vertical scans of the path count) -> H3
   over int16 costs (right-to-left scan, WTA, checks);
 - without one (blockSize >= 13 at preFilterCap 63, or preFilterCap > 327
-  at blockSize 5): the int32 cost volume and box sum in plain PyTorch, as
-  the JAX package leaves them to XLA -> H5 (left-to-right scan) -> H2 ->
-  H3 over int32 costs. On non-integer images this path truncates the cost
-  to the x2 grid where the JAX package keeps it in float32.
+  at blockSize 5): the float32 cost volume and box sum in plain PyTorch,
+  as the JAX package leaves them to XLA -> H5 (left-to-right scan) -> H2
+  (top-down, and bottom-up apart for 4 and 8 paths) -> H3, all in float32
+  on the x1 grid in the JAX package's order of operations, so fractional
+  images give JAX's bits here too.
 
 The speckle filter is plain PyTorch (:func:`speckle_filter`).
 ``NotImplementedError`` is raised, on every device, only where the packed
-int32 argmin key of H3 could overflow.
+int32 argmin key of H3 over int16 costs could overflow.
 """
 
 from __future__ import annotations
@@ -119,32 +120,50 @@ def speckle_filter(disp16, valid, params: SGBMParams):
 speckle_filter.syncs = 0
 
 
+def cost_and_forward(lp, rp, params: SGBMParams, cap: int, band=None):
+    """(C, s1, p1, p2) of prefiltered images: the box-summed cost and the
+    left-to-right partial, with the penalties on C's grid. With an int16
+    sentinel: H1 on the x2 grid (int16 C, int32 s1); without one: the
+    float32 cost volume and H5 on the x1 grid. ``band`` as
+    ``sgbm_cuda.band_rows``."""
+    sent = int16_sentinel(params.block_size, cap)
+    bf16 = 2 * cap <= 127
+    args = (lp, rp, params.min_disparity, params.num_disparities,
+            params.block_size)
+    if sent is not None:
+        _check_envelope(params, params.block_size ** 2 * sent)
+        p1, p2 = 2 * params.effective_p1, 2 * params.effective_p2
+        C, s1 = sgbm_cuda.cost_hsweep(*args, sent, p1, p2, bf16, band)
+        return C, s1, p1, p2
+    p1, p2 = params.effective_p1, params.effective_p2
+    C = sgbm_cuda.cost_volume_f32(*args, cap, bf16, band)
+    return C, sgbm_cuda.hsweep(C, p1, p2), p1, p2
+
+
+def vertical(C, p1: int, p2: int, num_paths: int):
+    """(sv, svu) for ``num_paths``: the top-down partial (with the bottom-up
+    one, over int16 C, in the same launch) and the bottom-up partial kept
+    apart over float32 C (else None), whose sum order H3 keeps."""
+    diagonals = num_paths != 4
+    if num_paths == 5 or C.dtype == torch.int16:
+        return sgbm_cuda.vsweep(C, p1, p2, diagonals, up=num_paths != 5), None
+    return (sgbm_cuda.vsweep(C, p1, p2, diagonals),
+            sgbm_cuda.vsweep(C, p1, p2, diagonals, down=False, up=True))
+
+
 def sgbm_disparity16(left, right, params: SGBMParams):
     """Full SGBM pipeline -> (H, W) int16 disparity x16 on the images'
     device; invalid = (minDisparity - 1) * 16."""
-    cap = max(params.pre_filter_cap, 15) | 1
-    sent = int16_sentinel(params.block_size, cap)
-    cost_sentinel = 8 * cap if sent is None else sent
-    _check_envelope(params, params.block_size ** 2 * cost_sentinel)
     if left.device != right.device:
         raise ValueError(f"device mismatch: {left.device} vs {right.device}")
+    cap = max(params.pre_filter_cap, 15) | 1
     lp = prefilter_xsobel(left, cap)
     rp = prefilter_xsobel(right, cap)
-    p1, p2 = 2 * params.effective_p1, 2 * params.effective_p2
-    bf16 = 2 * cap <= 127
-    cost_args = (lp, rp, params.min_disparity, params.num_disparities,
-                 params.block_size, cost_sentinel)
-    if sent is not None:
-        C, s1 = sgbm_cuda.cost_hsweep(*cost_args, p1, p2, bf16)
-    else:
-        C = sgbm_cuda.cost_volume(*cost_args, bf16)
-        s1 = sgbm_cuda.hsweep(C, p1, p2)
-    paths = params.num_paths
-    sv = sgbm_cuda.vsweep(C, p1, p2, diagonals=paths != 4, down=True,
-                          up=paths != 5)
+    C, s1, p1, p2 = cost_and_forward(lp, rp, params, cap)
+    sv, svu = vertical(C, p1, p2, params.num_paths)
     out = sgbm_cuda.hsweep_wta_lr(C, s1, sv, p1, p2, params.min_disparity,
                                   params.uniqueness_ratio,
-                                  params.disp12_max_diff)
+                                  params.disp12_max_diff, svu)
     if params.speckle_window_size > 0 and params.speckle_range > 0:
         invalid = (params.min_disparity - 1) * 16
         keep = speckle_filter(out, out != invalid, params)

@@ -1,23 +1,28 @@
 """SGBM volume kernels H1, H2, H3 and H5 (``csrc/sgbm.cu``) and their plain
 versions.
 
-Everything here works on the exact x2 grid: costs are the Birchfield-Tomasi
-half-integer costs times two, held as integers, and penalties are 2*P1 and
-2*P2. Two roundings of the JAX package's CPU path are reproduced on purpose:
+Two arithmetic paths, each reproducing the JAX package's CPU path bit for
+bit:
 
-- the cost itself: for ``2*cap <= 127`` the JAX package computes the
-  envelopes and the cost in bfloat16, rounding after every add and
-  subtract, then truncates the doubled cost to an integer
-  (:func:`bt_cost_volume2` with ``bf16``). On integer images this is exact;
-  on the fractional images of a distorting camera's remap it is not.
-- a scan starts from a carry of 1e9, so its first L is ``(c + 1e9) - 1e9``
-  in float32, which rounds ``c`` half-to-even to a multiple of 64 (x1
-  grid), i.e. the x2 cost to a multiple of 128 (:func:`fresh_start`). That
-  happens at the first column of a horizontal scan, the first row of a
-  vertical one, and every row's edge column of a diagonal one.
-
-Every other step of the aggregation is exact integer arithmetic, so any
-summation order gives the same bits.
+- **int16 (x2 grid)**, where an int16 sentinel exists (the default
+  configurations): costs are the Birchfield-Tomasi half-integer costs times
+  two, held as integers, and penalties are 2*P1 and 2*P2. For ``2*cap <=
+  127`` the JAX package computes the envelopes and the cost in bfloat16,
+  rounding after every add and subtract, then truncates the doubled cost
+  (:func:`bt_cost_volume2` with ``bf16``). A scan starts from a float32
+  carry of 1e9, so its first L is ``(c + 1e9) - 1e9``, which rounds ``c``
+  half-to-even to a multiple of 64 (x1 grid), i.e. the x2 cost to a
+  multiple of 128 (:func:`fresh_start`): at the first column of a
+  horizontal scan, the first row of a vertical one, and every row's edge
+  column of a diagonal one. Every other step is exact integer arithmetic,
+  so any summation order gives the same bits.
+- **float32 (x1 grid)**, without an int16 sentinel (blockSize >= 13 at
+  preFilterCap 63, or cap > 327): the JAX package keeps the (bfloat16 or
+  float32) cost in float32 through the box sum, the scans (a carry of 1e9)
+  and the WTA. On fractional images these roundings matter, so every
+  function here does JAX's float32 operations in JAX's order
+  (:func:`cost_volume_f32`, :func:`scan_f32`), and the kernels use
+  ``__fadd_rn``/``__fsub_rn``/``__fmul_rn`` so that nothing is contracted.
 
 Volumes are (H, W, D) with the disparity axis innermost: one thread per
 disparity reads and writes D neighbouring values at each pixel.
@@ -25,17 +30,18 @@ disparity reads and writes D neighbouring values at each pixel.
 Kernels (one wrapper each; a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises):
 
-- H1 :func:`cost_hsweep`: int16 cost volume + box sum + left-to-right scan.
+- H1 :func:`cost_hsweep`: int16 cost volume + box sum + left-to-right scan,
+  of a whole image or of a row band with halo rows (K1's ``band_halo``).
 - H2 :func:`vsweep`: the vertical scans (straight, or with both
-  diagonals), top-down, bottom-up or both, summed into one int32 volume.
-- H5 :func:`hsweep`: one horizontal scan over an int32 cost volume, with an
-  optional accumulator.
+  diagonals), over int16 or float32 C, with an optional carry in and out
+  (K2's ``init_carry``/``return_carry``).
+- H5 :func:`hsweep`: the left-to-right scan over a float32 cost volume.
 - H3 :func:`hsweep_wta_lr`: right-to-left scan, WTA, uniqueness, subpixel,
   left-right check and the invalid encoding, to the final int16 disparity;
-  over an int16 or an int32 cost volume.
+  over int16 or float32 C.
 
-Without an int16 sentinel the cost volume is built by :func:`cost_volume`,
-plain PyTorch on every device (the JAX package leaves that stage to XLA).
+The float32 cost volume and box sum (:func:`cost_volume_f32`) are plain
+PyTorch on every device, as the JAX package leaves that stage to XLA.
 """
 
 from __future__ import annotations
@@ -46,8 +52,10 @@ from openvo_tpu_torch import _build
 from openvo_tpu_torch.ops._dispatch import (check_cuda_input, device_of,
                                             stream_handle)
 
-_BIG = 1 << 28      # "infinite" L at the disparity range's ends
-_BIG_KEY = 1 << 30  # out-of-range right-view cost
+_BIG = 1 << 28      # "infinite" L at the disparity range's ends (x2 grid)
+_BIG_KEY = 1 << 30  # out-of-range right-view cost (x2 grid)
+BIG_F = 1e9         # the JAX package's float32 carry and fill (sgbm.BIG)
+XSHIFTS = (0, 1, -1)  # the vertical directions, in the JAX package's order
 
 
 def fresh_start(c2):
@@ -57,22 +65,16 @@ def fresh_start(c2):
 
 
 # ---------------------------------------------------------------------------
-# plain versions
+# plain versions: the cost
 # ---------------------------------------------------------------------------
 
 
-def bt_cost_volume2(lp, rp, min_disp: int, num_disp: int, sentinel: int,
-                    bf16: bool):
-    """(H, W, D) int32 Birchfield-Tomasi cost x2 between prefiltered images,
-    with the JAX package's edge semantics: neighbours at x +/- 1 wrap around
-    the row (``jnp.roll``), and any sample whose right-image column, or a
-    neighbour's, falls outside the image gets ``sentinel``.
-
-    With ``bf16`` (the JAX package's choice when ``2*cap <= 127``) the
-    images are rounded to bfloat16 and every add and subtract of the
-    envelopes and the cost is rounded to bfloat16, as XLA does; the doubled
-    cost is then truncated to an integer. Otherwise the arithmetic is
-    float32."""
+def _bt_cost(lp, rp, min_disp: int, num_disp: int, bf16: bool):
+    """(H, W, D) float32 Birchfield-Tomasi cost, NaN where the right
+    image's column, or a neighbour's, falls outside the image. Neighbours at
+    x +/- 1 wrap around the row (``jnp.roll``), as in the JAX package. With
+    ``bf16`` the images and every add and subtract are rounded to
+    bfloat16, as XLA does; otherwise the arithmetic is float32."""
     H, W = lp.shape
     dev = lp.device
     wd = torch.bfloat16 if bf16 else torch.float32
@@ -99,115 +101,215 @@ def bt_cost_volume2(lp, rp, min_disp: int, num_disp: int, sentinel: int,
     c_l = torch.maximum(zero, torch.maximum(lp3 - r_hi, r_lo - lp3))
     c_r = torch.maximum(zero, torch.maximum(r_sh - l_hi[..., None],
                                             l_lo[..., None] - r_sh))
-    cost = torch.minimum(c_l, c_r).to(torch.float32)
-    cost2 = torch.where(torch.isnan(cost), float(sentinel), cost * 2.0)
-    return cost2.to(torch.int32)
+    return torch.minimum(c_l, c_r).to(torch.float32)
 
 
-def block_sum(vol, block_size: int):
-    """block_size x block_size box sum of an (H, W, D) integer volume with
-    edge-replicated borders, as int32 (exact)."""
-    v = vol.to(torch.int32)
-    if block_size <= 1:
-        return v
+def bt_cost_volume2(lp, rp, min_disp: int, num_disp: int, sentinel: int,
+                    bf16: bool):
+    """(H, W, D) int32 Birchfield-Tomasi cost x2 between prefiltered images
+    (:func:`_bt_cost` doubled and truncated), ``sentinel`` where a sample
+    falls outside the image."""
+    cost = _bt_cost(lp, rp, min_disp, num_disp, bf16)
+    return torch.where(torch.isnan(cost), float(sentinel),
+                       cost * 2.0).to(torch.int32)
+
+
+def band_rows(n_rows: int, band=None):
+    """(row0, rows, clamp_lo, clamp_hi) of the rows a box sum produces and
+    the rows it may read. Without ``band``: every row, edge-replicated at
+    the image's top and bottom. With ``band = (halo, is_top, is_bot)`` the
+    ``n_rows`` rows are a tile's ``rows = n_rows - 2*halo`` core rows with
+    ``halo`` real rows from each neighbour tile; a tile at the image's top
+    (bottom) edge replicates its first (last) core row's cost instead, as
+    the single-device box sum does (K1's ``band_halo``,
+    ``openvo_tpu/ops/sgbm_pallas.py:240-247``)."""
+    if band is None:
+        return 0, n_rows, 0, n_rows - 1
+    halo, is_top, is_bot = band
+    rows = n_rows - 2 * halo
+    if rows < 1:
+        raise ValueError(f"a band of {n_rows} rows has no core rows with a "
+                         f"halo of {halo}")
+    return (halo, rows, halo if is_top else 0,
+            halo + rows - 1 if is_bot else n_rows - 1)
+
+
+def block_sum(vol, block_size: int, band=None):
+    """block_size x block_size box sum of an (H, W, D) volume with
+    edge-replicated borders (see :func:`band_rows` for ``band``), in the
+    JAX package's order: rows i = 0..bs-1 added one at a time, then columns
+    the same way. Exact for integers; the JAX package's rounding for
+    float32."""
+    row0, rows, lo, hi = band_rows(vol.shape[0], band)
     r = block_size // 2
-    H, W = vol.shape[:2]
+    W = vol.shape[1]
     dev = vol.device
-    rows = torch.arange(H, device=dev)
-    acc = sum(v[(rows + i - r).clamp(0, H - 1)] for i in range(block_size))
-    cols = torch.arange(W, device=dev)
-    return sum(acc[:, (cols + i - r).clamp(0, W - 1)]
-               for i in range(block_size))
+    ys = torch.arange(row0, row0 + rows, device=dev)
+    acc = vol[(ys - r).clamp(lo, hi)]
+    for i in range(1, block_size):
+        acc = acc + vol[(ys + i - r).clamp(lo, hi)]
+    xs = torch.arange(W, device=dev)
+    out = acc[:, (xs - r).clamp(0, W - 1)]
+    for i in range(1, block_size):
+        out = out + acc[:, (xs + i - r).clamp(0, W - 1)]
+    return out
 
 
-def cost_volume(lp, rp, min_disp: int, num_disp: int, block_size: int,
-                sentinel: int, bf16: bool):
-    """Box-summed (H, W, D) int32 cost x2, for configurations without an
-    int16 sentinel (``sentinel`` = 8*cap, the JAX package's 4*cap on the x1
-    grid). Plain PyTorch on every device, as the JAX package leaves this
-    stage to XLA; on integer images it equals the JAX float32 volume x2."""
-    return block_sum(bt_cost_volume2(lp, rp, min_disp, num_disp, sentinel,
-                                     bf16), block_size)
+def cost_volume_f32(lp, rp, min_disp: int, num_disp: int, block_size: int,
+                    cap: int, bf16: bool, band=None):
+    """Box-summed (H, W, D) float32 cost on the x1 grid, for configurations
+    without an int16 sentinel: the BT cost without doubling or truncation,
+    4*cap where a sample falls outside the image, then :func:`block_sum` in
+    float32 (``openvo_tpu/ops/sgbm.py:156-171``). Plain PyTorch on every
+    device, as the JAX package leaves this stage to XLA."""
+    cost = _bt_cost(lp, rp, min_disp, num_disp, bf16)
+    cost = torch.where(torch.isnan(cost), float(4 * cap), cost)
+    return block_sum(cost, block_size, band)
 
 
-def sgm_step(prev, c2, p1: int, p2: int):
+# ---------------------------------------------------------------------------
+# plain versions: the scans
+# ---------------------------------------------------------------------------
+
+
+def _shift_x(prev, k: int, fill):
+    """prev at axis-0 offset -k (``_shift_x`` of the JAX package), ``fill``
+    where that falls outside."""
+    if k == 0:
+        return prev
+    pad = torch.full_like(prev[:1], fill)
+    if k == 1:
+        return torch.cat([pad, prev[:-1]])
+    return torch.cat([prev[1:], pad])
+
+
+def _step(pr, c, p1, p2, big):
     """One recurrence step L = C + min(L', L'(d+-1) + P1, min L' + P2) - min L'
-    over the last axis, on int32."""
-    minprev = prev.amin(-1, keepdim=True)
-    big = torch.full_like(prev[..., :1], _BIG)
-    dn = torch.cat([big, prev[..., :-1]], -1)
-    up = torch.cat([prev[..., 1:], big], -1)
-    cand = torch.minimum(prev, torch.minimum(dn, up) + p1)
+    over the last axis; in float32 each operation rounds as in the JAX
+    package's ``_scan_dirs``."""
+    minprev = pr.amin(-1, keepdim=True)
+    fill = torch.full_like(pr[..., :1], big)
+    dn = torch.cat([fill, pr[..., :-1]], -1)
+    up = torch.cat([pr[..., 1:], fill], -1)
+    cand = torch.minimum(pr, torch.minimum(dn, up) + p1)
     cand = torch.minimum(cand, minprev + p2)
-    return c2 + cand - minprev
+    return (c + cand) - minprev
 
 
-def sgm_scan(cost2, xshift: int, p1: int, p2: int, reverse: bool = False):
-    """L of one direction along axis 0 of an (N0, N1, D) int32 cost; the
-    previous L is read at axis-1 offset ``-xshift`` (0: straight, +1/-1:
-    diagonal), also when the scan runs backwards (``reverse``), as in the
-    JAX package's ``_scan_dirs``. Starts afresh at the first row walked and
-    at the edge column a diagonal shifts in (column 0 for +1, N1 - 1 for
-    -1, in either order)."""
-    n0 = cost2.shape[0]
+def _rows(n0: int, reverse: bool):
+    return range(n0 - 1, -1, -1) if reverse else range(n0)
+
+
+def sgm_scan(cost2, xshift: int, p1: int, p2: int, reverse: bool = False,
+             init=None, return_carry: bool = False):
+    """L of one direction along axis 0 of an (N0, N1, D) cost on the x2
+    grid, as int32; the previous L is read at axis-1 offset ``-xshift``
+    (0: straight, +1/-1: diagonal), also when the scan runs backwards
+    (``reverse``), as in the JAX package's ``_scan_dirs``.
+
+    The first row walked takes its previous L from ``init`` (N1, D) int32,
+    shifted like any other, or starts afresh without it; a line whose
+    shifted-in previous value is absent (column 0 for +1, N1 - 1 for -1)
+    starts afresh on every row (``_shift_carry``,
+    ``openvo_tpu/ops/sgbm_pallas.py:415-421``). ``return_carry`` also
+    returns the L of the last row walked."""
     out = torch.empty_like(cost2, dtype=torch.int32)
-    prev = None
-    for i in (range(n0 - 1, -1, -1) if reverse else range(n0)):
+    prev = init
+    for i in _rows(cost2.shape[0], reverse):
         c = cost2[i].to(torch.int32)
         if prev is None:
             L = fresh_start(c)
         else:
-            pr = prev
-            if xshift == 1:
-                pr = torch.cat([torch.full_like(prev[:1], _BIG), prev[:-1]])
-            elif xshift == -1:
-                pr = torch.cat([prev[1:], torch.full_like(prev[:1], _BIG)])
-            L = sgm_step(pr, c, p1, p2)
+            L = _step(_shift_x(prev, xshift, _BIG), c, p1, p2, _BIG)
             if xshift == 1:
                 L[0] = fresh_start(c[0])
             elif xshift == -1:
                 L[-1] = fresh_start(c[-1])
         out[i] = L
         prev = L
-    return out
+    return (out, prev) if return_carry else out
+
+
+def scan_f32(cost, xshift: int, p1: float, p2: float, reverse: bool = False,
+             init=None, return_carry: bool = False):
+    """:func:`sgm_scan` on the x1 grid in float32, literally the JAX
+    package's ``_scan_dirs`` for one direction: the carry starts at 1e9
+    (or ``init``), the shift fills 1e9, and the first L of a line is
+    ``(c + 1e9) - 1e9`` by the recurrence itself."""
+    out = torch.empty_like(cost, dtype=torch.float32)
+    prev = (torch.full(cost.shape[1:], BIG_F, dtype=torch.float32,
+                       device=cost.device) if init is None else init)
+    for i in _rows(cost.shape[0], reverse):
+        prev = _step(_shift_x(prev, xshift, BIG_F), cost[i], float(p1),
+                     float(p2), BIG_F)
+        out[i] = prev
+    return (out, prev) if return_carry else out
 
 
 def cost_hsweep_plain(lp, rp, min_disp, num_disp, block_size, sentinel, p1,
-                      p2, bf16):
-    """Plain H1: (C (H, W, D) int16, s1 (H, W, D) int32 forward
-    horizontal L), penalties on the x2 grid."""
-    C = cost_volume(lp, rp, min_disp, num_disp, block_size, sentinel,
-                    bf16).to(torch.int16)
+                      p2, bf16, band=None):
+    """Plain H1: (C (rows, W, D) int16, s1 (rows, W, D) int32 forward
+    horizontal L), penalties on the x2 grid; ``band`` as
+    :func:`band_rows`."""
+    C = block_sum(bt_cost_volume2(lp, rp, min_disp, num_disp, sentinel,
+                                  bf16), block_size, band).to(torch.int16)
     s1 = sgm_scan(C.transpose(0, 1), 0, p1, p2).transpose(0, 1)
     return C, s1.contiguous()
 
 
 def vsweep_plain(C, p1, p2, diagonals: bool, down: bool = True,
-                 up: bool = False):
-    """Plain H2: the sum, as int32, of the vertical scans (with both
-    diagonals if ``diagonals``) walked top-down (``down``) and bottom-up
-    (``up``)."""
-    xshifts = (0, 1, -1) if diagonals else (0,)
+                 up: bool = False, init_carry=None,
+                 return_carry: bool = False):
+    """Plain H2: the sum of the vertical scans (with both diagonals if
+    ``diagonals``) walked top-down (``down``) and bottom-up (``up``).
+
+    Over int16 C (x2 grid): int32, in any order. Over float32 C (x1 grid):
+    one direction of travel, summed in the JAX package's order
+    ``(L(0) + L(+1)) + L(-1)``.
+
+    ``init_carry`` (ndirs, W, D) seeds the first row walked of each
+    direction; ``return_carry`` also returns the (ndirs, W, D) L of the last
+    row walked. Both need one direction of travel."""
+    xshifts = XSHIFTS if diagonals else (0,)
     ways = [False] * down + [True] * up
-    return sum(sgm_scan(C, k, p1, p2, reverse=r) for r in ways
-               for k in xshifts)
+    _check_ways(C, ways, init_carry is not None or return_carry)
+    scan = sgm_scan if C.dtype == torch.int16 else scan_f32
+    total, carry = None, []
+    for reverse in ways:
+        for j, k in enumerate(xshifts):
+            L, last = scan(C, k, p1, p2, reverse,
+                           None if init_carry is None else init_carry[j],
+                           return_carry=True)
+            total = L if total is None else total + L
+            carry.append(last)
+    return (total, torch.stack(carry)) if return_carry else total
 
 
-def hsweep_plain(C, p1, p2, reverse: bool = False, accum=None):
-    """Plain H5: L of the left-to-right (or, ``reverse``, right-to-left)
-    scan of an (H, W, D) int32 cost, plus ``accum`` if given."""
-    L = sgm_scan(C.transpose(0, 1), 0, p1, p2, reverse).transpose(0, 1)
-    return (L if accum is None else L + accum).contiguous()
+def hsweep_plain(C, p1, p2):
+    """Plain H5: L of the left-to-right scan of an (H, W, D) float32 cost."""
+    return scan_f32(C.transpose(0, 1), 0, p1, p2).transpose(0, 1).contiguous()
 
 
-def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12):
-    """Plain H3: the right-to-left scan, S = L + s1 + sv, WTA (lowest d on
-    ties), uniqueness, parabolic subpixel on the x16 grid, left-right
-    check, left band and the invalid value -> (H, W) int16."""
+def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12,
+                        svu=None):
+    """Plain H3: the right-to-left scan L, S = L + s1 + sv (+ svu), WTA
+    (lowest d on ties), uniqueness, parabolic subpixel on the x16 grid,
+    left-right check, left band and the invalid value -> (H, W) int16.
+
+    Over int16 C the sums are int32 on the x2 grid; over float32 C they are
+    float32 in the JAX package's order, ``((s1 + L) + sv) + svu``."""
     H, W, D = C.shape
     dev = C.device
-    L = sgm_scan(C.transpose(0, 1), 0, p1, p2, reverse=True).transpose(0, 1)
-    S = L + s1 + sv
+    f32 = C.dtype == torch.float32
+    Ct = C.transpose(0, 1)
+    if f32:
+        L = scan_f32(Ct, 0, p1, p2, reverse=True).transpose(0, 1)
+        S = (s1 + L) + sv
+    else:
+        L = sgm_scan(Ct, 0, p1, p2, reverse=True).transpose(0, 1)
+        S = L + s1 + sv
+    if svu is not None:
+        S = S + svu
     best = S.argmin(-1)
     minS = S.amin(-1)
     d_idx = torch.arange(D, device=dev)
@@ -216,17 +318,19 @@ def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12):
         # the JAX package's float32 test on the x1 grid: the products round
         # once S * 90 passes 2^24 (blockSize 13, 5 paths)
         far = (d_idx - best[..., None]).abs() > 1
-        s_x1 = S.to(torch.float32) * 0.5
-        ms_x1 = minS.to(torch.float32) * 0.5
+        scale = 1.0 if f32 else 0.5
+        s_x1 = S.to(torch.float32) * scale
+        ms_x1 = minS.to(torch.float32) * scale
         bad = (far & (s_x1 * float(100 - uniqueness)
                       < (ms_x1 * 100.0)[..., None])).any(-1)
         valid &= ~bad
     s_m = S.gather(-1, (best - 1).clamp(0, D - 1)[..., None])[..., 0]
     s_p = S.gather(-1, (best + 1).clamp(0, D - 1)[..., None])[..., 0]
-    denom = s_m + s_p - 2 * minS
+    # On the x2 grid the integer ratio (s_m - s_p) / (2 denom) is the same
+    # real number as on the x1 grid, and both operands are exact: the
+    # float32 quotient is identical.
+    denom = (s_m + s_p) - 2 * minS
     interior = (best > 0) & (best < D - 1) & (denom > 0)
-    # x1-grid (s_m - s_p) / (2 denom) is the same real number as this x2
-    # ratio, and both operands are exact: the float32 quotient is identical.
     ratio = (s_m - s_p).to(torch.float32) / torch.clamp_min(
         2.0 * denom.to(torch.float32), 1e-9)
     frac = torch.where(interior, ratio, 0.0).clamp(-0.5, 0.5)
@@ -238,7 +342,7 @@ def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12):
         src = x[:, None] + d_idx[None, :]
         costR = torch.where((src < W)[None],
                             S[:, src.clamp(max=W - 1), d_idx[None, :]],
-                            _BIG_KEY)
+                            BIG_F if f32 else _BIG_KEY)
         bestR = costR.argmin(-1)
         xr = x[None, :] - best
         dR = torch.where(xr >= 0, bestR.gather(1, xr.clamp(min=0)), -(1 << 20))
@@ -251,98 +355,126 @@ def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_C_TYPES = (torch.int16, torch.int32)
+_C_TYPES = (torch.int16, torch.float32)
 
 
 def cost_hsweep(lp, rp, min_disp: int, num_disp: int, block_size: int,
-                sentinel: int, p1: int, p2: int, bf16: bool):
-    """H1, replacing ``sgbm_pallas.cost_sweep_fused`` (K1). (C int16, s1
-    int32) for float32 prefiltered images; penalties on the x2 grid;
-    ``bf16`` rounds the cost arithmetic as :func:`bt_cost_volume2`.
+                sentinel: int, p1: int, p2: int, bf16: bool, band=None):
+    """H1, replacing ``sgbm_pallas.cost_sweep_fused`` (K1), with its
+    ``band_halo`` variant. (C int16, s1 int32) for float32 prefiltered
+    images; penalties on the x2 grid; ``bf16`` rounds the cost arithmetic
+    as :func:`bt_cost_volume2`. With ``band = (halo, is_top, is_bot)`` the
+    images are a row tile with ``halo`` rows from each neighbour and only
+    the core rows are returned (:func:`band_rows`).
 
-    One block per image row, one thread per disparity, walking x left to
-    right: the BT cost of the 2r+1 rows around the row, their column sum
-    (edge rows replicated) into a per-thread ring of 2r+1 column sums for
-    the sliding horizontal box sum, then the forward SGM step with the min
-    over d by warp shuffles and shared memory. Bound on the H100 by the
-    serial walk over W (one block barrier per column) rather than by bytes:
-    it writes 6 bytes per volume element. The design keeps every cost
-    intermediate in registers and only C and s1 reach device memory."""
+    One block per output row, one thread per disparity, walking x left to
+    right: the BT cost of the 2r+1 rows around the row (clamped to the rows
+    :func:`band_rows` allows), their column sum into a per-thread ring of
+    2r+1 column sums for the sliding horizontal box sum, then the forward
+    SGM step with the min over d by warp shuffles and shared memory. Bound
+    on the H100 by the serial walk over W (one block barrier per column)
+    rather than by bytes: it writes 6 bytes per volume element. The design
+    keeps every cost intermediate in registers and only C and s1 reach
+    device memory; a band reads its halo rows where the JAX kernel's edge
+    fix-up replaces their cost, so the band costs no extra pass."""
     dev = device_of(lp, rp)
     if dev.type == "cpu":
         return cost_hsweep_plain(lp, rp, min_disp, num_disp, block_size,
-                                 sentinel, p1, p2, bf16)
+                                 sentinel, p1, p2, bf16, band)
     H, W = lp.shape
     check_cuda_input(lp, torch.float32, (H, W), "lp")
     check_cuda_input(rp, torch.float32, (H, W), "rp")
     _check_disparities(num_disp)
+    row0, rows, lo, hi = band_rows(H, band)
     lib = _build.library()
-    C = torch.empty((H, W, num_disp), dtype=torch.int16, device=dev)
-    s1 = torch.empty((H, W, num_disp), dtype=torch.int32, device=dev)
+    C = torch.empty((rows, W, num_disp), dtype=torch.int16, device=dev)
+    s1 = torch.empty((rows, W, num_disp), dtype=torch.int32, device=dev)
     err = lib.ovo_cost_hsweep(lp.data_ptr(), rp.data_ptr(), C.data_ptr(),
                               s1.data_ptr(), H, W, num_disp, min_disp,
                               block_size // 2, sentinel, p1, p2, int(bf16),
-                              stream_handle(dev))
+                              row0, rows, lo, hi, stream_handle(dev))
     cost_hsweep.launches += 1
     _build.check_launch(err, "cost_hsweep")
     return C, s1
 
 
 def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
-           up: bool = False):
+           up: bool = False, init_carry=None, return_carry: bool = False):
     """H2, replacing ``sgbm_pallas.sweep_v`` (K2) in its forward and reverse,
-    one- and three-direction variants. The sum of the vertical scans
-    (straight, or with both diagonals) walked top-down and/or bottom-up,
-    as (H, W, D) int32, over an int16 or int32 C: 5 paths take the
-    top-down trio, 8 paths both trios, 4 paths the straight line both ways.
+    one- and three-direction variants, with and without its carry in and
+    out. The sum of the vertical scans (straight, or with both diagonals)
+    walked top-down and/or bottom-up, as :func:`vsweep_plain`: int32 over
+    int16 C (5 paths take the top-down trio, 8 paths both trios, 4 paths
+    the straight line both ways, each in one launch), float32 over float32
+    C (one direction of travel a call).
+
+    ``init_carry``/``return_carry`` continue a sweep across a row-tile
+    boundary (``parallel/tiling.py``): a line that starts on the first row
+    walked reads its previous L from ``init_carry[dir][x - dx]`` where that
+    column exists, and the line that reaches the last row walked at column
+    x writes its L to ``carry[dir][x]``.
 
     One block per scan line, one thread per disparity: W vertical lines and
-    W+H-1 lines for each diagonal, per direction of travel, all in one
-    launch, each walked with its carry in shared memory. Every line adds
-    into one zeroed int32 volume with integer atomics, exact in any order.
-    Bound by the serial walk over H per line; the 4476 lines of the
-    top-down trio at KITTI size fill the card about twice over."""
-    dev = device_of(C)
+    W+H-1 lines for each diagonal, each walked with its carry in shared
+    memory. Over int16 C every line of every direction runs in one launch
+    and adds into one zeroed int32 volume with integer atomics, exact in
+    any order; over float32 C there is one launch per direction, in the
+    order 0, +1, -1, each adding ``acc = acc + L`` (every pixel lies on one
+    line of a direction, so no two blocks touch one element), which keeps
+    the JAX package's float32 sum order. Bound by the serial walk over H per
+    line; the 4476 lines of the top-down trio at KITTI size fill the card
+    about twice over."""
+    dev = device_of(C) if init_carry is None else device_of(C, init_carry)
+    _check_ways(C, [False] * down + [True] * up,
+                init_carry is not None or return_carry)
     if dev.type == "cpu":
-        return vsweep_plain(C, p1, p2, diagonals, down, up)
+        return vsweep_plain(C, p1, p2, diagonals, down, up, init_carry,
+                            return_carry)
     H, W, D = C.shape
     _check_cost(C, (H, W, D))
     _check_disparities(D)
-    if not (down or up):
-        raise ValueError("vsweep: no direction of travel")
+    nd = len(XSHIFTS) if diagonals else 1
+    acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
+    if init_carry is not None:
+        check_cuda_input(init_carry, acc_t, (nd, W, D), "init_carry")
     lib = _build.library()
-    sv = torch.zeros((H, W, D), dtype=torch.int32, device=dev)
-    err = lib.ovo_vsweep(C.data_ptr(), C.element_size(), sv.data_ptr(), H, W,
-                         D, p1, p2, int(diagonals), int(down), int(up),
-                         stream_handle(dev))
-    vsweep.launches += 1
-    _build.check_launch(err, "vsweep")
-    return sv
+    sv = torch.zeros((H, W, D), dtype=acc_t, device=dev)
+    carry = (torch.empty((nd, W, D), dtype=acc_t, device=dev)
+             if return_carry else None)
+    f32 = C.dtype == torch.float32
+    # (first direction, number of directions) of each launch: every
+    # direction in one over int16 C, one launch each over float32 C
+    for j0, n in [(j, 1) for j in range(nd)] if f32 else [(0, nd)]:
+        err = lib.ovo_vsweep(
+            C.data_ptr(), int(f32), sv.data_ptr(), H, W, D, p1, p2, j0, n,
+            int(down), int(up),
+            None if init_carry is None else init_carry[j0].data_ptr(),
+            None if carry is None else carry[j0].data_ptr(),
+            stream_handle(dev))
+        vsweep.launches += 1
+        _build.check_launch(err, "vsweep")
+    return (sv, carry) if return_carry else sv
 
 
-def hsweep(C, p1: int, p2: int, reverse: bool = False, accum=None):
-    """H5, replacing ``sgbm_pallas.sweep_h`` (K6). L of one horizontal scan
-    over an (H, W, D) int32 cost, left to right or (``reverse``) right to
-    left, plus ``accum`` if given, as int32; the configurations without an
-    int16 sentinel take their forward partial s1 from it.
+def hsweep(C, p1: int, p2: int):
+    """H5, replacing ``sgbm_pallas.sweep_h`` (K6) in its forward form: L of
+    the left-to-right scan over an (H, W, D) float32 cost on the x1 grid,
+    float32 (:func:`hsweep_plain`); the configurations without an int16
+    sentinel take their forward partial s1 from it.
 
     One block per row, one thread per disparity, walking x with the
-    previous L in shared memory and the min over d by warp shuffles. Bound
-    by the serial walk over W, one block barrier per column; it moves 8
-    (12 with ``accum``) bytes per volume element."""
-    dev = device_of(C) if accum is None else device_of(C, accum)
+    previous L in shared memory (1e9 at the start, as the JAX carry) and
+    the min over d by warp shuffles. Bound by the serial walk over W, one
+    block barrier per column; it moves 8 bytes per volume element."""
+    dev = device_of(C)
     if dev.type == "cpu":
-        return hsweep_plain(C, p1, p2, reverse, accum)
+        return hsweep_plain(C, p1, p2)
     H, W, D = C.shape
-    check_cuda_input(C, torch.int32, (H, W, D), "C")
-    if accum is not None:
-        check_cuda_input(accum, torch.int32, (H, W, D), "accum")
+    check_cuda_input(C, torch.float32, (H, W, D), "C")
     _check_disparities(D)
     lib = _build.library()
-    out = torch.empty((H, W, D), dtype=torch.int32, device=dev)
-    err = lib.ovo_hsweep(C.data_ptr(),
-                         None if accum is None else accum.data_ptr(),
-                         out.data_ptr(), H, W, D, p1, p2, int(reverse),
+    out = torch.empty((H, W, D), dtype=torch.float32, device=dev)
+    err = lib.ovo_hsweep(C.data_ptr(), out.data_ptr(), H, W, D, p1, p2,
                          stream_handle(dev))
     hsweep.launches += 1
     _build.check_launch(err, "hsweep")
@@ -350,36 +482,42 @@ def hsweep(C, p1: int, p2: int, reverse: bool = False, accum=None):
 
 
 def hsweep_wta_lr(C, s1, sv, p1: int, p2: int, min_disp: int,
-                  uniqueness: int, disp12: int):
-    """H3, replacing ``sgbm_pallas.sweep_hw_wta`` (K3) and, over an int32
-    C, ``sweep_h_wta`` (K7), with ``lr_lookup`` (K4) and the post-pass
-    between them. Final (H, W) int16 disparity x16.
+                  uniqueness: int, disp12: int, svu=None):
+    """H3, replacing ``sgbm_pallas.sweep_hw_wta`` (K3) and, over float32 C,
+    ``sweep_h_wta`` (K7), with ``lr_lookup`` (K4) and the post-pass
+    between them. Final (H, W) int16 disparity x16, as
+    :func:`hsweep_wta_lr_plain`; ``svu`` is the bottom-up vertical partial
+    where it is kept apart (the float32 sum order, and the row tiles).
 
     One block per row, one thread per disparity, walking x right to left:
-    the reverse scan, S = L + s1 + sv, one packed (S * D + d) min for the
-    argmin with the lowest d, the uniqueness vote by warp ballots, and the
-    right-view argmin over a D-slot ring of packed keys (slot x - d gets
-    S(x, d); slot x is complete once column x is done). best, bestR,
-    min S and S(best -+ 1) for the row stay in shared memory; an epilogue
-    in the same kernel does subpixel, the LR lookup bestR[x - best] (K4 as
-    a shared-memory read), uniqueness and the invalid encoding. Bound by the
-    serial walk over W; reads 10 (12 over int32 C) bytes per volume
-    element."""
-    dev = device_of(C, s1, sv)
+    the reverse scan, S, one packed min for the argmin with the lowest d
+    (int32 ``S * D + d`` over int16 C; over float32 C the 64-bit ``(bits of
+    S) << 32 | d``, as a non-negative float's bits keep its order), the
+    uniqueness vote by warp ballots, and the right-view argmin over a
+    D-slot ring of packed keys (slot x - d gets S(x, d); slot x is complete
+    once column x is done). best, bestR, min S and S(best -+ 1) for the row
+    stay in shared memory; an epilogue in the same kernel does subpixel,
+    the LR lookup bestR[x - best] (K4 as a shared-memory read), uniqueness
+    and the invalid encoding. Bound by the serial walk over W; reads 10
+    (12 over float32 C; 4 more with ``svu``) bytes per volume element."""
+    parts = (C, s1, sv) if svu is None else (C, s1, sv, svu)
+    dev = device_of(*parts)
     if dev.type == "cpu":
         return hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness,
-                                   disp12)
+                                   disp12, svu)
     H, W, D = C.shape
     _check_cost(C, (H, W, D))
-    check_cuda_input(s1, torch.int32, (H, W, D), "s1")
-    check_cuda_input(sv, torch.int32, (H, W, D), "sv")
+    acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
+    for name, t in zip(("s1", "sv", "svu"), parts[1:]):
+        check_cuda_input(t, acc_t, (H, W, D), name)
     _check_disparities(D)
     lib = _build.library()
     out = torch.empty((H, W), dtype=torch.int16, device=dev)
-    err = lib.ovo_hsweep_wta_lr(C.data_ptr(), C.element_size(), s1.data_ptr(),
-                                sv.data_ptr(), out.data_ptr(), H, W, D, p1,
-                                p2, min_disp, uniqueness, disp12,
-                                stream_handle(dev))
+    err = lib.ovo_hsweep_wta_lr(C.data_ptr(), int(C.dtype == torch.float32),
+                                s1.data_ptr(), sv.data_ptr(),
+                                None if svu is None else svu.data_ptr(),
+                                out.data_ptr(), H, W, D, p1, p2, min_disp,
+                                uniqueness, disp12, stream_handle(dev))
     hsweep_wta_lr.launches += 1
     _build.check_launch(err, "hsweep_wta_lr")
     return out
@@ -393,9 +531,17 @@ hsweep_wta_lr.launches = 0
 KERNELS = (cost_hsweep, vsweep, hsweep, hsweep_wta_lr)
 
 
+def _check_ways(C, ways, carry: bool) -> None:
+    if not ways:
+        raise ValueError("vsweep: no direction of travel")
+    if len(ways) > 1 and (carry or C.dtype == torch.float32):
+        raise ValueError("vsweep: a carry, or float32 C, takes one direction "
+                         "of travel a call")
+
+
 def _check_cost(C, shape) -> None:
     if C.dtype not in _C_TYPES:
-        raise TypeError(f"C: dtype {C.dtype}, expected int16 or int32")
+        raise TypeError(f"C: dtype {C.dtype}, expected int16 or float32")
     check_cuda_input(C, C.dtype, shape, "C")
 
 

@@ -73,51 +73,109 @@ def test_cost_hsweep_float32_costs_equal_plain(cuda):
     assert torch.equal(C, Cp) and torch.equal(s1, s1p)
 
 
-def int32_cost(dev, H, W, D, block=13):
+def f32_cost(dev, H, W, D, block=13):
+    """The float32 cost of a configuration without an int16 sentinel, on a
+    fractional pair."""
+    lp, rp = prefiltered_pair(dev, H, W, integer=False)
+    return sgbm_cuda.cost_volume_f32(lp, rp, 0, D, block, 63, True)
+
+
+def int16_cost(dev, H, W, D):
     lp, rp = prefiltered_pair(dev, H, W)
-    return sgbm_cuda.cost_volume(lp, rp, 0, D, block, 8 * 63, True)
+    return sgbm_cuda.cost_hsweep(lp, rp, 0, D, 5, 504, 400, 1600, True)[0]
 
 
-@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def cost_and_penalties(dev, dtype, H, W, D):
+    if dtype == torch.int16:
+        return int16_cost(dev, H, W, D), 400, 1600
+    return f32_cost(dev, H, W, D), 8 * 169, 32 * 169
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
 @pytest.mark.parametrize("D", [64, 48])
 @pytest.mark.parametrize("diagonals,down,up", [
     (True, True, False), (True, False, True), (True, True, True),
     (False, True, False), (False, False, True), (False, True, True)])
 def test_vsweep_variants_equal_plain(cuda, dtype, D, diagonals, down, up):
-    C = int32_cost(cuda, 40, 112, D)
-    p1, p2 = 2 * 8 * 169, 2 * 32 * 169
-    if dtype == torch.int16:
-        lp, rp = prefiltered_pair(cuda, 40, 112)
-        C, _ = sgbm_cuda.cost_hsweep(lp, rp, 0, D, 5, 504, 400, 1600, True)
-        p1, p2 = 400, 1600
+    """H2 over int16 C (one launch for every line) and over float32 C (one
+    launch per direction, one direction of travel a call)."""
+    C, p1, p2 = cost_and_penalties(cuda, dtype, 40, 112, D)
+    if dtype == torch.float32 and down and up:
+        with pytest.raises(ValueError):
+            sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up)
+        return
     n0 = sgbm_cuda.vsweep.launches
     sv = sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up)
-    assert sgbm_cuda.vsweep.launches == n0 + 1
+    launches = 3 if dtype == torch.float32 and diagonals else 1
+    assert sgbm_cuda.vsweep.launches == n0 + launches
     assert torch.equal(sv, sgbm_cuda.vsweep_plain(C, p1, p2, diagonals, down,
                                                   up))
 
 
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+@pytest.mark.parametrize("diagonals", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])
+def test_vsweep_carry_equals_plain(cuda, dtype, diagonals, reverse):
+    """H2 with K2's carry in and out, split at a row: each part equals the
+    plain version's, the carries are equal, and the joined parts equal the
+    unsplit sweep."""
+    C, p1, p2 = cost_and_penalties(cuda, dtype, 48, 112, 64)
+    ways = dict(down=not reverse, up=reverse)
+    split = 20
+    first, second = (C[split:], C[:split]) if reverse else (C[:split],
+                                                             C[split:])
+    a, carry = sgbm_cuda.vsweep(first, p1, p2, diagonals, **ways,
+                                return_carry=True)
+    a_p, carry_p = sgbm_cuda.vsweep_plain(first, p1, p2, diagonals, **ways,
+                                          return_carry=True)
+    assert torch.equal(a, a_p) and torch.equal(carry, carry_p)
+    b, carry2 = sgbm_cuda.vsweep(second, p1, p2, diagonals, **ways,
+                                 init_carry=carry, return_carry=True)
+    b_p, carry2_p = sgbm_cuda.vsweep_plain(second, p1, p2, diagonals, **ways,
+                                           init_carry=carry,
+                                           return_carry=True)
+    assert torch.equal(b, b_p) and torch.equal(carry2, carry2_p)
+    joined = torch.cat([b, a]) if reverse else torch.cat([a, b])
+    assert torch.equal(joined, sgbm_cuda.vsweep(C, p1, p2, diagonals, **ways))
+
+
+@pytest.mark.parametrize("where", ["top", "interior", "bottom"])
+def test_cost_hsweep_band_equals_plain(cuda, where):
+    """H1 on a row band with halo rows (K1's band_halo) equals its plain
+    version and the band's rows of the whole image's H1."""
+    lp, rp = prefiltered_pair(cuda, 64, 160)
+    halo, h_t = 3, 16
+    r0 = {"top": 0, "interior": 24, "bottom": 64 - h_t}[where]
+    rows = torch.arange(r0 - halo, r0 + h_t + halo, device=cuda).clamp(0, 63)
+    band = (halo, where == "top", where == "bottom")
+    args = (0, 64, 5, 504, 400, 1600, True)
+    C, s1 = sgbm_cuda.cost_hsweep(lp[rows], rp[rows], *args, band)
+    Cp, s1p = sgbm_cuda.cost_hsweep_plain(lp[rows], rp[rows], *args, band)
+    assert torch.equal(C, Cp) and torch.equal(s1, s1p)
+    Cw, s1w = sgbm_cuda.cost_hsweep(lp, rp, *args)
+    assert torch.equal(C, Cw[r0:r0 + h_t])
+    assert torch.equal(s1, s1w[r0:r0 + h_t])
+
+
 @pytest.mark.parametrize("D", [64, 48])
-def test_hsweep_equal_plain(cuda, reverse, D):
-    C = int32_cost(cuda, 40, 112, D)
-    p1, p2 = 2 * 8 * 169, 2 * 32 * 169
-    L = sgbm_cuda.hsweep(C, p1, p2, reverse)
-    assert torch.equal(L, sgbm_cuda.hsweep_plain(C, p1, p2, reverse))
-    acc = torch.arange(C.numel(), dtype=torch.int32, device=cuda).view(C.shape)
-    assert torch.equal(sgbm_cuda.hsweep(C, p1, p2, reverse, acc), L + acc)
+def test_hsweep_equal_plain(cuda, D):
+    """H5 over float32 C."""
+    C = f32_cost(cuda, 40, 112, D)
+    L = sgbm_cuda.hsweep(C, 8 * 169, 32 * 169)
+    assert torch.equal(L, sgbm_cuda.hsweep_plain(C, 8 * 169, 32 * 169))
 
 
 @pytest.mark.parametrize("D,paths", [(64, 5), (64, 8), (48, 4)])
-def test_hsweep_wta_lr_int32_equal_plain(cuda, D, paths):
-    """H3 over an int32 C, the port of K7, with uniqueness in float32."""
-    C = int32_cost(cuda, 48, 160, D)
-    p1, p2 = 2 * 8 * 169, 2 * 32 * 169
+def test_hsweep_wta_lr_float32_equal_plain(cuda, D, paths):
+    """H3 over float32 C (the port of K7), with the bottom-up partial kept
+    apart for 4 and 8 paths."""
+    C = f32_cost(cuda, 48, 160, D)
+    p1, p2 = 8 * 169, 32 * 169
     s1 = sgbm_cuda.hsweep(C, p1, p2)
-    sv = sgbm_cuda.vsweep(C, p1, p2, paths != 4, True, paths != 5)
+    sv, svu = sgbm.vertical(C, p1, p2, paths)
     wta = (p1, p2, 0, 10, 1)
-    d = sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta)
-    assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta))
+    d = sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta, svu)
+    assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta, svu))
 
 
 @pytest.mark.parametrize("change", [
@@ -165,6 +223,12 @@ def test_wrappers_reject_wrong_input(cuda):
         sgbm_cuda.cost_hsweep(lp, rp, 0, 1040, 5, 504, 400, 1600, True)
     C = torch.zeros((16, 64, 32), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
-        sgbm_cuda.vsweep(C, 400, 1600, True)
+        sgbm_cuda.vsweep(C.double(), 400, 1600, True)
+    with pytest.raises(ValueError):
+        sgbm_cuda.vsweep(C, 400, 1600, True, down=True, up=True)
+    with pytest.raises(TypeError):
+        sgbm_cuda.vsweep(C, 400, 1600, True,
+                         init_carry=torch.zeros((3, 64, 32), device=cuda,
+                                                dtype=torch.int32))
     with pytest.raises(TypeError):
         sgbm_cuda.hsweep(C.to(torch.int16), 400, 1600)

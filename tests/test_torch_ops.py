@@ -168,6 +168,7 @@ def test_cuda_path_import_turns_tf32_off():
 def test_port_never_imports_jax():
     code = ("import sys, openvo_tpu_torch\n"
             "import openvo_tpu_torch.models.stereo_odometer\n"
+            "import openvo_tpu_torch.parallel.tiling\n"
             "import openvo_tpu_torch.ops.sgbm_cuda, openvo_tpu_torch.ops.orb_cuda\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'openvo_tpu' or m.startswith('openvo_tpu.')]\n"

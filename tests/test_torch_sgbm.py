@@ -124,9 +124,11 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     before = [k.launches for k in sgbm_cuda.KERNELS]
     C, s1 = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, 5, 504, 400, 1600, True)
     sv = sgbm_cuda.vsweep(C, 400, 1600, diagonals=True, up=True)
-    C32 = C.to(torch.int32)
-    sgbm_cuda.hsweep(C32, 400, 1600, reverse=True, accum=sv)
-    sgbm_cuda.hsweep_wta_lr(C32, s1, sv, 400, 1600, 0, 10, 1)
+    sgbm_cuda.hsweep_wta_lr(C, s1, sv, 400, 1600, 0, 10, 1)
+    Cf = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, 13, 63, True)
+    s1f = sgbm_cuda.hsweep(Cf, 200, 800)
+    svf = sgbm_cuda.vsweep(Cf, 200, 800, diagonals=True)
+    sgbm_cuda.hsweep_wta_lr(Cf, s1f, svf, 200, 800, 0, 10, 1, svu=svf)
     assert [k.launches for k in sgbm_cuda.KERNELS] == before
 
 

@@ -1,9 +1,11 @@
 """The port's SGBM beyond the default configuration, against the JAX
 package's CPU path (the tier-1 oracle): non-integer images (the JAX
 package's bfloat16 cost arithmetic), 4 and 8 paths, configurations without
-an int16 sentinel, the speckle filter, and the partial scans each kernel's
-plain version computes. Integer outputs are bit-equal; the port's partial
-scans are twice JAX's (the port keeps the x2 grid)."""
+an int16 sentinel (float32 on the x1 grid, in JAX's order of operations),
+the speckle filter, and the partial scans each kernel's plain version
+computes. Integer outputs are bit-equal; the port's int16-path partial
+scans are twice JAX's (the port keeps the x2 grid there), its float32
+ones equal JAX's."""
 
 import jax
 import jax.numpy as jnp
@@ -118,7 +120,7 @@ def test_configurations_bit_equal_to_jax(name):
 
 def _scan_pair(block, cap=63):
     """JAX's box-summed cost (int16 x2, or float32 x1 without a sentinel)
-    and the port's (int16 or int32, x2) for one textured pair."""
+    and the port's (int16 x2, or float32 x1) for one textured pair."""
     left, right = textured_pair(40, 96, seed=block)
     lj, rj, lt, rt = prefiltered(left, right, cap)
     sent = sgbm.int16_sentinel(block, cap)
@@ -126,8 +128,8 @@ def _scan_pair(block, cap=63):
                                               block_size=block, cap=cap),
                          block)
     if sent is None:
-        C = sgbm_cuda.cost_volume(lt, rt, 0, 32, block, 8 * cap, True)
-        np.testing.assert_array_equal(C.numpy(), 2 * np.asarray(Cj))
+        C = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, block, cap, True)
+        np.testing.assert_array_equal(C.numpy(), np.asarray(Cj))
     else:
         C, _ = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, block, sent, 2, 4, True)
     return Cj, C
@@ -138,30 +140,91 @@ def _scan_pair(block, cap=63):
     (True, True), (False, False), (False, True)])
 def test_vertical_partials_are_twice_jax(block, diagonals, reverse):
     """H2's variants: the bottom-up trio (8 paths) and the straight line
-    either way (4 paths), over int16 (block 5) and int32 (block 13,
-    no sentinel) costs."""
+    either way (4 paths), over int16 costs (block 5: twice JAX's) and
+    float32 costs (block 13, no sentinel: equal to JAX's)."""
     Cj, C = _scan_pair(block)
-    p1, p2 = 8.0 * block * block, 32.0 * block * block
+    p1, p2 = 8 * block * block, 32 * block * block
     xshifts = (0, 1, -1) if diagonals else (0,)
-    ref = jsgbm._scan_dirs(Cj, xshifts, p1, p2, reverse)
-    sv = sgbm_cuda.vsweep(C, int(2 * p1), int(2 * p2), diagonals,
-                          down=not reverse, up=reverse)
-    np.testing.assert_array_equal(sv.numpy(), 2 * np.asarray(ref))
+    ref = np.asarray(jsgbm._scan_dirs(Cj, xshifts, float(p1), float(p2),
+                                      reverse))
+    if C.dtype == torch.int16:
+        p1, p2, ref = 2 * p1, 2 * p2, 2 * ref
+    sv = sgbm_cuda.vsweep(C, p1, p2, diagonals, down=not reverse,
+                          up=reverse)
+    np.testing.assert_array_equal(sv.numpy(), ref)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_hsweep_is_twice_jax(reverse):
-    """H5 over the int32 cost of a configuration without a sentinel, with
-    and without an accumulator."""
+    """The horizontal scans over the float32 cost of a configuration
+    without a sentinel equal JAX's: H5 left to right, and right to left
+    the scan H3 runs."""
     Cj, C = _scan_pair(13)
-    p1, p2 = 8.0 * 169, 32.0 * 169
-    ref = jnp.swapaxes(jsgbm._scan_dirs(jnp.swapaxes(Cj, 0, 1), (0,), p1, p2,
-                                        reverse), 0, 1)
-    L = sgbm_cuda.hsweep(C, int(2 * p1), int(2 * p2), reverse)
-    np.testing.assert_array_equal(L.numpy(), 2 * np.asarray(ref))
-    acc = torch.arange(C.numel(), dtype=torch.int32).view(C.shape)
-    both = sgbm_cuda.hsweep(C, int(2 * p1), int(2 * p2), reverse, accum=acc)
-    assert torch.equal(both, L + acc)
+    p1, p2 = 8 * 169, 32 * 169
+    ref = jnp.swapaxes(jsgbm._scan_dirs(jnp.swapaxes(Cj, 0, 1), (0,),
+                                        float(p1), float(p2), reverse), 0, 1)
+    if reverse:
+        L = sgbm_cuda.scan_f32(C.transpose(0, 1), 0, p1, p2,
+                               reverse=True).transpose(0, 1)
+    else:
+        L = sgbm_cuda.hsweep(C, p1, p2)
+    np.testing.assert_array_equal(L.numpy(), np.asarray(ref))
+
+
+def corridor_pair(shift=0.37, img_size=(240, 96)):
+    """Frame 0 of the synthetic corridor, both views resampled linearly by
+    a ``shift`` px horizontal shift: every pixel fractional."""
+    seq = render_stereo_sequence(n_frames=1, img_size=img_size, f=220.0,
+                                 baseline=0.4, seed=0)
+
+    def resample(img):
+        img = np.clip(img, 0, 255).astype(np.float32)
+        nxt = np.concatenate([img[:, 1:], img[:, -1:]], axis=1)
+        return ((1 - np.float32(shift)) * img
+                + np.float32(shift) * nxt).astype(np.float32)
+
+    return resample(seq["left"][0]), resample(seq["right"][0])
+
+
+@pytest.mark.parametrize("block,cap", [(13, 63), (5, 400)])
+def test_float32_costs_equal_jax_on_non_integer_images(block, cap):
+    """Without an int16 sentinel the raw float32 BT cost (bfloat16 formula
+    at cap 63, float32 at cap 400) and its box sum equal JAX's
+    ``bt_cost_volume`` + ``block_sum`` bit for bit on a fractional pair,
+    where the doubled and truncated x2 cost does not."""
+    left, right = corridor_pair()
+    lj, rj, lt, rt = prefiltered(left, right, cap)
+    assert sgbm.int16_sentinel(block, cap) is None
+    raw = np.asarray(jsgbm.bt_cost_volume(lj, rj, 0, 32, block_size=block,
+                                          cap=cap))
+    ours = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, 1, cap, 2 * cap <= 127)
+    np.testing.assert_array_equal(ours.numpy(), raw)
+    assert (np.floor(2 * raw) != 2 * raw).mean() > 0.01
+    Cj = np.asarray(jsgbm.block_sum(jnp.asarray(raw), block))
+    C = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, block, cap, 2 * cap <= 127)
+    np.testing.assert_array_equal(C.numpy(), Cj)
+
+
+FRACTIONAL = {
+    "5paths": params_kw(D=32, block=13, p1=8 * 169, p2=32 * 169),
+    "8paths": params_kw(D=32, block=13, p1=8 * 169, p2=32 * 169,
+                        num_paths=8),
+    "4paths": params_kw(D=32, block=13, p1=8 * 169, p2=32 * 169,
+                        num_paths=4),
+    "speckle": params_kw(D=32, block=13, p1=8 * 169, p2=32 * 169,
+                         speckle_window_size=50, speckle_range=2),
+}
+
+
+@pytest.mark.parametrize("name", list(FRACTIONAL))
+def test_no_sentinel_disparity_equals_jax_on_a_fractional_pair(name):
+    """blockSize 13 (no int16 sentinel) on the corridor frame shifted by
+    0.37 px: the float32 path gives JAX's disp16 bit for bit."""
+    left, right = corridor_pair()
+    kw = FRACTIONAL[name]
+    ref = jax_disp16(left, right, kw)
+    np.testing.assert_array_equal(port_disp16(left, right, kw), ref)
+    assert (ref > -16).mean() > 0.3
 
 
 def speckle_params(window=100, rng_=2):
@@ -212,16 +275,13 @@ def test_speckle_filter_matches_jax_on_random_islands(seed):
     assert 0 < keep.sum() < valid.sum()
 
 
-def test_compute_3d_with_distortion_matches_jax():
-    """A camera with a distortion vector: remap gives fractional pixels,
-    and the disparity stays bit-equal to JAX's (the bfloat16 cost); the 3D
-    image agrees to float32 rounding with the same invalid (inf) set."""
+def assert_compute_3d_matches_jax(block, p1, p2):
     seq = render_stereo_sequence(n_frames=1, img_size=(160, 120), f=140.0,
                                  baseline=0.5, seed=0)
     dist = np.array([-0.12, 0.03, 0.001, -0.001, 0.0])
     args = (seq["K"], dist, seq["K"], dist, {"R": seq["R"], "T": seq["T"]},
-            {"minDisparity": 0, "numDisparities": 32, "blockSize": 5,
-             "P1": 200, "P2": 800, "disp12MaxDiff": 1, "preFilterCap": 63,
+            {"minDisparity": 0, "numDisparities": 32, "blockSize": block,
+             "P1": p1, "P2": p2, "disp12MaxDiff": 1, "preFilterCap": 63,
              "uniquenessRatio": 10, "speckleWindowSize": 0,
              "speckleRange": 0}, (160, 120))
     left = np.clip(seq["left"][0], 0, 255).astype(np.uint8)
@@ -236,3 +296,16 @@ def test_compute_3d_with_distortion_matches_jax():
     np.testing.assert_array_equal(disp.numpy(), np.asarray(disp_j))
     assert (np.asarray(disp_j) >= 0).mean() > 0.3
     np.testing.assert_allclose(xyz.numpy(), np.asarray(xyz_j), rtol=1e-6)
+
+
+def test_compute_3d_with_distortion_matches_jax():
+    """A camera with a distortion vector: remap gives fractional pixels,
+    and the disparity stays bit-equal to JAX's (the bfloat16 cost); the 3D
+    image agrees to float32 rounding with the same invalid (inf) set."""
+    assert_compute_3d_matches_jax(5, 200, 800)
+
+
+def test_compute_3d_with_distortion_at_block13_matches_jax():
+    """The same camera at blockSize 13, without an int16 sentinel: the
+    float32 path on the remapped fractional images gives JAX's disparity."""
+    assert_compute_3d_matches_jax(13, 8 * 169, 32 * 169)
