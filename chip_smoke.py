@@ -12,9 +12,13 @@ Phases, in order; any failure exits non-zero before the final line:
    with CUDA events: the int16 path on the integer pair, the float32 path
    (blockSize 13, no int16 sentinel) on frame 0 resampled by a 0.37 px
    shift, H1 on a 94-row band with halo rows (interior, top and bottom),
-   and H2 with its carry handed across a split at row 188 (both ways, int16
-   and float32); also hold the speckle filter on the card against the same
-   function on the CPU, and time block13's plain float32 cost volume;
+   H2 with its carry handed across a split at row 188 (both ways, int16
+   and float32), and the H1 -> H2 -> H3 chain at D = 48, and at D = 33 and
+   1024 on 64 rows (the warp walks' lane widths at their edges); the
+   redesigned H1 and H3 log their block walks' earlier times beside
+   theirs (in the log only, not in the JSON line); also
+   hold the speckle filter on the card against the same function on the
+   CPU, and time block13's plain float32 cost volume;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
    SGBM configurations (PATHS), with the plain versions disabled, and
@@ -83,6 +87,20 @@ K2_CARRY = f"{PALLAS_SGBM}:478 (init_carry/return_carry, :478-557)"
 K3_K4 = f"{PALLAS_SGBM}:1002 + {PALLAS_SGBM}:827"
 K6 = f"{PALLAS_SGBM}:115"
 K7_K4 = f"{PALLAS_SGBM}:716 + {PALLAS_SGBM}:827"
+# The redesigned kernels' times before their redesign: the one-block-a-row
+# walks on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), by
+# (kernel, variant) of kernel_cases. Logged beside this run's times only;
+# the kernels line holds what this run measured.
+BLOCK_WALK_MS = {
+    ("cost_hsweep", "int16 C, integer pair"): 2.437,
+    ("cost_hsweep", "band of 94 rows, interior, int16 C"): 1.839,
+    ("cost_hsweep", "band of 94 rows, top, int16 C"): 1.833,
+    ("cost_hsweep", "band of 94 rows, bottom, int16 C"): 1.812,
+    ("hsweep_wta_lr", "int16 C"): 1.386,
+    ("hsweep_wta_lr", "float32 C (block13, shifted pair)"): 1.366,
+    ("hsweep_wta_lr", "float32 C with the bottom-up partial apart (8 paths)"):
+        1.395,
+}
 
 
 def log(*a):
@@ -245,13 +263,24 @@ def kernel_cases(torch, seq, cam, cfg):
                     f"C", path, lambda: run(sc.vsweep),
                     lambda: run(sc.vsweep_plain), K2_CARRY, (cost,), 30)
 
-    h48 = (p.min_disparity, 48) + h1[2:]
+    def chain(D, rows=IMG_SIZE[1]):
+        """H1 -> H2 -> H3 at D disparities on the first ``rows`` rows, as
+        a Case's (kernel, plain, inputs)."""
+        args = (p.min_disparity, D) + h1[2:]
+        lc, rc = lp[:rows].contiguous(), rp[:rows].contiguous()
 
-    def chain(cost_fn, vsweep_fn, wta_fn):
-        def run():
-            C48, s148 = cost_fn(lp, rp, *h48)
-            return wta_fn(C48, s148, vsweep_fn(C48, p1, p2, True), *wta)
-        return run
+        def run(cost_fn, vsweep_fn, wta_fn):
+            Cd, s1d = cost_fn(lc, rc, *args)
+            return wta_fn(Cd, s1d, vsweep_fn(Cd, p1, p2, True), *wta)
+        return (lambda: run(sc.cost_hsweep, sc.vsweep, sc.hsweep_wta_lr),
+                lambda: run(sc.cost_hsweep_plain, sc.vsweep_plain,
+                            sc.hsweep_wta_lr_plain), (lc, rc))
+
+    def chain_case(variant, D, rows=IMG_SIZE[1]):
+        kern, plain, inputs = chain(D, rows)
+        return Case("cost_hsweep+vsweep+hsweep_wta_lr", variant, None, kern,
+                    plain, f"{K1}, {K2}, {K3_K4}", inputs,
+                    D * (20 * p.block_size + 12 + 30 + 20))
 
     _, disp_f, img = cam.compute_3d_fn(False, False)(
         torch.as_tensor(seq["left"][0], device=dev),
@@ -311,12 +340,11 @@ def kernel_cases(torch, seq, cam, cfg):
              lambda: sc.hsweep_wta_lr(Cf, s1f, svf, *wta13, svuf),
              lambda: sc.hsweep_wta_lr_plain(Cf, s1f, svf, *wta13, svuf),
              K7_K4, (Cf, s1f, svf, svuf), 22 * q.num_disparities),
-        Case("cost_hsweep+vsweep+hsweep_wta_lr", "D=48, blocks of 64 "
-             "threads", None, chain(sc.cost_hsweep, sc.vsweep,
-                                    sc.hsweep_wta_lr),
-             chain(sc.cost_hsweep_plain, sc.vsweep_plain,
-                   sc.hsweep_wta_lr_plain), f"{K1}, {K2}, {K3_K4}", (lp, rp),
-             48 * (20 * p.block_size + 12 + 30 + 20)),
+        chain_case("D=48: H2 in blocks of 64 threads, H1 and H3 with 2 "
+                   "disparities a lane", 48),
+        chain_case("D=33 on 64 rows: D not a multiple of 8, scalar loads "
+                   "at 32 disparities a lane", 33, 64),
+        chain_case("D=1024 on 64 rows: 32 disparities a lane", 1024, 64),
         Case("brief_describe", "K=512", "off-lat",
              lambda: orb_cuda.brief_describe(wins, ip, iq, kp_valid),
              lambda: orb_cuda.brief_describe_plain(wins, ip, iq, kp_valid),
@@ -367,8 +395,12 @@ def check_kernels(torch, seq, cam, cfg):
         t_p2 = time_ms(torch, c.plain, reps_plain)
         r["ms"] = min(t_k1, t_k2)
         r["plain_ms"] = min(t_p1, t_p2)
+        earlier = BLOCK_WALK_MS.get((c.name, c.variant))
         log(f"[kernels] {c.name} [{c.variant}]: kernel {t_k1:.4f} / "
-            f"{t_k2:.4f} ms, plain {t_p1:.4f} / {t_p2:.4f} ms, bound "
+            f"{t_k2:.4f} ms"
+            + ("" if earlier is None else
+               f" (redesigned; the block walk: {earlier} ms)")
+            + f", plain {t_p1:.4f} / {t_p2:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
 

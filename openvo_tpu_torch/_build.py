@@ -1,7 +1,9 @@
 """Build the CUDA kernels in ``csrc/`` and load them with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), in
+interface (no PyTorch headers): one ``nvcc -c`` per source, all started
+together, then one link (about half a minute, most of it the warp walks'
+instantiations in ``sgbm_wta.cu``). The library goes in
 ``csrc/build/`` under a name keyed by a hash of the sources and flags. The
 first call of :func:`library` in a process builds it if that file is
 missing and loads it; later calls return the loaded library.
@@ -30,8 +32,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of csrc/*.cu: name -> argument types. Each returns the
@@ -67,7 +70,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         h.update(s.name.encode())
@@ -82,14 +85,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(c, log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((link, logs[-1]))
+    out.with_suffix(".log").write_text("".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{log[-4000:]}")
     os.replace(tmp, out)
     return out
 

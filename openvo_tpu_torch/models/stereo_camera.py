@@ -21,6 +21,7 @@ from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.geometry.rectify import (init_undistort_rectify_map,
                                                stereo_rectify)
 from openvo_tpu_torch.geometry.reproject import reproject_image_to_3d
+from openvo_tpu_torch.ops._dispatch import target_device
 from openvo_tpu_torch.ops.remap import make_remap, remap_bilinear
 from openvo_tpu_torch.ops.sgbm import sgbm_disparity
 
@@ -60,7 +61,7 @@ class StereoCamera:
     """Holds calibration; builds rectify maps once; computes per-frame 3D."""
 
     @classmethod
-    def from_npz(cls, path, img_size, device="cpu"):
+    def from_npz(cls, path, img_size, device="cuda"):
         """Calibration from an npz with K_left, dist_left, K_right,
         dist_right, R, T and sgbm_<key> entries."""
         with np.load(path, allow_pickle=False) as z:
@@ -70,11 +71,12 @@ class StereoCamera:
                        img_size, device=device)
 
     def __init__(self, K_left, dist_left, K_right, dist_right, rect_params,
-                 sgbm_params, img_size, device="cpu"):
+                 sgbm_params, img_size, device="cuda"):
         """``img_size`` is (width, height); ``sgbm_params`` is the
         reference's dict or an SGBMParams; ``device`` holds the maps and
-        runs the per-frame path."""
-        self.device = torch.device(device)
+        runs the per-frame path: the card unless the caller passes
+        ``device="cpu"`` (raises where no card is present)."""
+        self.device = target_device(device)
         self.img_size = (int(img_size[0]), int(img_size[1]))
         R1, R2, P1, P2, Q, roi_l, roi_r = stereo_rectify(
             K_left, dist_left, K_right, dist_right, self.img_size,

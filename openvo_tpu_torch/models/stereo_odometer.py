@@ -42,6 +42,7 @@ from openvo_tpu_torch.config import (
     OdometerConfig,
 )
 from openvo_tpu_torch.geometry.se3 import rotation_magnitude
+from openvo_tpu_torch.ops._dispatch import target_device
 from openvo_tpu_torch.ops.hamming import ratio_test_match
 from openvo_tpu_torch.ops.interpolate import bilinear_sample_3d
 from openvo_tpu_torch.ops.orb import detect_and_compute
@@ -82,8 +83,9 @@ def _empty_features(shape, K, device):
     )
 
 
-def init_state(cropped_shape, max_keypoints: int, device="cpu") -> OdomState:
-    device = torch.device(device)
+def init_state(cropped_shape, max_keypoints: int,
+               device="cuda") -> OdomState:
+    device = target_device(device)
     return OdomState(
         cur=_empty_features(cropped_shape, max_keypoints, device),
         prev=_empty_features(cropped_shape, max_keypoints, device),
@@ -101,10 +103,11 @@ def state_leaves(state: OdomState):
     return [*state.cur, *state.prev, *state[2:]]
 
 
-def state_from_jax_leaves(leaves, device="cpu") -> OdomState:
+def state_from_jax_leaves(leaves, device="cuda") -> OdomState:
     """Build the port's state from the numpy leaves of a JAX ``OdomState``
     (``jax.tree_util.tree_flatten`` order, as the JAX save_state writes
     them), so a sequence started in JAX continues here."""
+    device = target_device(device)
     n = len(FrameFeatures._fields)
     if len(leaves) != 2 * n + 6:
         raise ValueError(f"expected {2 * n + 6} leaves, got {len(leaves)}")

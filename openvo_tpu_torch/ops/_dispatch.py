@@ -5,6 +5,17 @@ from __future__ import annotations
 import torch
 
 
+def target_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``. The port's entry points run on the
+    card unless the caller asks for the CPU, so asking for CUDA where torch
+    finds no card raises rather than falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {dev}; pass device='cpu' to "
+                           f"run on the CPU")
+    return dev
+
+
 def device_of(*tensors) -> torch.device:
     """The one device all ``tensors`` lie on; raises on a mismatch."""
     dev = tensors[0].device

@@ -24,8 +24,9 @@ bit:
   (:func:`cost_volume_f32`, :func:`scan_f32`), and the kernels use
   ``__fadd_rn``/``__fsub_rn``/``__fmul_rn`` so that nothing is contracted.
 
-Volumes are (H, W, D) with the disparity axis innermost: one thread per
-disparity reads and writes D neighbouring values at each pixel.
+Volumes are (H, W, D) with the disparity axis innermost: a warp (H1's walk,
+H3) or a block (H2, H5) reads and writes the D neighbouring values of a
+pixel at each step.
 
 Kernels (one wrapper each; a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises):
@@ -367,16 +368,27 @@ def cost_hsweep(lp, rp, min_disp: int, num_disp: int, block_size: int,
     images are a row tile with ``halo`` rows from each neighbour and only
     the core rows are returned (:func:`band_rows`).
 
-    One block per output row, one thread per disparity, walking x left to
-    right: the BT cost of the 2r+1 rows around the row (clamped to the rows
-    :func:`band_rows` allows), their column sum into a per-thread ring of
-    2r+1 column sums for the sliding horizontal box sum, then the forward
-    SGM step with the min over d by warp shuffles and shared memory. Bound
-    on the H100 by the serial walk over W (one block barrier per column)
-    rather than by bytes: it writes 6 bytes per volume element. The design
-    keeps every cost intermediate in registers and only C and s1 reach
-    device memory; a band reads its halo rows where the JAX kernel's edge
-    fix-up replaces their cost, so the band costs no extra pass."""
+    Two kernels on the stream, counted as one launch. ``bt_box`` computes C
+    in parallel over tiles of 16 rows x 32 columns x 32 disparities: each
+    input row's bfloat16-rounded samples and half-sample envelopes once per
+    pixel of the tile, each BT cost once per (input row, column, disparity)
+    from them, the vertical and horizontal box sums as sliding integer sums
+    in shared memory. ``hwalk`` then walks each row with one warp, lane l
+    holding disparities VPL*l .. VPL*l + VPL - 1 (VPL = D/32 rounded up to
+    a power of two): the neighbours d +- 1 by one shuffle each way, min L'
+    by one ``redux.sync``. No block barrier is on the walk, and no load or
+    store of a volume: lane 0 fetches 16 columns of C at a time into the
+    warp's shared memory with one TMA bulk copy (an mbarrier signals it,
+    two chunks in flight) and sends the chunk's s1 back with another. What
+    bounds H1 on the H100 is that walk's dependency chain over W (a
+    latency: a KITTI frame gives one warp to each SM quarter it reaches)
+    plus ``bt_box``'s arithmetic and shared-memory traffic; the byte floor
+    is 8 bytes per volume element (C written and read back, s1 written). A
+    band reads its halo rows where the JAX kernel's edge fix-up replaces
+    their cost, so it costs no extra pass; its walk takes as long as the
+    whole image's. D not a multiple of 8, or above 256, takes a walk with
+    scalar loads at 32 disparities a lane (correct, several times
+    slower); every D of :class:`SGBMParams` up to 256 takes the ring."""
     dev = device_of(lp, rp)
     if dev.type == "cpu":
         return cost_hsweep_plain(lp, rp, min_disp, num_disp, block_size,
@@ -399,7 +411,8 @@ def cost_hsweep(lp, rp, min_disp: int, num_disp: int, block_size: int,
 
 
 def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
-           up: bool = False, init_carry=None, return_carry: bool = False):
+           up: bool = False, init_carry=None, return_carry: bool = False,
+           acc=None):
     """H2, replacing ``sgbm_pallas.sweep_v`` (K2) in its forward and reverse,
     one- and three-direction variants, with and without its carry in and
     out. The sum of the vertical scans (straight, or with both diagonals)
@@ -412,7 +425,10 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     boundary (``parallel/tiling.py``): a line that starts on the first row
     walked reads its previous L from ``init_carry[dir][x - dx]`` where that
     column exists, and the line that reaches the last row walked at column
-    x writes its L to ``carry[dir][x]``.
+    x writes its L to ``carry[dir][x]``. Over int16 C, ``acc`` (an int32
+    (H, W, D) volume) takes the sum in place and is returned, as the row
+    tiles add their bottom-up sweep into the top-down one (exact in any
+    order); over float32 C the partials stay apart for the sum order.
 
     One block per scan line, one thread per disparity: W vertical lines and
     W+H-1 lines for each diagonal, each walked with its carry in shared
@@ -424,12 +440,20 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     the JAX package's float32 sum order. Bound by the serial walk over H per
     line; the 4476 lines of the top-down trio at KITTI size fill the card
     about twice over."""
-    dev = device_of(C) if init_carry is None else device_of(C, init_carry)
+    dev = device_of(*(t for t in (C, init_carry, acc) if t is not None))
     _check_ways(C, [False] * down + [True] * up,
                 init_carry is not None or return_carry)
+    if acc is not None and C.dtype != torch.int16:
+        raise ValueError("vsweep: acc takes the sum over int16 C only; over "
+                         "float32 C the partials stay apart")
     if dev.type == "cpu":
-        return vsweep_plain(C, p1, p2, diagonals, down, up, init_carry,
-                            return_carry)
+        out = vsweep_plain(C, p1, p2, diagonals, down, up, init_carry,
+                           return_carry)
+        if acc is None:
+            return out
+        sv, carry = out if return_carry else (out, None)
+        acc += sv
+        return (acc, carry) if return_carry else acc
     H, W, D = C.shape
     _check_cost(C, (H, W, D))
     _check_disparities(D)
@@ -437,8 +461,11 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
     if init_carry is not None:
         check_cuda_input(init_carry, acc_t, (nd, W, D), "init_carry")
+    if acc is not None:
+        check_cuda_input(acc, acc_t, (H, W, D), "acc")
     lib = _build.library()
-    sv = torch.zeros((H, W, D), dtype=acc_t, device=dev)
+    sv = (torch.zeros((H, W, D), dtype=acc_t, device=dev) if acc is None
+          else acc)
     carry = (torch.empty((nd, W, D), dtype=acc_t, device=dev)
              if return_carry else None)
     f32 = C.dtype == torch.float32
@@ -487,21 +514,35 @@ def hsweep_wta_lr(C, s1, sv, p1: int, p2: int, min_disp: int,
     ``sweep_h_wta`` (K7), with ``lr_lookup`` (K4) and the post-pass
     between them. Final (H, W) int16 disparity x16, as
     :func:`hsweep_wta_lr_plain`; ``svu`` is the bottom-up vertical partial
-    where it is kept apart (the float32 sum order, and the row tiles).
+    where it is kept apart for the float32 sum order (over int16 C, H2 adds
+    it into ``sv``: :func:`vsweep`'s ``acc``).
 
-    One block per row, one thread per disparity, walking x right to left:
-    the reverse scan, S, one packed min for the argmin with the lowest d
-    (int32 ``S * D + d`` over int16 C; over float32 C the 64-bit ``(bits of
-    S) << 32 | d``, as a non-negative float's bits keep its order), the
-    uniqueness vote by warp ballots, and the right-view argmin over a
-    D-slot ring of packed keys (slot x - d gets S(x, d); slot x is complete
-    once column x is done). best, bestR, min S and S(best -+ 1) for the row
-    stay in shared memory; an epilogue in the same kernel does subpixel,
-    the LR lookup bestR[x - best] (K4 as a shared-memory read), uniqueness
-    and the invalid encoding. Bound by the serial walk over W; reads 10
-    (12 over float32 C; 4 more with ``svu``) bytes per volume element."""
+    One warp per row, walking x right to left with the lane layout of
+    :func:`cost_hsweep`'s walk: the reverse scan (neighbours by shuffles,
+    min L' by one ``redux.sync``), S, the argmin with the lowest d (over
+    int16 C one redux of the int32 key ``S * D + d``; over float32 C one
+    redux of S's bits, a non-negative float's bits keeping its order, and
+    one of the lowest d holding it), the uniqueness vote by ``__any_sync``,
+    and the right-view argmin bestR(xr) = argmin_d S(xr + d, d) as a
+    register shift of packed keys (slot d holds diagonal x - d's running
+    min; one shuffle moves it to slot d - 1 at the next column, so slot 0
+    holds diagonal x complete). No block barrier is on the walk, and the
+    loads leave its chain: over float32 C lane 0 fetches chunks of C, s1,
+    sv (and svu) into the warp's shared memory with TMA bulk copies and
+    mbarriers, three chunks in flight; over int16 C each lane loads its
+    slots 8 columns ahead into registers (each the faster on the H100).
+    best, bestR, min S and S(best -+ 1) for the row stay in the warp's
+    shared memory; an epilogue in the same kernel does subpixel, the LR
+    lookup bestR[x - best] (K4 as a shared-memory read), uniqueness and the
+    invalid encoding. Bound by the walk's chain over W and the issue slots
+    of the column's reductions, vote and shuffles beside it (a latency: a
+    KITTI frame gives one warp to each SM quarter it reaches); it reads 10
+    bytes per volume element (12 over float32 C, 4 more with ``svu``)."""
     parts = (C, s1, sv) if svu is None else (C, s1, sv, svu)
     dev = device_of(*parts)
+    if svu is not None and C.dtype == torch.int16:
+        raise ValueError("hsweep_wta_lr: over int16 C the bottom-up partial "
+                         "is added into sv (vsweep's acc), not passed apart")
     if dev.type == "cpu":
         return hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness,
                                    disp12, svu)
@@ -546,7 +587,8 @@ def _check_cost(C, shape) -> None:
 
 
 def _check_disparities(D: int) -> None:
-    # one thread per disparity in one block
+    # H2 and H5 run one thread per disparity in one block; the warp walks
+    # hold at most 32 disparities a lane
     if not 1 <= D <= 1024:
         raise ValueError(f"the CUDA SGBM kernels need num_disparities in "
                          f"[1, 1024], got {D}")

@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.ops import sgbm, sgbm_cuda
+from openvo_tpu_torch.ops._dispatch import target_device
 
 
 class _Transport:
@@ -88,13 +89,13 @@ def _exchange_halo(pair, comm: _Transport, halo: int):
 
 
 def _vertical_wavefront(C, p1: int, p2: int, diagonals: bool, reverse: bool,
-                        comm: _Transport):
+                        comm: _Transport, acc=None):
     """This rank's part of a top-down (bottom-up if ``reverse``) sweep of
     the vertical directions across the row tiles. The sweep has n steps in
     rank order (reversed bottom-up); at its step a rank starts from the
     (ndirs, W, D) carry the previous rank hands it (none at step 0, which
     starts fresh as the single-device sweep does) and hands its own carry to
-    the next."""
+    the next. ``acc`` as ``sgbm_cuda.vsweep``'s."""
     n, r = comm.n, comm.rank
     step = n - 1 - r if reverse else r
     prev, nxt = (r + 1, r - 1) if reverse else (r - 1, r + 1)
@@ -102,11 +103,12 @@ def _vertical_wavefront(C, p1: int, p2: int, diagonals: bool, reverse: bool,
     init = None
     if step > 0:
         nd = 3 if diagonals else 1
-        acc = torch.int32 if C.dtype == torch.int16 else torch.float32
-        init = comm.recv((nd,) + tuple(C.shape[1:]), acc, prev, tag)
+        acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
+        init = comm.recv((nd,) + tuple(C.shape[1:]), acc_t, prev, tag)
     hand_on = step < n - 1
     out = sgbm_cuda.vsweep(C, p1, p2, diagonals, down=not reverse,
-                           up=reverse, init_carry=init, return_carry=hand_on)
+                           up=reverse, init_carry=init, return_carry=hand_on,
+                           acc=acc)
     if not hand_on:
         return out
     sv, carry = out
@@ -114,16 +116,17 @@ def _vertical_wavefront(C, p1: int, p2: int, diagonals: bool, reverse: bool,
     return sv
 
 
-def make_tiled_sgbm_fn(params: SGBMParams, group=None, device=None):
+def make_tiled_sgbm_fn(params: SGBMParams, group=None, device="cuda"):
     """Build ``fn(left (H, W), right (H, W)) -> (H/n, W) int16`` disparity x16
     of this rank's rows, for every rank of ``group`` (the default group if
     None) to call with the same pair; the ranks' bands in rank order are
     the single-device ``sgbm_disparity16`` bit for bit. H must be a
     multiple of the group's size.
 
-    Runs on ``device`` (the current CUDA device if None): CPU tensors take
+    Runs on ``device``, the current card unless the caller passes
+    ``device="cpu"`` (raises where no card is present): CPU tensors take
     the kernels' plain versions, CUDA tensors the kernels."""
-    dev = torch.device("cuda" if device is None else device)
+    dev = target_device(device)
     comm = _Transport(group, dev)
     n, rank = comm.n, comm.rank
     cap = max(params.pre_filter_cap, 15) | 1
@@ -151,8 +154,12 @@ def make_tiled_sgbm_fn(params: SGBMParams, group=None, device=None):
         C, s1, p1, p2 = sgbm.cost_and_forward(lp, rp, params, cap, band)
         diagonals = params.num_paths != 4
         sv = _vertical_wavefront(C, p1, p2, diagonals, False, comm)
-        svu = (None if params.num_paths == 5 else
-               _vertical_wavefront(C, p1, p2, diagonals, True, comm))
+        svu = None
+        if params.num_paths != 5 and C.dtype == torch.int16:
+            # exact in any order: the bottom-up sweep adds into sv
+            _vertical_wavefront(C, p1, p2, diagonals, True, comm, sv)
+        elif params.num_paths != 5:
+            svu = _vertical_wavefront(C, p1, p2, diagonals, True, comm)
         out = sgbm_cuda.hsweep_wta_lr(C, s1, sv, p1, p2, params.min_disparity,
                                       params.uniqueness_ratio,
                                       params.disp12_max_diff, svu)

@@ -157,6 +157,126 @@ def test_cost_hsweep_band_equals_plain(cuda, where):
     assert torch.equal(s1, s1w[r0:r0 + h_t])
 
 
+# (H, W, D, min_disp, block, integer pair, preFilterCap): every lane width
+# of the warp walks' fast feeds (H1's TMA ring, H3's vector loads: D = 16,
+# 24: 1 disparity a lane; 48: 2; 128: 4; 256: 8) and of their scalar feed
+# (D = 1, 31, 33, 400, 1024: 32 a lane), widths not a multiple of bt_box's
+# 32-column tile or of the ring's chunk, and below both, min_disp -8, 0 and
+# 16, the bfloat16 cost (cap 63) and the float32 one (cap 101)
+EDGES = [
+    (16, 100, 1, 0, 5, True, 63),
+    (8, 12, 16, 0, 3, True, 63),
+    (8, 70, 24, -8, 5, False, 63),
+    (16, 100, 31, -8, 5, True, 63),
+    (16, 130, 33, 16, 3, False, 63),
+    (16, 20, 48, 0, 5, True, 63),
+    (24, 300, 128, 0, 5, False, 63),
+    (16, 300, 128, -8, 7, False, 101),
+    (12, 400, 256, 16, 5, True, 63),
+    (8, 500, 400, 0, 5, True, 63),
+    (8, 1100, 1024, 0, 5, True, 63),
+    (8, 40, 1024, -8, 3, True, 63),
+]
+
+
+@pytest.mark.parametrize("H,W,D,min_disp,block,integer,cap", EDGES)
+def test_warp_walks_equal_plain_at_edges(cuda, H, W, D, min_disp, block,
+                                         integer, cap):
+    """H1 (bt_box + the warp walk) and H3 over int16 C at the shapes where
+    the tiles and the lanes' slots end, with uniqueness and the LR check on
+    and off."""
+    lp, rp = prefiltered_pair(cuda, H, W, integer=integer, cap=cap)
+    args = (min_disp, D, block, sgbm.int16_sentinel(block, cap), 400, 1600,
+            2 * cap <= 127)
+    C, s1 = sgbm_cuda.cost_hsweep(lp, rp, *args)
+    Cp, s1p = sgbm_cuda.cost_hsweep_plain(lp, rp, *args)
+    assert torch.equal(C, Cp) and torch.equal(s1, s1p)
+    sv = sgbm_cuda.vsweep_plain(C, 400, 1600, True)
+    for uniq, disp12 in [(10, 1), (0, -1), (15, 0)]:
+        wta = (400, 1600, min_disp, uniq, disp12)
+        d = sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta)
+        assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta))
+    torch.cuda.synchronize()
+
+
+def test_hsweep_wta_lr_int16_with_bottom_up_partial_equals_plain(cuda):
+    """Over int16 C, H2 adds the bottom-up partial into sv (``acc``, exact
+    in any order, as the row tiles do) and H3 walks without it: equal to
+    the plain H3 with the partial apart."""
+    C = int16_cost(cuda, 24, 150, 48)
+    s1 = sgbm_cuda.sgm_scan(C.transpose(0, 1), 0, 400, 1600).transpose(
+        0, 1).contiguous()
+    sv = sgbm_cuda.vsweep_plain(C, 400, 1600, True)
+    svu = sgbm_cuda.vsweep_plain(C, 400, 1600, True, down=False, up=True)
+    both = sgbm_cuda.vsweep(C, 400, 1600, True, down=False, up=True,
+                            acc=sv.clone())
+    assert torch.equal(both, sv + svu)
+    wta = (400, 1600, 0, 10, 1)
+    d = sgbm_cuda.hsweep_wta_lr(C, s1, both, *wta)
+    assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta, svu))
+
+
+@pytest.mark.parametrize("D", [128, 48])
+def test_hsweep_wta_lr_unaligned_volumes_equal_plain(cuda, D):
+    """Volumes that do not start on 16 bytes take the scalar loads at a D
+    where H3 takes vector loads (int16 C) or the ring (float32 C): equal to
+    the plain version."""
+    def shifted(t):   # the same values, one element into a new buffer
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    for C, p1, p2 in [(int16_cost(cuda, 16, 90, D), 400, 1600),
+                      (f32_cost(cuda, 8, 90, D), 8 * 169, 32 * 169)]:
+        s1 = (sgbm_cuda.hsweep_plain(C, p1, p2) if C.is_floating_point() else
+              sgbm_cuda.sgm_scan(C.transpose(0, 1), 0, p1, p2).transpose(
+                  0, 1).contiguous())
+        sv = sgbm_cuda.vsweep_plain(C, p1, p2, True)
+        wta = (p1, p2, 0, 10, 1)
+        d = sgbm_cuda.hsweep_wta_lr(shifted(C), shifted(s1), sv, *wta)
+        assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta))
+
+
+@pytest.mark.parametrize("D", [1, 16, 33, 48, 128, 256, 1024])
+@pytest.mark.parametrize("with_svu", [False, True])
+def test_hsweep_wta_lr_float32_edges_equal_plain(cuda, D, with_svu):
+    """H3 over float32 C (K7) at every lane width, fed by the ring (D = 16,
+    48, 128, 256; at D = 16 a width below the ring's chunk) or scalar
+    loads, with the bottom-up partial apart and without it, uniqueness and
+    the LR check on and off."""
+    W = {16: 12}.get(D, D + 76 if D > 128 else 100)
+    C = f32_cost(cuda, 8, W, D)
+    p1, p2 = 8 * 169, 32 * 169
+    s1 = sgbm_cuda.hsweep_plain(C, p1, p2)
+    sv = sgbm_cuda.vsweep_plain(C, p1, p2, True)
+    svu = (sgbm_cuda.vsweep_plain(C, p1, p2, True, down=False, up=True)
+           if with_svu else None)
+    for uniq, disp12 in [(10, 1), (0, -1)]:
+        wta = (p1, p2, 0, uniq, disp12)
+        d = sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta, svu)
+        assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta,
+                                                            svu))
+
+
+@pytest.mark.parametrize("where", ["top", "interior", "bottom"])
+@pytest.mark.parametrize("D,W,min_disp", [(33, 100, -8), (128, 70, 16)])
+def test_cost_hsweep_band_edges_equal_plain(cuda, where, D, W, min_disp):
+    """H1 on a row band at other lane widths and tile ends: equal to its
+    plain version and to the band's rows of the whole image's H1."""
+    lp, rp = prefiltered_pair(cuda, 40, W)
+    halo, h_t = 3, 10
+    r0 = {"top": 0, "interior": 17, "bottom": 40 - h_t}[where]
+    rows = torch.arange(r0 - halo, r0 + h_t + halo, device=cuda).clamp(0, 39)
+    band = (halo, where == "top", where == "bottom")
+    args = (min_disp, D, 5, 504, 400, 1600, True)
+    C, s1 = sgbm_cuda.cost_hsweep(lp[rows], rp[rows], *args, band)
+    Cp, s1p = sgbm_cuda.cost_hsweep_plain(lp[rows], rp[rows], *args, band)
+    assert torch.equal(C, Cp) and torch.equal(s1, s1p)
+    Cw, s1w = sgbm_cuda.cost_hsweep(lp, rp, *args)
+    assert torch.equal(C, Cw[r0:r0 + h_t])
+    assert torch.equal(s1, s1w[r0:r0 + h_t])
+
+
 @pytest.mark.parametrize("D", [64, 48])
 def test_hsweep_equal_plain(cuda, D):
     """H5 over float32 C."""

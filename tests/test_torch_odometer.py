@@ -39,7 +39,8 @@ def frame(seq, i):
 def cameras(seq):
     args = (seq["K"], seq["dist"], seq["K"], seq["dist"],
             {"R": seq["R"], "T": seq["T"]}, SGBM, IMG_SIZE)
-    return openvo_tpu.StereoCamera(*args), openvo_tpu_torch.StereoCamera(*args)
+    return (openvo_tpu.StereoCamera(*args),
+            openvo_tpu_torch.StereoCamera(*args, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +90,7 @@ def test_state_carried_from_jax(seq, jax_run):
     want, leaves = jax_run
     _, cam = cameras(seq)
     odo = openvo_tpu_torch.StereoOdometer(cam)
-    odo.state = state_from_jax_leaves(leaves)
+    odo.state = state_from_jax_leaves(leaves, device="cpu")
     for i in range(CARRY_AT, N):
         ok = odo.update(*frame(seq, i))
         assert_frame_matches(i, (ok, odo.skip_cause, odo.current_pose()),
@@ -192,8 +193,40 @@ def test_camera_from_npz_matches_constructor(seq, tmp_path):
     np.savez(path, K_left=seq["K"], dist_left=seq["dist"], K_right=seq["K"],
              dist_right=seq["dist"], R=seq["R"], T=seq["T"],
              **{f"sgbm_{k}": v for k, v in SGBM.items()})
-    cam = openvo_tpu_torch.StereoCamera.from_npz(path, IMG_SIZE)
+    cam = openvo_tpu_torch.StereoCamera.from_npz(path, IMG_SIZE, device="cpu")
     _, ref = cameras(seq)
     assert cam.sgbm == ref.sgbm and cam.cropped_shape == ref.cropped_shape
     for a, b in zip(cam.map_left + cam.map_right, ref.map_left + ref.map_right):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("entry", ["camera", "from_npz", "init_state",
+                                   "state_from_jax_leaves", "tiled_sgbm"])
+def test_default_device_is_the_card(seq, tmp_path, entry):
+    """The entry points default to the card: without a card, leaving out
+    ``device`` raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from openvo_tpu_torch.models import stereo_odometer
+    from openvo_tpu_torch.parallel.tiling import make_tiled_sgbm_fn
+
+    args = (seq["K"], seq["dist"], seq["K"], seq["dist"],
+            {"R": seq["R"], "T": seq["T"]}, SGBM, IMG_SIZE)
+    path = tmp_path / "calib.npz"
+    np.savez(path, K_left=seq["K"], dist_left=seq["dist"], K_right=seq["K"],
+             dist_right=seq["dist"], R=seq["R"], T=seq["T"],
+             **{f"sgbm_{k}": v for k, v in SGBM.items()})
+    leaves = stereo_odometer.state_leaves(
+        stereo_odometer.init_state((4, 6), 8, device="cpu"))
+    call = {
+        "camera": lambda: openvo_tpu_torch.StereoCamera(*args),
+        "from_npz": lambda: openvo_tpu_torch.StereoCamera.from_npz(path,
+                                                                   IMG_SIZE),
+        "init_state": lambda: stereo_odometer.init_state((4, 6), 8),
+        "state_from_jax_leaves": lambda: stereo_odometer.state_from_jax_leaves(
+            [x.numpy() for x in leaves]),
+        "tiled_sgbm": lambda: make_tiled_sgbm_fn(
+            openvo_tpu_torch.config.SGBMParams()),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

@@ -31,8 +31,10 @@ def seq():
 
 
 def run(pkg, params, seq):
+    port = {"device": "cpu"} if pkg is openvo_tpu_torch else {}
     cam = pkg.StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
-                           {"R": seq["R"], "T": seq["T"]}, params, IMG_SIZE)
+                           {"R": seq["R"], "T": seq["T"]}, params, IMG_SIZE,
+                           **port)
     odo = pkg.StereoOdometer(cam)
     out = []
     for i in range(N):

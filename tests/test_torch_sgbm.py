@@ -48,6 +48,45 @@ def test_disp16_bit_equal_to_jax(H, W, D, block, min_disp, uniq, disp12):
     assert (ref > (min_disp - 1) * 16).mean() > 0.3
 
 
+@pytest.mark.parametrize("H,W,D,block,min_disp,uniq,disp12", [
+    (24, 100, 1, 5, 0, 10, 1),
+    (16, 12, 16, 3, 0, 10, 1),       # narrower than the ring's chunk
+    (16, 70, 24, 5, -8, 15, 0),
+    (24, 100, 31, 5, -8, 10, 1),
+    (24, 130, 33, 3, 16, 10, 1),
+    (24, 20, 48, 5, 0, 10, 1),       # narrower than a 32-column tile
+    (24, 300, 128, 5, 0, 0, -1),
+    (16, 300, 128, 7, -8, 15, 0),
+    (12, 400, 256, 5, 16, 10, 1),
+    (8, 500, 400, 5, 0, 10, 1),
+    (8, 1100, 1024, 5, 0, 10, 1),
+    (8, 40, 1024, 3, -8, 10, 1),     # narrower than D
+])
+def test_kernel_edge_shapes_bit_equal_to_jax(H, W, D, block, min_disp, uniq,
+                                             disp12):
+    """The plain versions of H1-H3 against JAX at the shapes that take the
+    CUDA kernels' warp walks to their edges (every number of disparities a
+    lane holds, widths that end a column tile early, min_disp -8, 0 and
+    16; tests/test_torch_kernels.py holds the kernels to these plain
+    versions on the card)."""
+    left, right = stereo_pair(H, W, seed=D + W)
+    kw = params_kw(16, block, min_disp, uniq, disp12)
+    ref = np.asarray(jsgbm.sgbm_disparity16(
+        jnp.asarray(left), jnp.asarray(right),
+        with_disparities(JaxSGBMParams(**kw), D)))
+    out = sgbm.sgbm_disparity16(torch.from_numpy(left),
+                                torch.from_numpy(right),
+                                with_disparities(SGBMParams(**kw), D))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def with_disparities(params, D):
+    """``params`` with D disparities: SGBMParams takes multiples of 16
+    (OpenCV's rule), the SGBM functions and kernels any D in [1, 1024]."""
+    object.__setattr__(params, "num_disparities", D)
+    return params
+
+
 def prefiltered(H=48, W=100, seed=3):
     left, right = stereo_pair(H, W, seed=seed)
     lj = jsgbm.prefilter_xsobel(jnp.asarray(left), 63)
@@ -130,6 +169,27 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     svf = sgbm_cuda.vsweep(Cf, 200, 800, diagonals=True)
     sgbm_cuda.hsweep_wta_lr(Cf, s1f, svf, 200, 800, 0, 10, 1, svu=svf)
     assert [k.launches for k in sgbm_cuda.KERNELS] == before
+
+
+def test_vsweep_acc_adds_the_int16_sweep_in_place():
+    """``acc`` takes H2's sum over int16 C in place (the row tiles add their
+    bottom-up sweep into the top-down one); over float32 C, and for a
+    bottom-up partial handed to H3 over int16 C, the wrappers raise."""
+    _, _, lt, rt = prefiltered(24, 48)
+    C, s1 = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, 5, 504, 400, 1600, True)
+    down = sgbm_cuda.vsweep(C, 400, 1600, True)
+    up = sgbm_cuda.vsweep(C, 400, 1600, True, down=False, up=True)
+    acc = down.clone()
+    out, carry = sgbm_cuda.vsweep(C, 400, 1600, True, down=False, up=True,
+                                  acc=acc, return_carry=True)
+    assert out is acc and torch.equal(acc, down + up)
+    assert torch.equal(carry, sgbm_cuda.vsweep(
+        C, 400, 1600, True, down=False, up=True, return_carry=True)[1])
+    with pytest.raises(ValueError, match="bottom-up partial"):
+        sgbm_cuda.hsweep_wta_lr(C, s1, down, 400, 1600, 0, 10, 1, svu=up)
+    Cf = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, 13, 63, True)
+    with pytest.raises(ValueError, match="int16 C only"):
+        sgbm_cuda.vsweep(Cf, 200, 800, True, acc=torch.zeros_like(Cf))
 
 
 def test_device_mismatch_raises():

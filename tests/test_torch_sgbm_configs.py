@@ -45,6 +45,13 @@ def params_kw(D=64, block=5, **change):
     return kw
 
 
+def with_disparities(params, D):
+    """``params`` with D disparities: SGBMParams takes multiples of 16
+    (OpenCV's rule), the SGBM functions and kernels any D in [1, 1024]."""
+    object.__setattr__(params, "num_disparities", D)
+    return params
+
+
 def jax_disp16(left, right, kw):
     return np.asarray(jsgbm.sgbm_disparity16(
         jnp.asarray(left), jnp.asarray(right), JaxSGBMParams(**kw)))
@@ -227,6 +234,24 @@ def test_no_sentinel_disparity_equals_jax_on_a_fractional_pair(name):
     assert (ref > -16).mean() > 0.3
 
 
+@pytest.mark.parametrize("D,num_paths", [
+    (1, 5), (33, 8), (128, 4), (256, 5), (1024, 8)])
+def test_float32_path_at_kernel_edges_equals_jax(D, num_paths):
+    """blockSize 13 (the float32 path, H3 over float32 C with and without
+    the bottom-up partial apart) on a fractional pair at every number of
+    disparities a lane of the warp walk holds: JAX's disp16 bit for bit."""
+    left, right = textured_pair(8, D + 76 if D > 128 else 100, shift=7.4,
+                                seed=D, integer=False)
+    kw = params_kw(D=16, block=13, p1=8 * 169, p2=32 * 169,
+                   num_paths=num_paths)
+    ref = jsgbm.sgbm_disparity16(jnp.asarray(left), jnp.asarray(right),
+                                 with_disparities(JaxSGBMParams(**kw), D))
+    out = sgbm.sgbm_disparity16(torch.from_numpy(left),
+                                torch.from_numpy(right),
+                                with_disparities(SGBMParams(**kw), D))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
 def speckle_params(window=100, rng_=2):
     kw = params_kw(speckle_window_size=window, speckle_range=rng_)
     return JaxSGBMParams(**kw), SGBMParams(**kw)
@@ -288,8 +313,8 @@ def assert_compute_3d_matches_jax(block, p1, p2):
     right = np.clip(seq["right"][0], 0, 255).astype(np.uint8)
     xyz_j, disp_j, img_j = openvo_tpu.StereoCamera(*args).compute_3d(left,
                                                                     right)
-    xyz, disp, img = openvo_tpu_torch.StereoCamera(*args).compute_3d(left,
-                                                                    right)
+    xyz, disp, img = openvo_tpu_torch.StereoCamera(
+        *args, device="cpu").compute_3d(left, right)
     img = img.numpy()
     assert not np.array_equal(img, np.round(img))
     np.testing.assert_array_equal(img, np.asarray(img_j))
