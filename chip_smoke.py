@@ -15,8 +15,8 @@ Phases, in order; any failure exits non-zero before the final line:
    H2 with its carry handed across a split at row 188 (both ways, int16
    and float32), and the H1 -> H2 -> H3 chain at D = 48, and at D = 33 and
    1024 on 64 rows (the warp walks' lane widths at their edges); the
-   redesigned H1 and H3 log their block walks' earlier times beside
-   theirs (in the log only, not in the JSON line); also
+   redesigned H1, H2, H3 and H5 log their block walks' earlier times
+   beside theirs (in the log only, not in the JSON line); also
    hold the speckle filter on the card against the same function on the
    CPU, and time block13's plain float32 cost volume;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
@@ -87,16 +87,29 @@ K2_CARRY = f"{PALLAS_SGBM}:478 (init_carry/return_carry, :478-557)"
 K3_K4 = f"{PALLAS_SGBM}:1002 + {PALLAS_SGBM}:827"
 K6 = f"{PALLAS_SGBM}:115"
 K7_K4 = f"{PALLAS_SGBM}:716 + {PALLAS_SGBM}:827"
-# The redesigned kernels' times before their redesign: the one-block-a-row
+# The redesigned kernels' times before their redesign: the one-block-a-line
 # walks on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), by
-# (kernel, variant) of kernel_cases. Logged beside this run's times only;
-# the kernels line holds what this run measured.
+# (kernel, variant) of kernel_cases, for the variants whose work did not
+# change (H2 on the int16 paths now adds into s1 and H3 reads no sv: those
+# variants have new names and their earlier times are in PERF.md). Logged
+# beside this run's times only; the kernels line holds what this run
+# measured.
 BLOCK_WALK_MS = {
     ("cost_hsweep", "int16 C, integer pair"): 2.437,
     ("cost_hsweep", "band of 94 rows, interior, int16 C"): 1.839,
     ("cost_hsweep", "band of 94 rows, top, int16 C"): 1.833,
     ("cost_hsweep", "band of 94 rows, bottom, int16 C"): 1.812,
-    ("hsweep_wta_lr", "int16 C"): 1.386,
+    ("vsweep", "down trio, int16 C (5 paths)"): 0.818,
+    ("vsweep", "up trio, int16 C"): 0.820,
+    ("vsweep", "vertical down, int16 C"): 0.404,
+    ("vsweep", "vertical up, int16 C"): 0.398,
+    ("vsweep", "down trio, float32 C (block13, shifted pair)"): 1.168,
+    ("vsweep", "up trio, float32 C (shifted pair)"): 1.165,
+    ("vsweep", "down trio, carry across row 188, int16 C"): 0.956,
+    ("vsweep", "up trio, carry across row 188, int16 C"): 0.958,
+    ("vsweep", "down trio, carry across row 188, float32 C"): 1.347,
+    ("vsweep", "up trio, carry across row 188, float32 C"): 1.338,
+    ("hsweep", "forward, float32 C (block13, shifted pair)"): 0.840,
     ("hsweep_wta_lr", "float32 C (block13, shifted pair)"): 1.366,
     ("hsweep_wta_lr", "float32 C with the bottom-up partial apart (8 paths)"):
         1.395,
@@ -216,6 +229,7 @@ def kernel_cases(torch, seq, cam, cfg):
           True)
     C, s1 = sc.cost_hsweep(lp, rp, *h1)
     sv = sc.vsweep(C, p1, p2, True)
+    s1v = s1 + sv   # over int16 C the paths add H2's sum into s1
     wta = (p1, p2, p.min_disparity, p.uniqueness_ratio, p.disp12_max_diff)
 
     # the float32 path: block13 on the fractional pair
@@ -246,22 +260,38 @@ def kernel_cases(torch, seq, cam, cfg):
     # H2 with the carry handed across row 188
     split = IMG_SIZE[1] // 2
 
+    def halves(t, reverse):
+        return (t[split:], t[:split]) if reverse else (t[:split], t[split:])
+
     def carry_case(cost, pen, reverse, path):
+        """Over int16 C each half adds into its rows of s1 (a copy, which
+        the timed calls keep adding into), as the row tiles do."""
         ways = dict(down=not reverse, up=reverse)
-        first, second = ((cost[split:], cost[:split]) if reverse
-                         else (cost[:split], cost[split:]))
+        first, second = halves(cost, reverse)
+        exact = cost.dtype == torch.int16
+        s1s = halves(s1, reverse) if exact else (None, None)
+        accs = [t.clone() if exact else None for t in s1s]
 
         def run(vs):
-            a, carry = vs(first, *pen, True, **ways, return_carry=True)
-            b = vs(second, *pen, True, **ways, init_carry=carry)
+            if vs is sc.vsweep:
+                a, carry = vs(first, *pen, True, **ways, return_carry=True,
+                              acc=accs[0])
+                b = vs(second, *pen, True, **ways, init_carry=carry,
+                       acc=accs[1])
+            else:
+                a, carry = vs(first, *pen, True, **ways, return_carry=True)
+                b = vs(second, *pen, True, **ways, init_carry=carry)
+                if exact:
+                    a, b = a + s1s[0], b + s1s[1]
             return (torch.cat([b, a]) if reverse else torch.cat([a, b]),
                     carry)
 
-        grid = "int16" if cost.dtype == torch.int16 else "float32"
+        grid = "int16" if exact else "float32"
         way = "up" if reverse else "down"
         return Case("vsweep", f"{way} trio, carry across row {split}, {grid} "
                     f"C", path, lambda: run(sc.vsweep),
-                    lambda: run(sc.vsweep_plain), K2_CARRY, (cost,), 30)
+                    lambda: run(sc.vsweep_plain), K2_CARRY,
+                    (cost, s1) if exact else (cost,), 30)
 
     def chain(D, rows=IMG_SIZE[1]):
         """H1 -> H2 -> H3 at D disparities on the first ``rows`` rows, as
@@ -269,12 +299,16 @@ def kernel_cases(torch, seq, cam, cfg):
         args = (p.min_disparity, D) + h1[2:]
         lc, rc = lp[:rows].contiguous(), rp[:rows].contiguous()
 
-        def run(cost_fn, vsweep_fn, wta_fn):
-            Cd, s1d = cost_fn(lc, rc, *args)
-            return wta_fn(Cd, s1d, vsweep_fn(Cd, p1, p2, True), *wta)
-        return (lambda: run(sc.cost_hsweep, sc.vsweep, sc.hsweep_wta_lr),
-                lambda: run(sc.cost_hsweep_plain, sc.vsweep_plain,
-                            sc.hsweep_wta_lr_plain), (lc, rc))
+        def kern():   # as the path: H2 adds into s1, H3 reads no sv
+            Cd, s1d = sc.cost_hsweep(lc, rc, *args)
+            sc.vsweep(Cd, p1, p2, True, acc=s1d)
+            return sc.hsweep_wta_lr(Cd, s1d, None, *wta)
+
+        def plain():
+            Cd, s1d = sc.cost_hsweep_plain(lc, rc, *args)
+            return sc.hsweep_wta_lr_plain(
+                Cd, s1d, sc.vsweep_plain(Cd, p1, p2, True), *wta)
+        return kern, plain, (lc, rc)
 
     def chain_case(variant, D, rows=IMG_SIZE[1]):
         kern, plain, inputs = chain(D, rows)
@@ -291,11 +325,21 @@ def kernel_cases(torch, seq, cam, cfg):
     wins, ip, iq, _ = orb.descriptor_inputs(det)
     kp_valid = det["valid"]
 
-    def vs(variant, path, diag, down, up, cost=C, pen=(p1, p2), src=K2):
+    def vs(variant, path, diag, down, up, cost=C, pen=(p1, p2),
+           into_s1=False):
+        """H2 into a zeroed sum, or into a copy of s1 as the paths over
+        int16 C (the timed calls keep adding into it)."""
+        ops = 10 * (3 if diag else 1) * (down + up)
+        if not into_s1:
+            return Case("vsweep", variant, path,
+                        lambda: sc.vsweep(cost, *pen, diag, down, up),
+                        lambda: sc.vsweep_plain(cost, *pen, diag, down, up),
+                        K2, (cost,), ops)
+        acc = s1.clone()
         return Case("vsweep", variant, path,
-                    lambda: sc.vsweep(cost, *pen, diag, down, up),
-                    lambda: sc.vsweep_plain(cost, *pen, diag, down, up), src,
-                    (cost,), 10 * (3 if diag else 1) * (down + up))
+                    lambda: sc.vsweep(cost, *pen, diag, down, up, acc=acc),
+                    lambda: s1 + sc.vsweep_plain(cost, *pen, diag, down, up),
+                    K2, (cost, s1), ops)
 
     return [
         Case("cost_hsweep", "int16 C, integer pair", "off-lat",
@@ -309,10 +353,13 @@ def kernel_cases(torch, seq, cam, cfg):
         band_case("interior", h_t, "tiled4"),
         band_case("top", 0, None),
         band_case("bottom", IMG_SIZE[1] - h_t, None),
-        vs("down trio, int16 C (5 paths)", "off-lat", True, True, False),
-        vs("down and up trios, int16 C (8 paths)", "hh8", True, True, True),
-        vs("vertical down and up, int16 C (4 paths)", "hv4", False, True,
-           True),
+        vs("down trio into s1, int16 C (5 paths)", "off-lat", True, True,
+           False, into_s1=True),
+        vs("down and up trios into s1, int16 C (8 paths)", "hh8", True, True,
+           True, into_s1=True),
+        vs("vertical down and up into s1, int16 C (4 paths)", "hv4", False,
+           True, True, into_s1=True),
+        vs("down trio, int16 C (5 paths)", None, True, True, False),
         vs("up trio, int16 C", None, True, False, True),
         vs("vertical down, int16 C", None, False, True, False),
         vs("vertical up, int16 C", None, False, False, True),
@@ -327,10 +374,11 @@ def kernel_cases(torch, seq, cam, cfg):
         Case("hsweep", "forward, float32 C (block13, shifted pair)",
              "block13", lambda: sc.hsweep(Cf, q1, q2),
              lambda: sc.hsweep_plain(Cf, q1, q2), K6, (Cf,), 10),
-        Case("hsweep_wta_lr", "int16 C", "off-lat",
-             lambda: sc.hsweep_wta_lr(C, s1, sv, *wta),
-             lambda: sc.hsweep_wta_lr_plain(C, s1, sv, *wta), K3_K4,
-             (C, s1, sv), 20 * p.num_disparities),
+        Case("hsweep_wta_lr", "int16 C, s1 holding the vertical sum",
+             "off-lat",
+             lambda: sc.hsweep_wta_lr(C, s1v, None, *wta),
+             lambda: sc.hsweep_wta_lr_plain(C, s1v, None, *wta), K3_K4,
+             (C, s1v), 20 * p.num_disparities),
         Case("hsweep_wta_lr", "float32 C (block13, shifted pair)", "block13",
              lambda: sc.hsweep_wta_lr(Cf, s1f, svf, *wta13),
              lambda: sc.hsweep_wta_lr_plain(Cf, s1f, svf, *wta13), K7_K4,
@@ -340,8 +388,7 @@ def kernel_cases(torch, seq, cam, cfg):
              lambda: sc.hsweep_wta_lr(Cf, s1f, svf, *wta13, svuf),
              lambda: sc.hsweep_wta_lr_plain(Cf, s1f, svf, *wta13, svuf),
              K7_K4, (Cf, s1f, svf, svuf), 22 * q.num_disparities),
-        chain_case("D=48: H2 in blocks of 64 threads, H1 and H3 with 2 "
-                   "disparities a lane", 48),
+        chain_case("D=48: 2 disparities a lane in every walk", 48),
         chain_case("D=33 on 64 rows: D not a multiple of 8, scalar loads "
                    "at 32 disparities a lane", 33, 64),
         chain_case("D=1024 on 64 rows: 32 disparities a lane", 1024, 64),

@@ -43,9 +43,9 @@ SIGNATURES = {
     # lp, rp, C, s1, H, W, D, min_disp, radius, sentinel, P1, P2, bf16,
     # row0, rows, clamp_lo, clamp_hi, stream
     "ovo_cost_hsweep": (_P, _P, _P, _P) + (_I,) * 13 + (_P,),
-    # C, C is float32, sv, H, W, D, P1, P2, dir0, ndirs, down, up,
-    # init carry (or NULL), carry out (or NULL), stream
-    "ovo_vsweep": (_P, _I, _P) + (_I,) * 9 + (_P, _P, _P),
+    # C, C is float32, sv, H, W, D, P1, P2, dir0, ndirs, down, up, assign
+    # (float32: sv = L), init carry (or NULL), carry out (or NULL), stream
+    "ovo_vsweep": (_P, _I, _P) + (_I,) * 10 + (_P, _P, _P),
     # C, out, H, W, D, P1, P2, stream
     "ovo_hsweep": (_P, _P, _I, _I, _I, _I, _I, _P),
     # C, C is float32, s1, sv, svu (or NULL), disp16, H, W, D, P1, P2,

@@ -25,35 +25,50 @@
 //   H2 vsweep         <- sgbm_pallas.sweep_v (K2): one or three vertical
 //                        directions, top-down and/or bottom-up, with its
 //                        init_carry / return_carry (sgbm_pallas.py:478-557)
-//   H5 hsweep         <- sgbm_pallas.sweep_h (K6), float32
+//   H5 hsweep         <- sgbm_pallas.sweep_h (K6), float32: hwalk over F32
 //   H3 hsweep_wta_lr  <- sgbm_pallas.sweep_hw_wta (K3), and over float32
 //                        costs sweep_h_wta (K7); + lr_lookup (K4) and the
 //                        post-pass of sgbm_fused_tpu
 //
-// Three designs, and what bounds each on the H100 (times in PERF.md):
+// Two designs, and what bounds each on the H100 (times in PERF.md):
 //
-//   - Warp walks (H1's hwalk, H3). One warp walks one row, four rows a
-//     block; lane l holds the VPL disparities d = VPL*l + k (VPL = D/32
-//     rounded up to a power of two) in registers, idle slots (d >= D) at
-//     "infinity". A step takes the neighbours d +- 1 from the lane's own
-//     registers or one shuffle up and one down, and min L' from one
-//     redux.sync (__reduce_min_sync, the hardware's warp reduction), so no
-//     block barrier is on the walk. The loads leave the chain: hwalk and H3
-//     over float32 C take their columns from a TMA ring in the warp's
-//     shared memory (lane 0 fetches a chunk of columns of each volume with
-//     one bulk copy and an mbarrier, chunks ahead; hwalk sends s1 back the
-//     same way), H3 over int16 C loads them 8 columns ahead into registers
-//     (vector loads as volatile PTX, which the compiler keeps where they
-//     are issued): each the faster on the card (sgbm_common.cuh, Feed). A
-//     chunk or a loop body of 8 columns has no branch, so one column's work
-//     interleaves with the next one's. What bounds them is the step's
-//     dependency chain times the W columns, plus the issue slots the
-//     column's loads, stores and reductions take beside it: the 376 rows of
-//     a KITTI frame give one warp to each SM quarter it reaches, so nothing
-//     else hides that latency. H3 keeps the argmin's redux, the uniqueness
-//     vote and the right-view ring (a register shift of packed keys) off
-//     the chain of L, and the row's per-column results in the warp's shared
-//     memory.
+//   - Warp walks (H1's hwalk, H5, H2, H3). One warp walks one scan line (a
+//     row, or a vertical or diagonal line for H2), four lines a block; lane
+//     l holds the VPL disparities d = VPL*l + k (VPL = D/32 rounded up to a
+//     power of two) in registers, idle slots (d >= D) at "infinity". A step
+//     takes the neighbours d +- 1 from the lane's own registers or one
+//     shuffle up and one down, and min L' from one redux.sync
+//     (__reduce_min_sync, the hardware's warp reduction), so no block
+//     barrier is on the walk and nothing on its chain passes through shared
+//     memory. The loads leave the chain: hwalk (over int16 and float32 C)
+//     and H3 over float32 C take their columns from a TMA ring in the
+//     warp's shared memory (lane 0 fetches a chunk of columns of each
+//     volume with one bulk copy and an mbarrier, chunks ahead; hwalk sends
+//     its L back the same way), H3 over int16 C loads each column 8 steps
+//     ahead and H2 each pixel 4 steps ahead into registers (vector loads
+//     as volatile PTX, which the compiler keeps where they are issued):
+//     each the faster on the card (sgbm_common.cuh, Feed; for H2, whose
+//     pixels lie W*D +- D elements apart, a ring of one bulk copy a pixel
+//     lost: tools/probe_warp_walk.cu). A chunk or a loop body of a few steps
+//     has no branch, so one step's work interleaves with the next one's.
+//     What bounds the row walks is the step's dependency chain times the W
+//     columns, plus the issue slots the column's loads, stores and
+//     reductions take beside it: the 376 rows of a KITTI frame give one
+//     warp to each SM quarter it reaches, so nothing else hides that
+//     latency. H2's lines are short (at most H pixels) and many (4,476 for
+//     the top-down trio at KITTI size), so its launch keeps to 64 registers
+//     and 32 lines an SM walk at once, the directions' lines interleaved so
+//     that their adds into a row of the int32 sum meet in L2. Each line
+//     adds its L into the sum every other line of the launch adds into: a
+//     warp stages 4 pixels' L in shared memory and sends each with one bulk
+//     reduce-add (cp.reduce.async.bulk .add.s32, applied in L2 per element
+//     atomically, so exact in any order). Those adds, not the walk, bound
+//     it: the same walk with plain stores takes about half the time. Over
+//     int16 C the sum is H1's s1 itself, so no zeroed volume is written and
+//     H3 reads one volume fewer. H3 keeps the argmin's redux, the
+//     uniqueness vote and the right-view ring (a register shift of packed
+//     keys) off the chain of L, and the row's per-column results in the
+//     warp's shared memory.
 //   - H1's cost leaves the walk: bt_box computes C for tiles of 16 rows x 32
 //     columns x 32 disparities in parallel over the card, each BT cost once
 //     per (input row, column, disparity) of a tile from per-pixel rounded
@@ -62,9 +77,6 @@
 //     bound by its arithmetic and shared-memory traffic; the walk then
 //     reads C back, so H1 moves 8 bytes per volume element (C written and
 //     read, s1 written) where a fused kernel would move 6.
-//   - Block walks (H2, H5): one thread per disparity, one block per line,
-//     one block barrier and a two-stage min per step. Bound by that walk
-//     (latency), several times their byte floors; not redesigned yet.
 //
 // The band and the carry add no pass: a band reads its halo rows where the
 // whole image reads its neighbours, and a carry is one (W, D) row read
@@ -264,61 +276,69 @@ __global__ void __launch_bounds__(kBoxThreads)
   }
 }
 
-// hwalk's ring: 2 stages of 16 columns (8 at 8 slots a lane): its columns
-// are small and take few instructions, so long chunks keep the chunk's
-// fence and lane 0's copies off most columns (openvo_tpu_torch/tools/
-// probe_warp_walk.cu).
+// hwalk's ring: stages of 16 columns (8 at 8 slots a lane), 2 over int16 C
+// and 3 over float32 C: its columns are small and take few instructions,
+// so long chunks keep the chunk's fence and lane 0's copies off most
+// columns (openvo_tpu_torch/tools/probe_warp_walk.cu).
 __host__ __device__ constexpr int hwalk_chunk(int vpl) {
   return vpl <= 4 ? 16 : 64 / vpl;
 }
-constexpr int kHwalkStages = 2;
+template <typename P>
+constexpr int kHwalkStages = P::kSumsExact ? 2 : 3;
 
-// H1, second kernel: one warp per row of int16 C; the left-to-right scan
-// from a fresh start, s1 = L. Fed by the warp's TMA ring (F = kRing, in
-// ring_bytes of shared memory a warp) or through registers.
-template <int VPL, int F>
+// H1's second kernel (P = X2: int16 C, out = s1 int32, from a fresh start)
+// and H5 (P = F32: float32 C and L, from a previous L of 1e9 everywhere and
+// min L' = 1e9, as the JAX package's carry): one warp per row of C, the
+// left-to-right scan, out = L. Fed by the warp's TMA ring (F = kRing: NS
+// stages of CH columns in ring_bytes of shared memory a warp) or through
+// registers.
+template <typename P, int VPL, int F, int CH = hwalk_chunk(VPL),
+          int NS = kHwalkStages<P>>
 __global__ void __launch_bounds__(32 * kWalkWarps)
-    hwalk_kernel(const int16_t* __restrict__ C, int32_t* __restrict__ s1,
-                 int rows, int W, int D, int P1, int P2, int ring_bytes) {
+    hwalk_kernel(const typename P::C* __restrict__ C,
+                 typename P::L* __restrict__ out, int rows, int W, int D,
+                 int P1, int P2, int ring_bytes) {
+  using CT = typename P::C;
+  using L = typename P::L;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int y = blockIdx.x * (blockDim.x >> 5) + warp;
   if (y >= rows) return;
   const int d0 = VPL * lane, n = min(max(D - d0, 0), VPL);
   const size_t base = (size_t)y * W * D;
+  const L p1 = (L)P1, p2 = (L)P2;
   struct Col {
-    int16_t c[VPL];
+    CT c[VPL];
   };
-  int Lr[VPL];
+  L Lr[VPL];
 #pragma unroll
-  for (int k = 0; k < VPL; ++k) Lr[k] = kBig;
-  int minprev = 0;
+  for (int k = 0; k < VPL; ++k) Lr[k] = P::big();
+  L minprev = P::start_minprev();
   auto step = [&](const Col& col, auto fresh) {
-    int c[VPL];
+    L c[VPL];
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) c[k] = col.c[k];
-    warp_step<X2, VPL>(Lr, c, minprev, P1, P2, decltype(fresh)::value, lane,
-                       n);
+    for (int k = 0; k < VPL; ++k) c[k] = (L)col.c[k];
+    warp_step<P, VPL>(Lr, c, minprev, p1, p2, decltype(fresh)::value, lane,
+                      n);
   };
   if constexpr (F == kRing) {
-    constexpr int CH = hwalk_chunk(VPL);
-    const Ring<CH, kHwalkStages, 1, true> ring{
+    const Ring<CH, NS, 1, true> ring{
         smem + (size_t)warp * ring_bytes,
-        {(unsigned char*)(C + base), (unsigned char*)(s1 + base)},
-        {2 * D, 4 * D}};
+        {(unsigned char*)(C + base), (unsigned char*)(out + base)},
+        {(int)sizeof(CT) * D, (int)sizeof(L) * D}};
     ring_walk<CH, true>(
         W, lane, ring,
         [&](int s, int slot) {
           Col col;
           if (n == VPL)
-            load_full<false>(col.c, reinterpret_cast<const int16_t*>(
+            load_full<false>(col.c, reinterpret_cast<const CT*>(
                                         ring.part(s, 0)) +
                                         (size_t)slot * D + d0);
           return col;
         },
         [&](const Col& col, int, auto fresh, int s, int slot) {
           step(col, fresh);
-          store_slots<true>(reinterpret_cast<int*>(ring.part(s, 1)) +
+          store_slots<true>(reinterpret_cast<L*>(ring.part(s, 1)) +
                                 (size_t)slot * D + d0,
                             Lr, n);
         });
@@ -331,173 +351,265 @@ __global__ void __launch_bounds__(32 * kWalkWarps)
         },
         [&](const Col& col, int x, auto fresh) {
           step(col, fresh);
-          store_slots<kVec>(s1 + base + (size_t)x * D + d0, Lr, n);
+          store_slots<kVec>(out + base + (size_t)x * D + d0, Lr, n);
         });
   }
 }
 
+// hwalk over P's C (H1's walk over int16 C, H5 over float32 C): the TMA
+// ring where feed_fits, else scalar loads at 32 slots a lane.
+template <typename P>
+int launch_hwalk(const void* C, void* out, int rows, int W, int D, int P1,
+                 int P2, cudaStream_t stream) {
+  using CT = typename P::C;
+  using L = typename P::L;
+  const bool ring = feed_fits(kRing, D, {C, out});
+  const size_t warp_bytes =
+      ring ? ring_bytes(hwalk_chunk(slots_per_lane(D)), kHwalkStages<P>, D,
+                        (int)(sizeof(CT) + sizeof(L)))
+           : 0;
+  return with_lanes<kRing>(D, ring, [&](auto vpl, auto feed) {
+    auto kernel =
+        hwalk_kernel<P, decltype(vpl)::value, decltype(feed)::value>;
+    const int e = set_smem((const void*)kernel, kWalkWarps * warp_bytes);
+    if (e) return e;
+    kernel<<<(rows + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps,
+             kWalkWarps * warp_bytes, stream>>>((const CT*)C, (L*)out, rows,
+                                                W, D, P1, P2,
+                                                (int)warp_bytes);
+    return (int)cudaGetLastError();
+  });
+}
+
 // ---------------------------------------------------------------------------
-// Block walks (H2, H5)
+// H2 vsweep: one warp per scan line
 // ---------------------------------------------------------------------------
 
-// threads per block of a block walk: D rounded up to whole warps
-int padded(int D) { return (D + 31) & ~31; }
+// A vertical scan line: direction j (0 straight; 1 and 2 the diagonals,
+// whose previous L lies at x - dx, dx = +1 and -1), walked top-down (ys =
+// 1) or bottom-up (ys = -1) for len pixels from (y, x).
+struct VLine {
+  int j, dx, ys, y, x, len;
+};
 
-template <typename V>
-__device__ __forceinline__ V warp_min(V v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = vmin(v, __shfl_xor_sync(kFull, v, o));
+// Line b of a launch. For each direction of travel asked for (top-down
+// first, then bottom-up; per_way lines each) and each direction j in
+// [dir0, dir0 + ndirs), W lines start on the first row walked; a diagonal
+// has H - 1 more that start on the edge column it shifts in (x = 0 for +1,
+// W - 1 for -1: the same for both directions of travel, as in the JAX
+// package's _scan_dirs). A line runs until it leaves the image. The
+// directions' lines alternate (the lines from column x of the first row,
+// then those from row k of the edge columns), so that warps that run at the
+// same time add into the same rows of the sum.
+__device__ __forceinline__ VLine vline(int b, int H, int W, int dir0,
+                                       int ndirs, int down, int per_way) {
+  VLine v;
+  const bool up = !(down && b < per_way);
+  if (b >= per_way) b -= per_way;
+  const int diags = ndirs - (dir0 == 0 ? 1 : 0);
+  if (b < ndirs * W) {
+    v.j = dir0 + b % ndirs;
+    b /= ndirs;
+  } else {  // an edge line of one of the diagonals
+    b -= ndirs * W;
+    v.j = dir0 + (ndirs - diags) + b % diags;
+    b = W + b / diags;
+  }
+  v.dx = v.j == 0 ? 0 : (v.j == 1 ? 1 : -1);
+  v.ys = up ? -1 : 1;
+  v.y = up ? H - 1 : 0;
+  v.x = b;
+  if (b >= W) {
+    v.y += v.ys * (b - W + 1);
+    v.x = v.dx == 1 ? 0 : W - 1;
+  }
+  v.len = up ? v.y + 1 : H - v.y;
+  if (v.dx == 1) v.len = min(v.len, W - v.x);
+  if (v.dx == -1) v.len = min(v.len, v.x + 1);
   return v;
 }
 
-// Block-wide min of v (blockDim.x a multiple of 32): warp shuffles, then
-// one slot per warp in red[0..nwarps). The caller synchronises.
-template <typename V>
-__device__ __forceinline__ void warp_min_to(V* red, V v) {
-  const V m = warp_min(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+// One bulk reduce-add of `bytes` of int32 elements from shared memory at
+// src into dst: the L2 applies it per element atomically.
+template <typename L>
+__device__ __forceinline__ void bulk_reduce_add(L* dst, unsigned src,
+                                                int bytes) {
+  static_assert(std::is_same_v<L, int>, "an add of int32 elements");
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.s32 [%0], "
+      "[%1], %2;" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-template <typename V>
-__device__ __forceinline__ V read_min(const V* red, int nwarps) {
-  V m = red[0];
-  for (int w = 1; w < nwarps; ++w) m = vmin(m, red[w]);
-  return m;
+// H2's tuning, the fastest on the H100 of those timed by
+// openvo_tpu_torch/tools/probe_warp_walk.cu (other feeds, adds and
+// tunings live there): the vector feed loads a line's pixels 4 ahead, and
+// the kernel keeps to the registers that let 8 blocks of 4 warps share an
+// SM over int16 C (4 over float32 C, 1 beyond 4 slots a lane), so that 32
+// lines an SM (4,224 of a KITTI trio's 4,476) walk at once and their adds
+// meet in L2. Over int16 C a warp stages its L for the bulk adds in
+// kAddStages stages of kAddRows pixels.
+template <int VPL>
+constexpr int kVsweepAhead = VPL <= 4 ? 4 : kPrefetch<VPL>;
+template <typename P, int VPL>
+constexpr int kVsweepBlocks = VPL > 4 ? 1 : (P::kSumsExact ? 8 : 4);
+constexpr int kAddRows = 4, kAddStages = 2;
+
+// Shared memory of an H2 warp: the bulk adds' stages (int16 C, vector
+// feed), else none.
+size_t vsweep_warp_bytes(bool staged, int D) {
+  return staged ? (size_t)kAddStages * kAddRows * D * sizeof(int) : 0;
 }
 
-// Fill both (Dp + 2)-slot L buffers of a block walk with big(). The caller
-// synchronises before writing a slot.
-template <typename P>
-__device__ __forceinline__ void fill_carry(typename P::L* lbuf, int Dp) {
-  for (int i = threadIdx.x; i < 2 * (Dp + 2); i += blockDim.x)
-    lbuf[i] = P::big();
-}
-
-// H2: one block per scan line, for each direction of travel asked for
-// (top-down first, then bottom-up) and each direction j in [dir0, dir0 +
-// ndirs) of (straight, previous L at x - 1, previous L at x + 1). Per
-// direction, W lines start on the first row walked; a diagonal has W + H - 1
-// more that start on the edge column it shifts in (x = 0 for j = 1, W - 1
-// for j = 2: the same for both directions of travel, as in the JAX
-// package's _scan_dirs). A line starts afresh unless it starts on the first
-// row walked and init holds its previous L at x - dx; the line at the last
-// row walked writes its L to cout. Each line adds its L into sv. prev[d + 1]
-// holds the previous L, with big() at prev[0] and at every slot past
-// prev[D] (the idle threads').
-template <typename P>
-__global__ void vsweep_kernel(const typename P::C* __restrict__ C,
-                              typename P::L* sv, int H, int W, int D, int P1,
-                              int P2, int dir0, int ndirs, int down,
-                              const typename P::L* __restrict__ init,
-                              typename P::L* __restrict__ cout) {
+// H2: one warp per scan line (vline), lane l holding d = VPL*l + k as in
+// hwalk: the step takes d +- 1 from the lane's registers or one shuffle
+// each way and min L' from one redux, with no block barrier. A line starts
+// afresh unless it starts on the first row walked and init holds its
+// previous L at x - dx; a line that ends on the last row walked writes its
+// L to cout. Each pixel's inputs come through registers, kVsweepAhead
+// pixels ahead (F = kVector or kScalar). Over X2 every line of every
+// direction adds its L into sv: from the vector feed a warp stages kAddRows
+// pixels' L in its shared memory and lane i sends the stage's pixel i with
+// one bulk reduce-add (cp.reduce.async.bulk .add.s32); from the scalar
+// feed each lane adds its slots with atomicAdd. Over F32 a launch walks one
+// direction, whose lines cover each pixel once, and each pixel's sum
+// becomes sv + L (L where `assign`: the first direction), as the JAX
+// package's sum order.
+template <typename P, int VPL, int F>
+__global__ void __launch_bounds__(32 * kWalkWarps, kVsweepBlocks<P, VPL>)
+    vsweep_kernel(const typename P::C* __restrict__ C, typename P::L* sv,
+                  int H, int W, int D, int P1, int P2, int dir0, int ndirs,
+                  int down, int per_way, int nlines, int assign,
+                  const typename P::L* __restrict__ init,
+                  typename P::L* __restrict__ cout) {
+  using CT = typename P::C;
   using L = typename P::L;
+  constexpr bool kExact = P::kSumsExact;
+  constexpr bool kVec = F == kVector;
+  constexpr bool kStaged = kExact && kVec;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = blockDim.x;
-  L* lbuf = (L*)smem;                // 2 x (Dp + 2)
-  L* red = lbuf + 2 * (Dp + 2);      // 2 x 32
-  const int d = threadIdx.x, nwarps = Dp >> 5;
-  const bool active = d < D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= nlines) return;
+  const VLine v = vline(b, H, W, dir0, ndirs, down, per_way);
+  const int d0 = VPL * lane, n = min(max(D - d0, 0), VPL);
   const L p1 = (L)P1, p2 = (L)P2;
-  const int nl = W + H - 1;
-  int per_way = 0;
-  for (int j = dir0; j < dir0 + ndirs; ++j) per_way += j == 0 ? W : nl;
-  int b = blockIdx.x;
-  // the first per_way blocks walk top-down if that was asked for
-  const bool reverse = !(down && b < per_way);
-  if (b >= per_way) b -= per_way;
-  int j = dir0;
-  for (int lines = j == 0 ? W : nl; b >= lines; lines = nl) {  // j > 0: nl
-    b -= lines;
-    ++j;
+  // the lane's first element at the line's first pixel, and the elements
+  // from one pixel of the line to the next
+  const long long first = ((long long)v.y * W + v.x) * D + d0;
+  const long long next = ((long long)v.ys * W + v.dx) * D;
+  const size_t cbase = (size_t)(v.j - dir0) * W * D;
+  const bool carried = init && v.y == (v.ys > 0 ? 0 : H - 1) &&
+                       v.x - v.dx >= 0 && v.x - v.dx < W;
+  L Lr[VPL];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) Lr[k] = P::big();
+  L minprev = P::start_minprev();
+  if (carried) {
+    const L* ip = init + cbase + (size_t)(v.x - v.dx) * D + d0;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (k < n) Lr[k] = ip[k];
+    minprev = P::warp_all_min(lane_min(Lr));
   }
-  const int dx = j == 0 ? 0 : (j == 1 ? 1 : -1);
-  const int ys = reverse ? -1 : 1, y_first = reverse ? H - 1 : 0;
-  const int y_last = reverse ? 0 : H - 1;
-  int y = y_first, x = b;
-  if (b >= W) {
-    y = y_first + ys * (b - W + 1);
-    x = dx == 1 ? 0 : W - 1;
-  }
-  const size_t cbase = (size_t)(j - dir0) * W * D;
-  const bool carried = init && y == y_first && x - dx >= 0 && x - dx < W;
-  fill_carry<P>(lbuf, Dp);
-  __syncthreads();
-  L minprev = P::big();
-  if (carried) {  // the same for the whole block
-    const L v = active ? init[cbase + (size_t)(x - dx) * D + d] : P::big();
-    lbuf[d + 1] = v;
-    warp_min_to(red, v);
-    __syncthreads();
-    minprev = read_min(red, nwarps);
-  }
-  int buf = 0;
-  for (bool fresh = !carried; y >= 0 && y < H && x >= 0 && x < W;
-       y += ys, x += dx, fresh = false) {
-    const L* prev = lbuf + buf * (Dp + 2);
-    L* next = lbuf + (buf ^ 1) * (Dp + 2);
-    L Lv = P::big();
-    if (active) {
-      const size_t o = ((size_t)y * W + x) * D + d;
-      Lv = P::step(prev[d + 1], prev[d], prev[d + 2], (L)C[o], minprev, p1,
-                   p2, fresh);
-      P::add_to(sv + o, Lv);
-      if (cout && y == y_last) cout[cbase + (size_t)x * D + d] = Lv;
+  // kStaged: the warp's stages of the adds
+  L* staged = reinterpret_cast<L*>(smem) +
+              (size_t)warp * kAddStages * kAddRows * D;
+  // a pixel's C and, over F32 where it adds, the sum it adds to
+  struct Col {
+    CT c[VPL];
+    L a[kExact ? 1 : VPL];
+  };
+  // after pixel t, which ends a stage of the adds (generic, so that only
+  // kStaged instantiates it)
+  auto send = [&](auto t) {
+    const int k = t / kAddRows, rows = t - k * kAddRows + 1;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane < rows)
+      bulk_reduce_add(
+          sv + (first - d0) + (k * kAddRows + lane) * next,
+          smem_addr(staged + ((k % kAddStages) * kAddRows + lane) * (size_t)D),
+          D * (int)sizeof(L));
+    // pixel t + 1 writes the stage of chunk k + 1 - kAddStages
+    bulk_stores_read<kAddStages - 1>();
+    __syncwarp();
+  };
+  auto step = [&](const Col& col, int t, auto fresh) {
+    L c[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) c[k] = (L)col.c[k];
+    warp_step<P, VPL>(Lr, c, minprev, p1, p2,
+                      decltype(fresh)::value && !carried, lane, n);
+    if constexpr (kStaged) {
+      const int row = (t / kAddRows) % kAddStages * kAddRows + t % kAddRows;
+      store_slots<true>(staged + (size_t)row * D + d0, Lr, n);
+      if (t % kAddRows == kAddRows - 1 || t == v.len - 1) send(t);
+      return;
     }
-    next[d + 1] = Lv;
-    warp_min_to(red + (buf ^ 1) * 32, Lv);
-    __syncthreads();
-    minprev = read_min(red + (buf ^ 1) * 32, nwarps);
-    buf ^= 1;
+    L* o = sv + first + t * next;
+    if constexpr (kExact) {
+#pragma unroll
+      for (int k = 0; k < VPL; ++k)
+        if (k < n) atomicAdd(o + k, Lr[k]);
+    } else if (assign) {
+      store_slots<kVec>(o, Lr, n);
+    } else {
+      L s[VPL];
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) s[k] = P::add(col.a[k], Lr[k]);
+      store_slots<kVec>(o, s, n);
+    }
+  };
+  walk<kVsweepAhead<VPL>, true, Col>(
+      v.len,
+      [&](Col& col, int t) {
+        const long long o = first + t * next;
+        load_slots<kVec>(col.c, C + o, n);
+        if constexpr (!kExact) {
+          if (!assign) load_slots<kVec>(col.a, sv + o, n);
+        }
+      },
+      step);
+  if constexpr (kStaged) bulk_stores_done();
+  // a line that ends on the last row walked: its L continues the sweep
+  if (cout && v.y + v.ys * (v.len - 1) == (v.ys > 0 ? H - 1 : 0)) {
+    L* cp = cout + cbase + (size_t)(v.x + v.dx * (v.len - 1)) * D + d0;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (k < n) cp[k] = Lr[k];
   }
 }
 
-// H5: one block per row y. Walks x left to right with the float32 SGM step
-// from a previous L of 1e9; out = L.
-__global__ void hsweep_kernel(const float* __restrict__ C,
-                              float* __restrict__ out, int W, int D, int P1,
-                              int P2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = blockDim.x;
-  float* lbuf = (float*)smem;          // 2 x (Dp + 2)
-  float* red = lbuf + 2 * (Dp + 2);    // 2 x 32
-  const int y = blockIdx.x, d = threadIdx.x, nwarps = Dp >> 5;
-  const bool active = d < D;
-  fill_carry<F32>(lbuf, Dp);
-  __syncthreads();
-  float minprev = kBigF;
-  int buf = 0;
-  for (int x = 0; x < W; ++x) {
-    const float* prev = lbuf + buf * (Dp + 2);
-    float* next = lbuf + (buf ^ 1) * (Dp + 2);
-    float L = kBigF;
-    if (active) {
-      const size_t o = ((size_t)y * W + x) * D + d;
-      L = F32::step(prev[d + 1], prev[d], prev[d + 2], C[o], minprev,
-                    (float)P1, (float)P2, false);
-      out[o] = L;
-    }
-    next[d + 1] = L;
-    warp_min_to(red + (buf ^ 1) * 32, L);
-    __syncthreads();
-    minprev = read_min(red + (buf ^ 1) * 32, nwarps);
-    buf ^= 1;
-  }
-}
-
+// H2 over P's C: every line of [dir0, dir0 + ndirs) and of each direction
+// of travel asked for in one launch, with vector loads where feed_fits and
+// a bulk add's rows are whole 16-byte units, else scalar loads at 32 slots
+// a lane.
 template <typename P>
 int launch_vsweep(const void* C, void* sv, int H, int W, int D, int P1,
-                  int P2, int dir0, int ndirs, int down, int up,
+                  int P2, int dir0, int ndirs, int down, int up, int assign,
                   const void* init, void* cout, cudaStream_t stream) {
+  using CT = typename P::C;
   using L = typename P::L;
-  const int Dp = padded(D);
-  const size_t smem = sizeof(L) * (2 * (Dp + 2) + 64);
   int per_way = 0;
   for (int j = dir0; j < dir0 + ndirs; ++j) per_way += j == 0 ? W : W + H - 1;
-  const int blocks = per_way * ((down ? 1 : 0) + (up ? 1 : 0));
-  vsweep_kernel<P><<<blocks, Dp, smem, stream>>>(
-      (const typename P::C*)C, (L*)sv, H, W, D, P1, P2, dir0, ndirs, down,
-      (const L*)init, (L*)cout);
-  return (int)cudaGetLastError();
+  const int nlines = per_way * ((down ? 1 : 0) + (up ? 1 : 0));
+  const bool fast = feed_fits(kVector, D, {C, sv}) && D % 4 == 0;
+  return with_lanes<kVector>(D, fast, [&](auto vpl, auto feed) {
+    constexpr int F = decltype(feed)::value;
+    const size_t warp_bytes =
+        vsweep_warp_bytes(P::kSumsExact && F == kVector, D);
+    auto kernel = vsweep_kernel<P, decltype(vpl)::value, F>;
+    const int e = set_smem((const void*)kernel, kWalkWarps * warp_bytes);
+    if (e) return e;
+    kernel<<<(nlines + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps,
+             kWalkWarps * warp_bytes, stream>>>(
+        (const CT*)C, (L*)sv, H, W, D, P1, P2, dir0, ndirs, down, per_way,
+        nlines, assign, (const L*)init, (L*)cout);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -537,46 +649,34 @@ int ovo_cost_hsweep(const float* lp, const float* rp, int16_t* C,
         clamp_hi, tx);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const bool ring = feed_fits(kRing, D, {C, s1});
-  const size_t warp_bytes =
-      ring ? ring_bytes(hwalk_chunk(slots_per_lane(D)), kHwalkStages, D, 6)
-           : 0;
-  return with_lanes<kRing>(D, ring, [&](auto vpl, auto feed) {
-    auto kernel = hwalk_kernel<decltype(vpl)::value, decltype(feed)::value>;
-    const int e = set_smem((const void*)kernel, kWalkWarps * warp_bytes);
-    if (e) return e;
-    kernel<<<(rows + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps,
-             kWalkWarps * warp_bytes, st>>>(C, s1, rows, W, D, P1, P2,
-                                             (int)warp_bytes);
-    return (int)cudaGetLastError();
-  });
+  return launch_hwalk<X2>(C, s1, rows, W, D, P1, P2, st);
 }
 
-// C int16 with int32 sv/init/cout (f32 = 0) or all float32 (f32 = 1, one
-// direction and one direction of travel); directions [dir0, dir0 + ndirs)
-// of (straight, +1, -1); init/cout (ndirs, W, D) or NULL
+// C int16 with int32 sv/init/cout (f32 = 0: sv holds the sum so far, zeros
+// or a partial sum) or all float32 (f32 = 1: one direction and one
+// direction of travel; sv = sv + L, or sv = L where `assign`); directions
+// [dir0, dir0 + ndirs) of (straight, +1, -1); init/cout (ndirs, W, D) or
+// NULL
 int ovo_vsweep(const void* C, int f32, void* sv, int H, int W, int D, int P1,
-               int P2, int dir0, int ndirs, int down, int up,
+               int P2, int dir0, int ndirs, int down, int up, int assign,
                const void* init, void* cout, void* stream) {
   const bool one_way = !(down && up);
   if (bad_d(D) || H <= 0 || W <= 0 || !(down || up) || dir0 < 0 ||
       ndirs < 1 || dir0 + ndirs > 3 || ((init || cout) && !one_way) ||
-      (f32 && (ndirs != 1 || !one_way)))
+      (f32 && (ndirs != 1 || !one_way)) || (assign && !f32))
     return (int)cudaErrorInvalidValue;
   if (f32)
     return launch_vsweep<F32>(C, sv, H, W, D, P1, P2, dir0, ndirs, down, up,
-                              init, cout, (cudaStream_t)stream);
-  return launch_vsweep<X2>(C, sv, H, W, D, P1, P2, dir0, ndirs, down, up,
+                              assign, init, cout, (cudaStream_t)stream);
+  return launch_vsweep<X2>(C, sv, H, W, D, P1, P2, dir0, ndirs, down, up, 0,
                            init, cout, (cudaStream_t)stream);
 }
 
+// H5: the left-to-right scan of float32 C, out = L
 int ovo_hsweep(const float* C, float* out, int H, int W, int D, int P1,
                int P2, void* stream) {
   if (bad_d(D) || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const int Dp = padded(D);
-  const size_t smem = sizeof(float) * (2 * (Dp + 2) + 64);
-  hsweep_kernel<<<H, Dp, smem, (cudaStream_t)stream>>>(C, out, W, D, P1, P2);
-  return (int)cudaGetLastError();
+  return launch_hwalk<F32>(C, out, H, W, D, P1, P2, (cudaStream_t)stream);
 }
 
 }  // extern "C"

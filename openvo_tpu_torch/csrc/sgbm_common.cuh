@@ -74,6 +74,8 @@ struct X2 {
   using Key = int;  // S * D + d: its min is min S with the lowest d
   static constexpr Key kKeyMax = INT_MAX;
   __device__ static L big() { return kBig; }
+  // min L' before a scan's fresh first step (which does not read it)
+  __device__ static L start_minprev() { return 0; }
   // L at d from the previous L at d (mid), d - 1 (lo) and d + 1 (hi)
   __device__ static L step(L mid, L lo, L hi, L c, L minprev, L P1, L P2,
                            bool fresh) {
@@ -115,7 +117,9 @@ struct X2 {
 
 // The float32 path on the x1 grid: each operation rounds as the JAX
 // package's _scan_dirs and _wta. A scan's first step reads a previous L of
-// 1e9 everywhere, so `fresh` is unused. Every L and S is >= +0 (costs are,
+// 1e9 everywhere and min L' = 1e9 (start_minprev), which gives the JAX
+// carry's fresh-start rounding by itself, so `fresh` is unused. Every L
+// and S is >= +0 (costs are,
 // and L = (c + cand) - minprev with cand >= minprev), and the bits of a
 // non-negative float order as an unsigned integer: the warp minima are
 // integer reduxes of the bits.
@@ -127,6 +131,7 @@ struct F32 {
   using Key = unsigned long long;
   static constexpr Key kKeyMax = ~0ull;
   __device__ static L big() { return kBigF; }
+  __device__ static L start_minprev() { return kBigF; }
   __device__ static L step(L mid, L lo, L hi, L c, L minprev, L P1, L P2,
                            bool) {
     float cand = fminf(mid, __fadd_rn(fminf(lo, hi), P1));
@@ -170,7 +175,7 @@ struct F32 {
 };
 
 // ---------------------------------------------------------------------------
-// Warp walks (H1's hwalk, H3)
+// Warp walks (H1's hwalk, H5, H2, H3)
 // ---------------------------------------------------------------------------
 
 // How a warp walk brings each column's inputs in (and H1's s1 out):
@@ -188,8 +193,9 @@ struct F32 {
 //   kVector: as kScalar with vector loads and stores: D a multiple of the
 //            slots a lane, aligned volumes, at most 8 slots a lane.
 // Each kernel takes the faster of kRing and kVector where its shapes allow
-// (openvo_tpu_torch/tools/probe_warp_walk.cu times both): hwalk and H3
-// over float32 C the ring, H3 over int16 C vector loads; else kScalar.
+// (openvo_tpu_torch/tools/probe_warp_walk.cu times both): hwalk (H1's walk
+// and H5) and H3 over float32 C the ring, H3 over int16 C and H2 vector
+// loads; else kScalar.
 enum Feed : int { kScalar, kVector, kRing };
 
 // Columns loaded ahead of a register-fed walk: enough to cover a
@@ -300,19 +306,26 @@ __device__ __forceinline__ void load_slots(T (&v)[N], const T* p, int n) {
   }
 }
 
-template <bool kVec, int N>
-__device__ __forceinline__ void store_slots(int* p, const int (&v)[N], int n) {
+__device__ __forceinline__ int to_bits(int v) { return v; }
+__device__ __forceinline__ int to_bits(float v) { return __float_as_int(v); }
+
+// A lane's first n <= N slots to p (int32 or float32), as load_slots.
+template <bool kVec, typename T, int N>
+__device__ __forceinline__ void store_slots(T* p, const T (&v)[N], int n) {
+  static_assert(sizeof(T) == 4, "int32 or float32 slots");
   if constexpr (kVec) {
     if (n == N) {
+      int* q = reinterpret_cast<int*>(p);
       if constexpr (N >= 4) {
 #pragma unroll
         for (int i = 0; i < N / 4; ++i)
-          reinterpret_cast<int4*>(p)[i] =
-              make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+          reinterpret_cast<int4*>(q)[i] =
+              make_int4(to_bits(v[4 * i]), to_bits(v[4 * i + 1]),
+                        to_bits(v[4 * i + 2]), to_bits(v[4 * i + 3]));
       } else if constexpr (N == 2) {
-        *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+        *reinterpret_cast<int2*>(q) = make_int2(to_bits(v[0]), to_bits(v[1]));
       } else {
-        p[0] = v[0];
+        q[0] = to_bits(v[0]);
       }
     }
   } else {

@@ -19,7 +19,8 @@ __host__ __device__ constexpr int h3_chunk(int vpl) {
 constexpr int kH3Stages = 3;
 
 // H3: one warp per row y, walking x right to left: the reverse SGM step, S
-// = L + s1 + sv (+ svu) (over F32, ((s1 + L) + sv) + svu), the argmin over
+// = L + s1 over X2 (s1 holds H2's sums too: H2 adds into it) and ((s1 + L)
+// + sv) + svu over F32 (svu if kU), the argmin over
 // d with the lowest d on ties, the uniqueness vote, and the right-view
 // argmin bestR(xr) = argmin_d S(xr + d, d) as a register shift: slot d of R
 // holds the running min of the diagonal xr = x - d, which at the next
@@ -40,6 +41,7 @@ __global__ void __launch_bounds__(32 * kWalkWarps) hsweep_wta_lr_kernel(
   using L = typename P::L;
   using Key = typename P::Key;
   using CT = typename P::C;
+  constexpr bool kV = !P::kSumsExact;  // sv apart from s1: over F32 only
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int y = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -60,7 +62,7 @@ __global__ void __launch_bounds__(32 * kWalkWarps) hsweep_wta_lr_kernel(
   const float scale = (float)(100 - uniq);
   struct Col {
     CT c[VPL];
-    L a[VPL], v[VPL], u[kU ? VPL : 1];
+    L a[VPL], v[kV ? VPL : 1], u[kU ? VPL : 1];
   };
   L Lr[VPL];
   Key R[VPL];
@@ -79,7 +81,8 @@ __global__ void __launch_bounds__(32 * kWalkWarps) hsweep_wta_lr_kernel(
     L S[VPL];
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
-      S[k] = P::add(P::add(col.a[k], Lr[k]), col.v[k]);
+      S[k] = P::add(col.a[k], Lr[k]);
+      if constexpr (kV) S[k] = P::add(S[k], col.v[k]);
       if constexpr (kU) S[k] = P::add(S[k], col.u[k]);
     }
     int best;
@@ -117,17 +120,20 @@ __global__ void __launch_bounds__(32 * kWalkWarps) hsweep_wta_lr_kernel(
     auto u8 = [](const void* p) {
       return const_cast<unsigned char*>(static_cast<const unsigned char*>(p));
     };
-    Ring<CH, kH3Stages, kU ? 4 : 3, false> ring;
+    constexpr int kV_ = kV ? 1 : 0;  // volume index of svu: 2 + kV_
+    Ring<CH, kH3Stages, 2 + kV_ + (kU ? 1 : 0), false> ring;
     ring.mem = mine + row_bytes;
     ring.row[0] = u8(C + base);
     ring.col[0] = D * (int)sizeof(CT);
     ring.row[1] = u8(s1 + base);
     ring.col[1] = D * (int)sizeof(L);
-    ring.row[2] = u8(sv + base);
-    ring.col[2] = D * (int)sizeof(L);
+    if constexpr (kV) {
+      ring.row[2] = u8(sv + base);
+      ring.col[2] = D * (int)sizeof(L);
+    }
     if constexpr (kU) {
-      ring.row[3] = u8(svu + base);
-      ring.col[3] = D * (int)sizeof(L);
+      ring.row[2 + kV_] = u8(svu + base);
+      ring.col[2 + kV_] = D * (int)sizeof(L);
     }
     ring_walk<CH, false>(
         W, lane, ring,
@@ -139,11 +145,13 @@ __global__ void __launch_bounds__(32 * kWalkWarps) hsweep_wta_lr_kernel(
                              reinterpret_cast<const CT*>(ring.part(s, 0)) + o);
             load_full<false>(col.a,
                              reinterpret_cast<const L*>(ring.part(s, 1)) + o);
-            load_full<false>(col.v,
-                             reinterpret_cast<const L*>(ring.part(s, 2)) + o);
+            if constexpr (kV)
+              load_full<false>(
+                  col.v, reinterpret_cast<const L*>(ring.part(s, 2)) + o);
             if constexpr (kU)
               load_full<false>(
-                  col.u, reinterpret_cast<const L*>(ring.part(s, 3)) + o);
+                  col.u, reinterpret_cast<const L*>(ring.part(s, 2 + kV_)) +
+                             o);
           }
           return col;
         },
@@ -158,7 +166,7 @@ __global__ void __launch_bounds__(32 * kWalkWarps) hsweep_wta_lr_kernel(
           const size_t o = base + (size_t)x * D + d0;
           load_slots<kVec>(col.c, C + o, n);
           load_slots<kVec>(col.a, s1 + o, n);
-          load_slots<kVec>(col.v, sv + o, n);
+          if constexpr (kV) load_slots<kVec>(col.v, sv + o, n);
           if constexpr (kU) load_slots<kVec>(col.u, svu + o, n);
         },
         step);
@@ -192,8 +200,8 @@ int launch_hsweep_wta_lr(const void* C, const void* s1, const void* sv,
   // the faster feed (openvo_tpu_torch/tools/probe_warp_walk.cu): vector
   // loads over int16 C, the ring over float32 C
   constexpr int kFast = P::kSumsExact ? kVector : kRing;
-  const int per_elem =
-      (int)(sizeof(typename P::C) + (svu ? 3 : 2) * sizeof(L));
+  const int per_elem = (int)(sizeof(typename P::C) +
+                             (1 + (sv ? 1 : 0) + (svu ? 1 : 0)) * sizeof(L));
   const size_t ring =
       kFast == kRing
           ? ring_bytes(h3_chunk(slots_per_lane(D)), kH3Stages, D, per_elem)
@@ -216,7 +224,7 @@ int launch_hsweep_wta_lr(const void* C, const void* s1, const void* sv,
           (int)warp_bytes);
       return (int)cudaGetLastError();
     };
-    if constexpr (P::kSumsExact) {  // svu is added into sv by H2
+    if constexpr (P::kSumsExact) {  // H2 adds sv and svu into s1
       return go(hsweep_wta_lr_kernel<P, VPL, F, false>);
     } else {
       if (svu) return go(hsweep_wta_lr_kernel<P, VPL, F, true>);
@@ -229,15 +237,16 @@ int launch_hsweep_wta_lr(const void* C, const void* s1, const void* sv,
 
 extern "C" {
 
-// C int16 with int32 s1/sv (f32 = 0; exact in any order, so a bottom-up
-// partial is added into sv by H2 and svu is NULL) or all float32
-// (f32 = 1; svu, the bottom-up partial kept apart for the sum order, may be
-// NULL)
+// C int16 with int32 s1 (f32 = 0; exact in any order, so H2 adds the
+// vertical sums into s1 and sv and svu are NULL) or all float32 (f32 = 1;
+// sv the top-down vertical sum; svu, the bottom-up partial kept apart for
+// the sum order, may be NULL)
 int ovo_hsweep_wta_lr(const void* C, int f32, const void* s1, const void* sv,
                       const void* svu, int16_t* disp16, int H, int W, int D,
                       int P1, int P2, int min_disp, int uniq, int disp12,
                       void* stream) {
-  if (bad_d(D) || H <= 0 || W <= 0 || (!f32 && svu))
+  if (bad_d(D) || H <= 0 || W <= 0 || (!f32 && (sv || svu)) ||
+      (f32 && !sv))
     return (int)cudaErrorInvalidValue;
   if (f32)
     return launch_hsweep_wta_lr<F32>(C, s1, sv, svu, disp16, H, W, D, P1, P2,

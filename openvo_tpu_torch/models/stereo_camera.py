@@ -22,6 +22,9 @@ from openvo_tpu_torch.geometry.rectify import (init_undistort_rectify_map,
                                                stereo_rectify)
 from openvo_tpu_torch.geometry.reproject import reproject_image_to_3d
 from openvo_tpu_torch.ops._dispatch import target_device
+# bgr_to_gray lives in ops/image.py, as in the JAX package; importing it
+# from this module keeps working
+from openvo_tpu_torch.ops.image import bgr_to_gray
 from openvo_tpu_torch.ops.remap import make_remap, remap_bilinear
 from openvo_tpu_torch.ops.sgbm import sgbm_disparity
 
@@ -44,17 +47,6 @@ def _sgbm_params_from_dict(d) -> SGBMParams:
         speckle_window_size=int(d["speckleWindowSize"]),
         speckle_range=int(d["speckleRange"]),
     )
-
-
-def bgr_to_gray(img):
-    """BGR (H, W, 3) -> gray (H, W): 0.114 B + 0.587 G + 0.299 R, rounded
-    and clipped for integer input."""
-    w = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32,
-                     device=img.device)
-    g = img.to(torch.float32) @ w
-    if not torch.is_floating_point(img):
-        return torch.clamp(torch.round(g), 0, 255).to(img.dtype)
-    return g
 
 
 class StereoCamera:
@@ -112,6 +104,9 @@ class StereoCamera:
     # -- per-frame ops ------------------------------------------------------
 
     def _remap(self, maps, img):
+        """The JAX camera's eager rectification: op by op, without the
+        fused multiply-adds of its jitted path (``compute_3d`` keeps those,
+        through ``make_remap``)."""
         img = torch.as_tensor(img, device=self.device)
         out = remap_bilinear(img, *maps)
         if img.dtype == torch.uint8:

@@ -1,4 +1,5 @@
-"""Stencil image primitives: Sobel, box filter, antialiased bilinear resize.
+"""Image primitives: grayscale, Sobel, box filter, antialiased bilinear
+resize.
 
 PyTorch port of ``openvo_tpu/ops/image.py``. Each function keeps the JAX
 version's arithmetic order (shifted-add sums in the same sequence) so that
@@ -28,6 +29,17 @@ def fma(a, b, c):
     the float64 sum lands exactly on a float32 rounding tie."""
     a = a.to(torch.float64) if torch.is_tensor(a) else float(a)
     return (a * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
+
+
+def bgr_to_gray(img):
+    """BGR (H, W, 3) -> gray (H, W): 0.114 B + 0.587 G + 0.299 R, rounded
+    and clipped for integer input."""
+    w = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32,
+                     device=img.device)
+    g = img.to(torch.float32) @ w
+    if not torch.is_floating_point(img):
+        return torch.clamp(torch.round(g), 0, 255).to(img.dtype)
+    return g
 
 
 def _pad2d(img, ry, rx, mode):

@@ -1,8 +1,9 @@
 """Undistort/rectify remap with bilinear interpolation, PyTorch port of
-``openvo_tpu/ops/remap.py``: :func:`remap_bilinear` is its gather form with
-the maps as inputs; :func:`make_remap` is what the JAX camera computes,
-whose maps are constants of its compiled program (both the gather and the
-bounded roll+select forms give those bits).
+``openvo_tpu/ops/remap.py``: :func:`remap_bilinear` is its gather form as
+JAX runs it eagerly, op by op (the camera's ``undistort_rectify_left`` and
+``_right``); :func:`make_remap` is what the JAX camera's compiled program
+computes, whose maps are constants of it (both the gather and the bounded
+roll+select forms give those bits).
 
 Border behaviour matches ``cv2.remap``'s BORDER_CONSTANT(0): a neighbour
 outside the source contributes 0 with its bilinear weight.
@@ -17,7 +18,9 @@ from openvo_tpu_torch.ops.image import fma
 
 def remap_bilinear(src, map_x, map_y):
     """Sample ``src`` (H, W) or (H, W, C) at float coords (map_x, map_y);
-    returns (map_h, map_w[, C]) float32."""
+    returns (map_h, map_w[, C]) float32. As the JAX package runs it
+    eagerly: every product and sum rounded on its own, in the order
+    ``p00 (1-wx) (1-wy) + p01 wx (1-wy) + p10 (1-wx) wy + p11 wx wy``."""
     squeeze = src.ndim == 2
     if squeeze:
         src = src[..., None]
@@ -46,11 +49,8 @@ def remap_bilinear(src, map_x, map_y):
 
     wx = fx[..., None]
     wy = fy[..., None]
-    # p00 (1-wx)(1-wy) + p01 wx (1-wy) + p10 (1-wx) wy + p11 wx wy, with
-    # XLA's fused multiply-adds
-    out = fma(p00 * (1 - wx), 1 - wy, p01 * wx * (1 - wy))
-    out = fma(p10 * (1 - wx), wy, out)
-    out = fma(p11 * wx, wy, out)
+    out = (p00 * (1 - wx) * (1 - wy) + p01 * wx * (1 - wy)
+           + p10 * (1 - wx) * wy + p11 * wx * wy)
     return out[..., 0] if squeeze else out
 
 

@@ -15,8 +15,9 @@ bfloat16 cost arithmetic for ``2*preFilterCap <= 127`` on non-integer
 images (a distorting camera's remap). Per frame:
 
 - with an int16 sentinel for (blockSize, preFilterCap): H1 (cost, box sum,
-  left-to-right scan) -> H2 (the vertical scans of the path count) -> H3
-  over int16 costs (right-to-left scan, WTA, checks);
+  left-to-right scan s1) -> H2 (the vertical scans of the path count,
+  added into s1: exact in integers) -> H3 over int16 costs (right-to-left
+  scan, WTA, checks);
 - without one (blockSize >= 13 at preFilterCap 63, or preFilterCap > 327
   at blockSize 5): the float32 cost volume and box sum in plain PyTorch,
   as the JAX package leaves them to XLA -> H5 (left-to-right scan) -> H2
@@ -140,13 +141,15 @@ def cost_and_forward(lp, rp, params: SGBMParams, cap: int, band=None):
     return C, sgbm_cuda.hsweep(C, p1, p2), p1, p2
 
 
-def vertical(C, p1: int, p2: int, num_paths: int):
+def vertical(C, p1: int, p2: int, num_paths: int, acc=None):
     """(sv, svu) for ``num_paths``: the top-down partial (with the bottom-up
     one, over int16 C, in the same launch) and the bottom-up partial kept
-    apart over float32 C (else None), whose sum order H3 keeps."""
+    apart over float32 C (else None), whose sum order H3 keeps. Over int16
+    C, ``acc`` (H1's s1) takes the sum in place and is returned as sv."""
     diagonals = num_paths != 4
     if num_paths == 5 or C.dtype == torch.int16:
-        return sgbm_cuda.vsweep(C, p1, p2, diagonals, up=num_paths != 5), None
+        return sgbm_cuda.vsweep(C, p1, p2, diagonals, up=num_paths != 5,
+                                acc=acc), None
     return (sgbm_cuda.vsweep(C, p1, p2, diagonals),
             sgbm_cuda.vsweep(C, p1, p2, diagonals, down=False, up=True))
 
@@ -160,7 +163,11 @@ def sgbm_disparity16(left, right, params: SGBMParams):
     lp = prefilter_xsobel(left, cap)
     rp = prefilter_xsobel(right, cap)
     C, s1, p1, p2 = cost_and_forward(lp, rp, params, cap)
-    sv, svu = vertical(C, p1, p2, params.num_paths)
+    if C.dtype == torch.int16:   # exact in integers: H2 adds into s1
+        vertical(C, p1, p2, params.num_paths, acc=s1)
+        sv, svu = None, None
+    else:
+        sv, svu = vertical(C, p1, p2, params.num_paths)
     out = sgbm_cuda.hsweep_wta_lr(C, s1, sv, p1, p2, params.min_disparity,
                                   params.uniqueness_ratio,
                                   params.disp12_max_diff, svu)

@@ -24,9 +24,9 @@ bit:
   (:func:`cost_volume_f32`, :func:`scan_f32`), and the kernels use
   ``__fadd_rn``/``__fsub_rn``/``__fmul_rn`` so that nothing is contracted.
 
-Volumes are (H, W, D) with the disparity axis innermost: a warp (H1's walk,
-H3) or a block (H2, H5) reads and writes the D neighbouring values of a
-pixel at each step.
+Volumes are (H, W, D) with the disparity axis innermost: a warp (H1's
+walk, H2, H3, H5) reads and writes the D neighbouring values of a pixel at
+each step of its scan line.
 
 Kernels (one wrapper each; a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises):
@@ -297,8 +297,10 @@ def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12,
     (lowest d on ties), uniqueness, parabolic subpixel on the x16 grid,
     left-right check, left band and the invalid value -> (H, W) int16.
 
-    Over int16 C the sums are int32 on the x2 grid; over float32 C they are
-    float32 in the JAX package's order, ``((s1 + L) + sv) + svu``."""
+    Over int16 C the sums are int32 on the x2 grid, and ``sv`` may be None
+    where s1 already holds the vertical sum (H2 added into it); over
+    float32 C they are float32 in the JAX package's order,
+    ``((s1 + L) + sv) + svu``."""
     H, W, D = C.shape
     dev = C.device
     f32 = C.dtype == torch.float32
@@ -308,7 +310,7 @@ def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12,
         S = (s1 + L) + sv
     else:
         L = sgm_scan(Ct, 0, p1, p2, reverse=True).transpose(0, 1)
-        S = L + s1 + sv
+        S = L + s1 if sv is None else L + s1 + sv
     if svu is not None:
         S = S + svu
     best = S.argmin(-1)
@@ -430,16 +432,26 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     tiles add their bottom-up sweep into the top-down one (exact in any
     order); over float32 C the partials stay apart for the sum order.
 
-    One block per scan line, one thread per disparity: W vertical lines and
-    W+H-1 lines for each diagonal, each walked with its carry in shared
-    memory. Over int16 C every line of every direction runs in one launch
-    and adds into one zeroed int32 volume with integer atomics, exact in
-    any order; over float32 C there is one launch per direction, in the
-    order 0, +1, -1, each adding ``acc = acc + L`` (every pixel lies on one
-    line of a direction, so no two blocks touch one element), which keeps
-    the JAX package's float32 sum order. Bound by the serial walk over H per
-    line; the 4476 lines of the top-down trio at KITTI size fill the card
-    about twice over."""
+    One warp per scan line, with :func:`cost_hsweep`'s lane layout: lane l
+    holds disparities VPL*l .. VPL*l + VPL - 1, the neighbours d +- 1 come
+    by one shuffle each way and min L' by one ``redux.sync``, so no block
+    barrier and no shared memory is on the walk's chain. Each direction
+    has W vertical lines and a diagonal W+H-1; each warp loads its line's
+    pixels 4 steps ahead into registers with vector loads (a pixel's D
+    values are contiguous, the next pixel's W*D +- D elements further on).
+    Over int16 C every line of every direction runs in one launch, 32 lines
+    an SM at once (64 registers), the directions' lines interleaved so that
+    their adds into a row meet in L2; each warp stages 4 pixels' L in
+    shared memory and sends each with one bulk reduce-add
+    (``cp.reduce.async.bulk .add.s32``), exact in any order. The sum is a
+    zeroed int32 volume, or ``acc``: the SGBM passes H1's s1, so no zeroed
+    volume is written. Over float32 C there is one launch per direction,
+    in the order 0, +1, -1: every pixel lies on one line of a direction, so
+    each step sets ``acc = acc + L`` (``acc = L`` in the first launch, which
+    needs no zeroed volume), which keeps the JAX package's float32 sum
+    order. Bound on the H100 by the adds (the top-down trio at KITTI size
+    takes about 0.47 ms, its walk with plain stores 0.26) and, over float32
+    C, by the three launches' reads and writes of the sum."""
     dev = device_of(*(t for t in (C, init_carry, acc) if t is not None))
     _check_ways(C, [False] * down + [True] * up,
                 init_carry is not None or return_carry)
@@ -464,17 +476,21 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     if acc is not None:
         check_cuda_input(acc, acc_t, (H, W, D), "acc")
     lib = _build.library()
-    sv = (torch.zeros((H, W, D), dtype=acc_t, device=dev) if acc is None
-          else acc)
+    f32 = C.dtype == torch.float32
+    if acc is not None:
+        sv = acc
+    elif f32:    # the first launch sets it
+        sv = torch.empty((H, W, D), dtype=acc_t, device=dev)
+    else:        # the reductions add into it
+        sv = torch.zeros((H, W, D), dtype=acc_t, device=dev)
     carry = (torch.empty((nd, W, D), dtype=acc_t, device=dev)
              if return_carry else None)
-    f32 = C.dtype == torch.float32
     # (first direction, number of directions) of each launch: every
     # direction in one over int16 C, one launch each over float32 C
     for j0, n in [(j, 1) for j in range(nd)] if f32 else [(0, nd)]:
         err = lib.ovo_vsweep(
             C.data_ptr(), int(f32), sv.data_ptr(), H, W, D, p1, p2, j0, n,
-            int(down), int(up),
+            int(down), int(up), int(f32 and j0 == 0),
             None if init_carry is None else init_carry[j0].data_ptr(),
             None if carry is None else carry[j0].data_ptr(),
             stream_handle(dev))
@@ -489,10 +505,15 @@ def hsweep(C, p1: int, p2: int):
     float32 (:func:`hsweep_plain`); the configurations without an int16
     sentinel take their forward partial s1 from it.
 
-    One block per row, one thread per disparity, walking x with the
-    previous L in shared memory (1e9 at the start, as the JAX carry) and
-    the min over d by warp shuffles. Bound by the serial walk over W, one
-    block barrier per column; it moves 8 bytes per volume element."""
+    :func:`cost_hsweep`'s warp walk (``hwalk``) over float32 C: one warp
+    per row, the lane layout, shuffles and ``redux.sync`` of that walk, and
+    its TMA ring (lane 0 fetches 16 columns of C at a time into the warp's
+    shared memory and sends the chunk's L back, three chunks in flight).
+    The walk starts from a previous L of 1e9 everywhere and min L' = 1e9,
+    as the JAX carry, so its first L is ``(c + 1e9) - 1e9``. Bound by the
+    walk's dependency chain over W (376 rows give one warp to each SM
+    quarter they reach: about 0.18 ms at KITTI size on the H100, 1.2x the
+    0.14 ms its 8 bytes per volume element take)."""
     dev = device_of(C)
     if dev.type == "cpu":
         return hsweep_plain(C, p1, p2)
@@ -514,8 +535,9 @@ def hsweep_wta_lr(C, s1, sv, p1: int, p2: int, min_disp: int,
     ``sweep_h_wta`` (K7), with ``lr_lookup`` (K4) and the post-pass
     between them. Final (H, W) int16 disparity x16, as
     :func:`hsweep_wta_lr_plain`; ``svu`` is the bottom-up vertical partial
-    where it is kept apart for the float32 sum order (over int16 C, H2 adds
-    it into ``sv``: :func:`vsweep`'s ``acc``).
+    where it is kept apart for the float32 sum order. Over int16 C, H2 adds
+    the vertical sums into s1 (:func:`vsweep`'s ``acc``), ``sv`` is None
+    and the walk reads two volumes.
 
     One warp per row, walking x right to left with the lane layout of
     :func:`cost_hsweep`'s walk: the reverse scan (neighbours by shuffles,
@@ -536,26 +558,32 @@ def hsweep_wta_lr(C, s1, sv, p1: int, p2: int, min_disp: int,
     lookup bestR[x - best] (K4 as a shared-memory read), uniqueness and the
     invalid encoding. Bound by the walk's chain over W and the issue slots
     of the column's reductions, vote and shuffles beside it (a latency: a
-    KITTI frame gives one warp to each SM quarter it reaches); it reads 10
-    bytes per volume element (12 over float32 C, 4 more with ``svu``)."""
-    parts = (C, s1, sv) if svu is None else (C, s1, sv, svu)
-    dev = device_of(*parts)
-    if svu is not None and C.dtype == torch.int16:
-        raise ValueError("hsweep_wta_lr: over int16 C the bottom-up partial "
-                         "is added into sv (vsweep's acc), not passed apart")
+    KITTI frame gives one warp to each SM quarter it reaches); it reads 6
+    bytes per volume element over int16 C, 12 over float32 C, 4 more with
+    ``svu``."""
+    named = [(n, t) for n, t in (("s1", s1), ("sv", sv), ("svu", svu))
+             if t is not None]
+    dev = device_of(C, *(t for _, t in named))
+    if C.dtype == torch.int16 and (sv is not None or svu is not None):
+        raise ValueError("hsweep_wta_lr: over int16 C the vertical sums are "
+                         "added into s1 (vsweep's acc), not passed apart")
+    if sv is None and C.dtype == torch.float32:
+        raise ValueError("hsweep_wta_lr: over float32 C the vertical sum "
+                         "sv stays apart from s1 for the sum order")
     if dev.type == "cpu":
         return hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness,
                                    disp12, svu)
     H, W, D = C.shape
     _check_cost(C, (H, W, D))
     acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
-    for name, t in zip(("s1", "sv", "svu"), parts[1:]):
+    for name, t in named:
         check_cuda_input(t, acc_t, (H, W, D), name)
     _check_disparities(D)
     lib = _build.library()
     out = torch.empty((H, W), dtype=torch.int16, device=dev)
     err = lib.ovo_hsweep_wta_lr(C.data_ptr(), int(C.dtype == torch.float32),
-                                s1.data_ptr(), sv.data_ptr(),
+                                s1.data_ptr(),
+                                None if sv is None else sv.data_ptr(),
                                 None if svu is None else svu.data_ptr(),
                                 out.data_ptr(), H, W, D, p1, p2, min_disp,
                                 uniqueness, disp12, stream_handle(dev))
@@ -587,8 +615,7 @@ def _check_cost(C, shape) -> None:
 
 
 def _check_disparities(D: int) -> None:
-    # H2 and H5 run one thread per disparity in one block; the warp walks
-    # hold at most 32 disparities a lane
+    # the warp walks hold at most 32 disparities a lane
     if not 1 <= D <= 1024:
         raise ValueError(f"the CUDA SGBM kernels need num_disparities in "
                          f"[1, 1024], got {D}")

@@ -153,13 +153,17 @@ def make_tiled_sgbm_fn(params: SGBMParams, group=None, device="cuda"):
         rp = sgbm.prefilter_xsobel(ext[1], cap)
         C, s1, p1, p2 = sgbm.cost_and_forward(lp, rp, params, cap, band)
         diagonals = params.num_paths != 4
-        sv = _vertical_wavefront(C, p1, p2, diagonals, False, comm)
         svu = None
-        if params.num_paths != 5 and C.dtype == torch.int16:
-            # exact in any order: the bottom-up sweep adds into sv
-            _vertical_wavefront(C, p1, p2, diagonals, True, comm, sv)
-        elif params.num_paths != 5:
-            svu = _vertical_wavefront(C, p1, p2, diagonals, True, comm)
+        if C.dtype == torch.int16:
+            # exact in any order: both sweeps add into s1
+            _vertical_wavefront(C, p1, p2, diagonals, False, comm, s1)
+            if params.num_paths != 5:
+                _vertical_wavefront(C, p1, p2, diagonals, True, comm, s1)
+            sv = None
+        else:
+            sv = _vertical_wavefront(C, p1, p2, diagonals, False, comm)
+            if params.num_paths != 5:
+                svu = _vertical_wavefront(C, p1, p2, diagonals, True, comm)
         out = sgbm_cuda.hsweep_wta_lr(C, s1, sv, p1, p2, params.min_disparity,
                                       params.uniqueness_ratio,
                                       params.disp12_max_diff, svu)

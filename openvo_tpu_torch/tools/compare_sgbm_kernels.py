@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the SGBM kernels H1 (cost_hsweep) and H3 (hsweep_wta_lr) of several
-checkouts of the repository on one CUDA card, in turns.
+"""Time the SGBM kernels H1 (cost_hsweep), H2 (vsweep), H5 (hsweep) and H3
+(hsweep_wta_lr) of several checkouts of the repository on one CUDA card, in
+turns.
 
     python3 openvo_tpu_torch/tools/compare_sgbm_kernels.py ROOT [ROOT ...]
 
@@ -8,10 +9,11 @@ Each ROOT is a checkout (for instance the parent commit unpacked with ``git
 archive`` beside this one, and this one). In the order given, one process
 per ROOT imports that checkout's ``openvo_tpu_torch`` and ``chip_smoke``,
 builds its kernels, renders frame 0 of chip_smoke's bench corridor at KITTI
-size and takes the H1 and H3 cases of that checkout's
-``chip_smoke.kernel_cases`` (the whole image on the integer and the
-fractional pair, the 94-row bands, H3 over int16 and over float32 C). It
-times each as the lower of two rounds of 20 launches by CUDA events, then
+size and takes the cases of those kernels in that checkout's
+``chip_smoke.kernel_cases`` (H1 on the whole image and the 94-row bands,
+H2's variants and carries over int16 and float32 C, H5, H3 over int16 and
+float32 C). It times each call (a wrapper's allocations included) as the
+lower of two rounds of 20 calls by CUDA events, then
 one torch.profiler window of 10 calls of each gives the device time by CUDA
 kernel name. Pass the roots as parent, change, change, parent to see the
 spread. Prints one JSON line per ROOT and the card's name and power limit.
@@ -49,7 +51,7 @@ cam = StereoCamera(K, dist, K, dist, {"R": R, "T": T}, cs.SGBM, cs.IMG_SIZE,
                    device="cuda")
 cases = {f"{c.name} [{c.variant}]": c.kern
          for c in cs.kernel_cases(torch, seq, cam, OdometerConfig())
-         if c.name in ("cost_hsweep", "hsweep_wta_lr")}
+         if c.name in ("cost_hsweep", "vsweep", "hsweep", "hsweep_wta_lr")}
 ms = {k: min(cs.time_ms(torch, f, 20), cs.time_ms(torch, f, 20))
       for k, f in cases.items()}
 by_kernel = {}

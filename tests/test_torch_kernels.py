@@ -57,8 +57,11 @@ def test_sgbm_kernels_equal_plain(cuda, H, W, D, block, min_disp, integer):
     assert torch.equal(C, Cp) and torch.equal(s1, s1p)
     sv = sgbm_cuda.vsweep(C, 400, 1600, True)
     assert torch.equal(sv, sgbm_cuda.vsweep_plain(C, 400, 1600, True))
+    # as the SGBM runs them: H2 adds into s1, H3 reads no sv
+    folded = sgbm_cuda.vsweep(C, 400, 1600, True, acc=s1.clone())
+    assert torch.equal(folded, s1 + sv)
     wta = (400, 1600, min_disp, 10, 1)
-    d = sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta)
+    d = sgbm_cuda.hsweep_wta_lr(C, folded, None, *wta)
     assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta))
     torch.cuda.synchronize()
 
@@ -91,52 +94,135 @@ def cost_and_penalties(dev, dtype, H, W, D):
     return f32_cost(dev, H, W, D), 8 * 169, 32 * 169
 
 
-@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
-@pytest.mark.parametrize("D", [64, 48])
+def shifted(t):
+    """The same values one element into a new buffer: a contiguous view
+    that does not start on 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def walk_cost(dev, dtype, H, W, D):
+    """(C, p1, p2) for H2's and H5's cases: a textured pair's cost at the
+    first shape, random costs (fractional over float32) elsewhere."""
+    if (H, W) == (40, 112):
+        return cost_and_penalties(dev, dtype, H, W, D)
+    rng = np.random.default_rng(H * W + D)
+    c = rng.integers(0, 4000, (H, W, D))
+    if dtype == torch.int16:
+        return torch.from_numpy(c.astype(np.int16)).to(dev), 400, 1600
+    c = (c + rng.random((H, W, D))).astype(np.float32)
+    return torch.from_numpy(c).to(dev), 8 * 169, 32 * 169
+
+
+# (H, W, D) of H2's and H5's cases: every lane width of the warp walks'
+# fast feeds (D = 16: 1 disparity a lane; 48: 2; 64: 2; 128: 4; 256: 8)
+# and of their scalar feed (D = 1, 33, 1024: 32 a lane), H > W (diagonals
+# leave by the side), W = 1, H = 1, and W below the ring's 16-column chunk
+WALK_SHAPES = [(40, 112, 64), (40, 112, 48), (24, 70, 1), (24, 70, 16),
+               (24, 70, 33), (16, 90, 128), (12, 300, 256), (6, 40, 1024),
+               (70, 24, 48), (30, 1, 48), (1, 30, 48), (16, 12, 16)]
+# H2's cases: each shape as a whole volume; a few as a view that does not
+# start on 16 bytes (the scalar feed at a D the fast one takes) and, over
+# int16 C, adding into a given partial sum (acc)
+VSWEEP_CASES = (
+    [(dt, s, "whole") for dt in (torch.int16, torch.float32)
+     for s in WALK_SHAPES]
+    + [(dt, s, "unaligned") for dt in (torch.int16, torch.float32)
+       for s in [(40, 112, 64), (16, 90, 128), (70, 24, 48)]]
+    + [(torch.int16, s, "acc") for s in [(40, 112, 64), (24, 70, 33),
+                                          (70, 24, 48)]])
+
+
+def case_id(case):
+    return "-".join(str(v).replace("torch.", "") for v in case)
+
+
+@pytest.mark.parametrize("dtype,shape,view", VSWEEP_CASES,
+                         ids=[case_id(c) for c in VSWEEP_CASES])
 @pytest.mark.parametrize("diagonals,down,up", [
     (True, True, False), (True, False, True), (True, True, True),
     (False, True, False), (False, False, True), (False, True, True)])
-def test_vsweep_variants_equal_plain(cuda, dtype, D, diagonals, down, up):
+def test_vsweep_variants_equal_plain(cuda, dtype, shape, view, diagonals,
+                                     down, up):
     """H2 over int16 C (one launch for every line) and over float32 C (one
-    launch per direction, one direction of travel a call)."""
-    C, p1, p2 = cost_and_penalties(cuda, dtype, 40, 112, D)
+    launch per direction, one direction of travel a call), at every lane
+    width, on unaligned views and, over int16 C, adding into ``acc``."""
+    C, p1, p2 = walk_cost(cuda, dtype, *shape)
     if dtype == torch.float32 and down and up:
         with pytest.raises(ValueError):
             sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up)
         return
+    ref = sgbm_cuda.vsweep_plain(C, p1, p2, diagonals, down, up)
+    acc = None
+    if view == "unaligned":
+        C = shifted(C)
+    elif view == "acc":
+        acc = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 1 << 20, tuple(C.shape), dtype=np.int32)).to(cuda)
+        ref = ref + acc
     n0 = sgbm_cuda.vsweep.launches
-    sv = sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up)
+    sv = sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up, acc=acc)
     launches = 3 if dtype == torch.float32 and diagonals else 1
     assert sgbm_cuda.vsweep.launches == n0 + launches
-    assert torch.equal(sv, sgbm_cuda.vsweep_plain(C, p1, p2, diagonals, down,
-                                                  up))
+    assert acc is None or sv is acc
+    assert torch.equal(sv, ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+# (H, W, D, split row) of the carry cases
+CARRY_SHAPES = [(48, 112, 64, 20), (24, 70, 33, 9), (16, 90, 128, 5),
+                (12, 300, 256, 4), (6, 40, 1024, 2), (70, 24, 48, 25),
+                (30, 1, 48, 11), (2, 30, 48, 1)]
+CARRY_CASES = (
+    [(dt, s, "whole") for dt in (torch.int16, torch.float32)
+     for s in CARRY_SHAPES]
+    + [(dt, (48, 112, 64, 20), "unaligned")
+       for dt in (torch.int16, torch.float32)]
+    + [(torch.int16, s, "acc") for s in [(48, 112, 64, 20),
+                                          (70, 24, 48, 25)]])
+
+
+@pytest.mark.parametrize("dtype,shape,view", CARRY_CASES,
+                         ids=[case_id(c) for c in CARRY_CASES])
 @pytest.mark.parametrize("diagonals", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_vsweep_carry_equals_plain(cuda, dtype, diagonals, reverse):
+def test_vsweep_carry_equals_plain(cuda, dtype, shape, view, diagonals,
+                                   reverse):
     """H2 with K2's carry in and out, split at a row: each part equals the
     plain version's, the carries are equal, and the joined parts equal the
-    unsplit sweep."""
-    C, p1, p2 = cost_and_penalties(cuda, dtype, 48, 112, 64)
+    unsplit sweep; also on unaligned views and, over int16 C, adding into
+    ``acc`` as the row tiles add their bottom-up sweep."""
+    H, W, D, split = shape
+    C, p1, p2 = (cost_and_penalties(cuda, dtype, H, W, D) if H == 48
+                 else walk_cost(cuda, dtype, H, W, D))
     ways = dict(down=not reverse, up=reverse)
-    split = 20
     first, second = (C[split:], C[:split]) if reverse else (C[:split],
                                                              C[split:])
-    a, carry = sgbm_cuda.vsweep(first, p1, p2, diagonals, **ways,
-                                return_carry=True)
     a_p, carry_p = sgbm_cuda.vsweep_plain(first, p1, p2, diagonals, **ways,
                                           return_carry=True)
+    b_p, carry2_p = sgbm_cuda.vsweep_plain(second, p1, p2, diagonals, **ways,
+                                           init_carry=carry_p,
+                                           return_carry=True)
+    acc_a = acc_b = None
+    if view == "unaligned":
+        first, second = shifted(first), shifted(second)
+    elif view == "acc":
+        rng = np.random.default_rng(2)
+        acc_a, acc_b = (torch.from_numpy(rng.integers(
+            0, 1 << 20, tuple(t.shape), dtype=np.int32)).to(cuda)
+            for t in (first, second))
+        a_p, b_p = a_p + acc_a, b_p + acc_b
+    a, carry = sgbm_cuda.vsweep(first, p1, p2, diagonals, **ways,
+                                return_carry=True, acc=acc_a)
     assert torch.equal(a, a_p) and torch.equal(carry, carry_p)
     b, carry2 = sgbm_cuda.vsweep(second, p1, p2, diagonals, **ways,
-                                 init_carry=carry, return_carry=True)
-    b_p, carry2_p = sgbm_cuda.vsweep_plain(second, p1, p2, diagonals, **ways,
-                                           init_carry=carry,
-                                           return_carry=True)
+                                 init_carry=carry, return_carry=True,
+                                 acc=acc_b)
     assert torch.equal(b, b_p) and torch.equal(carry2, carry2_p)
-    joined = torch.cat([b, a]) if reverse else torch.cat([a, b])
-    assert torch.equal(joined, sgbm_cuda.vsweep(C, p1, p2, diagonals, **ways))
+    if view == "whole":
+        joined = torch.cat([b, a]) if reverse else torch.cat([a, b])
+        assert torch.equal(joined, sgbm_cuda.vsweep(C, p1, p2, diagonals,
+                                                    **ways))
 
 
 @pytest.mark.parametrize("where", ["top", "interior", "bottom"])
@@ -194,25 +280,25 @@ def test_warp_walks_equal_plain_at_edges(cuda, H, W, D, min_disp, block,
     sv = sgbm_cuda.vsweep_plain(C, 400, 1600, True)
     for uniq, disp12 in [(10, 1), (0, -1), (15, 0)]:
         wta = (400, 1600, min_disp, uniq, disp12)
-        d = sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta)
+        d = sgbm_cuda.hsweep_wta_lr(C, s1 + sv, None, *wta)
         assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta))
     torch.cuda.synchronize()
 
 
 def test_hsweep_wta_lr_int16_with_bottom_up_partial_equals_plain(cuda):
-    """Over int16 C, H2 adds the bottom-up partial into sv (``acc``, exact
-    in any order, as the row tiles do) and H3 walks without it: equal to
-    the plain H3 with the partial apart."""
+    """Over int16 C, H2 adds both vertical sums into s1 (``acc``, exact in
+    any order, as the row tiles do) and H3 walks without them: equal to the
+    plain H3 with the partials apart."""
     C = int16_cost(cuda, 24, 150, 48)
     s1 = sgbm_cuda.sgm_scan(C.transpose(0, 1), 0, 400, 1600).transpose(
         0, 1).contiguous()
     sv = sgbm_cuda.vsweep_plain(C, 400, 1600, True)
     svu = sgbm_cuda.vsweep_plain(C, 400, 1600, True, down=False, up=True)
     both = sgbm_cuda.vsweep(C, 400, 1600, True, down=False, up=True,
-                            acc=sv.clone())
-    assert torch.equal(both, sv + svu)
+                            acc=s1 + sv)
+    assert torch.equal(both, s1 + sv + svu)
     wta = (400, 1600, 0, 10, 1)
-    d = sgbm_cuda.hsweep_wta_lr(C, s1, both, *wta)
+    d = sgbm_cuda.hsweep_wta_lr(C, both, None, *wta)
     assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta, svu))
 
 
@@ -233,7 +319,11 @@ def test_hsweep_wta_lr_unaligned_volumes_equal_plain(cuda, D):
                   0, 1).contiguous())
         sv = sgbm_cuda.vsweep_plain(C, p1, p2, True)
         wta = (p1, p2, 0, 10, 1)
-        d = sgbm_cuda.hsweep_wta_lr(shifted(C), shifted(s1), sv, *wta)
+        if C.is_floating_point():
+            d = sgbm_cuda.hsweep_wta_lr(shifted(C), shifted(s1), sv, *wta)
+        else:   # the vertical sum in s1
+            d = sgbm_cuda.hsweep_wta_lr(shifted(C), shifted(s1 + sv), None,
+                                        *wta)
         assert torch.equal(d, sgbm_cuda.hsweep_wta_lr_plain(C, s1, sv, *wta))
 
 
@@ -277,12 +367,24 @@ def test_cost_hsweep_band_edges_equal_plain(cuda, where, D, W, min_disp):
     assert torch.equal(s1, s1w[r0:r0 + h_t])
 
 
-@pytest.mark.parametrize("D", [64, 48])
-def test_hsweep_equal_plain(cuda, D):
-    """H5 over float32 C."""
-    C = f32_cost(cuda, 40, 112, D)
-    L = sgbm_cuda.hsweep(C, 8 * 169, 32 * 169)
-    assert torch.equal(L, sgbm_cuda.hsweep_plain(C, 8 * 169, 32 * 169))
+HSWEEP_CASES = ([(s, "whole") for s in WALK_SHAPES]
+                + [(s, "unaligned") for s in [(40, 112, 64), (16, 90, 128)]])
+
+
+@pytest.mark.parametrize("shape,view", HSWEEP_CASES,
+                         ids=[case_id(c) for c in HSWEEP_CASES])
+def test_hsweep_equal_plain(cuda, shape, view):
+    """H5 over float32 C (hwalk over F32: the ring at D a multiple of 8 up
+    to 256, else scalar loads), from a previous L of 1e9, at every lane
+    width and on unaligned views."""
+    C, p1, p2 = walk_cost(cuda, torch.float32, *shape)
+    ref = sgbm_cuda.hsweep_plain(C, p1, p2)
+    if view == "unaligned":
+        C = shifted(C)
+    n0 = sgbm_cuda.hsweep.launches
+    L = sgbm_cuda.hsweep(C, p1, p2)
+    assert sgbm_cuda.hsweep.launches == n0 + 1
+    assert torch.equal(L, ref)
 
 
 @pytest.mark.parametrize("D,paths", [(64, 5), (64, 8), (48, 4)])
@@ -352,3 +454,8 @@ def test_wrappers_reject_wrong_input(cuda):
                                                 dtype=torch.int32))
     with pytest.raises(TypeError):
         sgbm_cuda.hsweep(C.to(torch.int16), 400, 1600)
+    with pytest.raises(ValueError, match="sum order"):
+        sgbm_cuda.hsweep_wta_lr(C, C, None, 400, 1600, 0, 10, 1)
+    S = torch.zeros((16, 64, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="added into s1"):
+        sgbm_cuda.hsweep_wta_lr(C.to(torch.int16), S, S, 400, 1600, 0, 10, 1)

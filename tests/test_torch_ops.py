@@ -9,7 +9,6 @@ import sys
 import numpy as np
 import pytest
 import torch
-import jax
 import jax.numpy as jnp
 
 from openvo_tpu.geometry import reproject as jreproject
@@ -30,13 +29,16 @@ def t(a):
 
 
 def test_remap_matches_jax_gather_form():
+    """The gather form as JAX runs it eagerly, op by op (the camera's
+    eager rectification); the camera's compiled form is ``make_remap``'s."""
     rng = np.random.default_rng(0)
     src = rng.integers(0, 256, (40, 56)).astype(np.float32)
     yy, xx = np.mgrid[0:40, 0:56].astype(np.float32)
     # fractional, partly out-of-bounds coordinates
     mx = (xx * 1.07 - 2.3 + rng.uniform(-0.5, 0.5, xx.shape)).astype(np.float32)
     my = (yy * 1.03 - 1.7 + rng.uniform(-0.5, 0.5, yy.shape)).astype(np.float32)
-    ref = np.asarray(jax.jit(jremap.remap_bilinear)(src, mx, my))
+    ref = np.asarray(jremap.remap_bilinear(jnp.asarray(src), jnp.asarray(mx),
+                                           jnp.asarray(my)))
     out = remap.remap_bilinear(t(src), t(mx), t(my)).numpy()
     np.testing.assert_array_equal(out, ref)
     # and the bounded roll+select form the JAX camera picks agrees
@@ -148,10 +150,16 @@ def test_se3_matches_jax():
         float(jse3.rotation_magnitude(jnp.asarray(T[:3, :3]))), atol=1e-6)
 
 
-def test_bgr_to_gray_matches_jax():
-    from openvo_tpu.ops.image import bgr_to_gray as jax_gray
-    from openvo_tpu_torch.models.stereo_camera import bgr_to_gray
+@pytest.mark.parametrize("home", ["openvo_tpu_torch.ops.image",
+                                  "openvo_tpu_torch.models.stereo_camera"])
+def test_bgr_to_gray_matches_jax(home):
+    """bgr_to_gray lives in ops/image.py as in the JAX package; the camera
+    module re-exports it."""
+    import importlib
 
+    from openvo_tpu.ops.image import bgr_to_gray as jax_gray
+
+    bgr_to_gray = importlib.import_module(home).bgr_to_gray
     rng = np.random.default_rng(6)
     bgr = rng.integers(0, 256, (20, 30, 3), dtype=np.uint8)
     np.testing.assert_array_equal(bgr_to_gray(t(bgr)).numpy(),

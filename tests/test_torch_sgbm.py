@@ -7,6 +7,7 @@ import torch
 import jax.numpy as jnp
 
 from openvo_tpu.config import SGBMParams as JaxSGBMParams
+from openvo_tpu.io.synthetic import render_stereo_sequence
 from openvo_tpu.ops import sgbm as jsgbm
 from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.ops import sgbm, sgbm_cuda
@@ -123,6 +124,65 @@ def test_cost_volume_and_forward_partials(block, min_disp):
     np.testing.assert_array_equal(sv.numpy(), 2 * np.asarray(svj))
 
 
+def shifted_corridor_pair(shift=0.37, img_size=(240, 96)):
+    """Frame 0 of the synthetic corridor, both views resampled linearly by
+    a ``shift`` px horizontal shift: every pixel fractional."""
+    seq = render_stereo_sequence(n_frames=1, img_size=img_size, f=220.0,
+                                 baseline=0.4, seed=0)
+
+    def resample(img):
+        img = np.clip(img, 0, 255).astype(np.float32)
+        nxt = np.concatenate([img[:, 1:], img[:, -1:]], axis=1)
+        return ((1 - np.float32(shift)) * img
+                + np.float32(shift) * nxt).astype(np.float32)
+
+    return resample(seq["left"][0]), resample(seq["right"][0])
+
+
+@pytest.mark.parametrize("num_paths", [5, 8, 4])
+def test_float32_forward_and_vertical_partials(num_paths):
+    """Without an int16 sentinel (block 13) on the pair shifted by 0.37 px:
+    ``cost_and_forward``'s C and H5's forward partial s1, ``vertical``'s
+    top-down (and bottom-up) partials and each direction's scan equal JAX's
+    float32 ``_scan_dirs`` bit for bit, including the first step from the
+    1e9 carry, (c + 1e9) - 1e9."""
+    D, block, cap = 32, 13, 63
+    kw = dict(params_kw(D, block, 0), p1=8 * 169, p2=32 * 169,
+              num_paths=num_paths)
+    left, right = shifted_corridor_pair()
+    lj = jsgbm.prefilter_xsobel(jnp.asarray(left), cap)
+    rj = jsgbm.prefilter_xsobel(jnp.asarray(right), cap)
+    lt, rt = torch.tensor(np.asarray(lj)), torch.tensor(np.asarray(rj))
+    assert sgbm.int16_sentinel(block, cap) is None
+    C, s1, p1, p2 = sgbm.cost_and_forward(lt, rt, SGBMParams(**kw), cap)
+    Cj = jsgbm.block_sum(jsgbm.bt_cost_volume(lj, rj, 0, D, block_size=block,
+                                              cap=cap), block)
+    assert C.dtype == torch.float32 and (p1, p2) == (8 * 169, 32 * 169)
+    np.testing.assert_array_equal(C.numpy(), np.asarray(Cj))
+
+    def scan(vol, xshifts, reverse):
+        return np.asarray(jsgbm._scan_dirs(vol, xshifts, float(p1),
+                                           float(p2), reverse))
+
+    s1j = np.swapaxes(scan(jnp.swapaxes(Cj, 0, 1), (0,), False), 0, 1)
+    np.testing.assert_array_equal(s1.numpy(), s1j)
+    c0 = np.asarray(Cj)[:, 0]
+    first = (c0 + np.float32(1e9)) - np.float32(1e9)
+    np.testing.assert_array_equal(s1.numpy()[:, 0], first)
+    assert (first != c0).mean() > 0.5     # the carry rounds c
+    sv, svu = sgbm.vertical(C, p1, p2, num_paths)
+    xshifts = (0,) if num_paths == 4 else (0, 1, -1)
+    np.testing.assert_array_equal(sv.numpy(), scan(Cj, xshifts, False))
+    if num_paths == 5:
+        assert svu is None
+    else:
+        np.testing.assert_array_equal(svu.numpy(), scan(Cj, xshifts, True))
+    for k in xshifts:   # H2 over float32 C walks one direction a launch
+        for reverse in (False, True):
+            L = sgbm_cuda.scan_f32(C, k, p1, p2, reverse)
+            np.testing.assert_array_equal(L.numpy(), scan(Cj, (k,), reverse))
+
+
 def test_fresh_start_matches_jax_carry_rounding():
     """A scan's first L is (c + 1e9) - 1e9 in float32 in the JAX package:
     c rounded half-to-even to a multiple of 64 (x1 grid), e.g. 37.5 -> 64
@@ -162,8 +222,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     lj, rj, lt, rt = prefiltered(24, 48)
     before = [k.launches for k in sgbm_cuda.KERNELS]
     C, s1 = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, 5, 504, 400, 1600, True)
-    sv = sgbm_cuda.vsweep(C, 400, 1600, diagonals=True, up=True)
-    sgbm_cuda.hsweep_wta_lr(C, s1, sv, 400, 1600, 0, 10, 1)
+    sgbm_cuda.vsweep(C, 400, 1600, diagonals=True, up=True, acc=s1)
+    sgbm_cuda.hsweep_wta_lr(C, s1, None, 400, 1600, 0, 10, 1)
     Cf = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, 13, 63, True)
     s1f = sgbm_cuda.hsweep(Cf, 200, 800)
     svf = sgbm_cuda.vsweep(Cf, 200, 800, diagonals=True)
@@ -172,9 +232,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_vsweep_acc_adds_the_int16_sweep_in_place():
-    """``acc`` takes H2's sum over int16 C in place (the row tiles add their
-    bottom-up sweep into the top-down one); over float32 C, and for a
-    bottom-up partial handed to H3 over int16 C, the wrappers raise."""
+    """``acc`` takes H2's sum over int16 C in place (the SGBM adds the
+    vertical sweeps into s1, and H3 reads no sv); over float32 C, and for a
+    vertical partial handed to H3 over int16 C, the wrappers raise."""
     _, _, lt, rt = prefiltered(24, 48)
     C, s1 = sgbm_cuda.cost_hsweep(lt, rt, 0, 32, 5, 504, 400, 1600, True)
     down = sgbm_cuda.vsweep(C, 400, 1600, True)
@@ -185,11 +245,20 @@ def test_vsweep_acc_adds_the_int16_sweep_in_place():
     assert out is acc and torch.equal(acc, down + up)
     assert torch.equal(carry, sgbm_cuda.vsweep(
         C, 400, 1600, True, down=False, up=True, return_carry=True)[1])
-    with pytest.raises(ValueError, match="bottom-up partial"):
-        sgbm_cuda.hsweep_wta_lr(C, s1, down, 400, 1600, 0, 10, 1, svu=up)
+    wta = (400, 1600, 0, 10, 1)
+    for sv, svu in [(down, None), (down, up), (None, up)]:
+        with pytest.raises(ValueError, match="added into s1"):
+            sgbm_cuda.hsweep_wta_lr(C, s1, sv, *wta, svu)
+    assert torch.equal(
+        sgbm_cuda.hsweep_wta_lr(C, sgbm_cuda.vsweep(C, 400, 1600, True,
+                                                     acc=s1.clone()),
+                                None, *wta),
+        sgbm_cuda.hsweep_wta_lr_plain(C, s1, down, *wta))
     Cf = sgbm_cuda.cost_volume_f32(lt, rt, 0, 32, 13, 63, True)
     with pytest.raises(ValueError, match="int16 C only"):
         sgbm_cuda.vsweep(Cf, 200, 800, True, acc=torch.zeros_like(Cf))
+    with pytest.raises(ValueError, match="sum order"):
+        sgbm_cuda.hsweep_wta_lr(Cf, Cf, None, 200, 800, 0, 10, 1)
 
 
 def test_device_mismatch_raises():
