@@ -16,13 +16,16 @@ Phases, in order; any failure exits non-zero before the final line:
    and float32), and the H1 -> H2 -> H3 chain at D = 48, and at D = 33 and
    1024 on 64 rows (the warp walks' lane widths at their edges); the
    redesigned H1, H2, H3 and H5 log their block walks' earlier times
-   beside theirs (in the log only, not in the JSON line); also
-   hold the speckle filter on the card against the same function on the
-   CPU, and time block13's plain float32 cost volume;
+   beside theirs (in the log only, not in the JSON line); H4 from frame
+   0's pyramid and on a random stack with keypoints at every clamped
+   edge; also hold the speckle filter on the card against the same
+   function on the CPU, and time block13's plain float32 cost volume;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
-   SGBM configurations (PATHS), with the plain versions disabled, and
-   check tracking, ATE and every kernel's launches per frame;
+   SGBM configurations and with the rigid clique and outlier filters on
+   (PATHS), with the plain versions disabled, and check tracking, ATE
+   (`filters`: against the JAX package's run, FILTERS_JAX) and every
+   kernel's launches per frame;
 4. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
    the card (a gloo group, messages staged through host memory: NCCL
    refuses two ranks on one GPU) over the 64 frames with the off-lat
@@ -71,7 +74,25 @@ PATHS = {
     "hv4": (dict(num_paths=4), None, None),
     # no int16 sentinel at preFilterCap 63: the float32 path
     "block13": (dict(block_size=13, p1=8 * 169, p2=32 * 169), 62, None),
+    # the odometer's rigid clique and outlier pass on (FILTERS): held to
+    # FILTERS_JAX instead
+    "filters": ({}, None, None),
 }
+# The `filters` path: off-lat with both of the odometer's filters on, at the
+# thresholds of the JAX package's own tests (tests/test_odometer.py:228,
+# :300).
+FILTERS = dict(rigidity_threshold=0.05, outlier_threshold=0.01)
+# The JAX package's odometer on the `filters` path, on the CPU (jax 0.9.0):
+#     JAX_PLATFORMS=cpu python3 tools/jax_filters_reference.py
+# The card has no JAX, so the port is held to these values: frames tracked
+# within 1, the skip cause equal at every frame but at most one, ATE within
+# FILTERS_ATE_TOL m, every pose finite. The port's run on an H100 matched
+# every cause and the ATE to 6e-6 m; 0.01 m is room for rounding in the
+# poses, not for a clique or outlier mask that keeps other points.
+FILTERS_JAX = {"tracked": 62, "ate_m": 0.1577573594804592,
+               "causes": [""] * 60 + ["bigdist"] * 4}   # 60, 63 not tracked
+FILTERS_ATE_TOL = 0.01
+FILTERS_CAUSES_DIFFERING = 1
 DEVICE = "cuda"
 TILED_RANKS = 4
 PROFILED = 8             # tiled frames profiled on the first and last rank
@@ -79,6 +100,8 @@ SHIFT = 0.37             # px: frame 0 resampled so every pixel is fractional
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SGBM_SRC = "openvo_tpu_torch/csrc/sgbm.cu"
+ORB_SRC = "openvo_tpu_torch/csrc/orb.cu"
+K5 = "openvo_tpu/ops/orb_pallas.py:60"
 PALLAS_SGBM = "openvo_tpu/ops/sgbm_pallas.py"
 K1 = f"{PALLAS_SGBM}:305"
 K1_BAND = f"{PALLAS_SGBM}:305 (band_halo, :240-247)"
@@ -132,9 +155,9 @@ def _render_pair(args):
     return left, right
 
 
-def render_sequence():
+def render_sequence(workers=8):
     """The bench's 64-frame corridor (render_stereo_sequence with bench.py's
-    parameters), one frame per worker process."""
+    parameters), one frame at a time on ``workers`` processes."""
     from openvo_tpu_torch.io import synthetic as syn
 
     rng = np.random.default_rng(SEQ["seed"])
@@ -144,7 +167,7 @@ def render_sequence():
     K, dist, R, T = syn.make_rig(IMG_SIZE, F, B)
     poses = syn.camera_trajectory(N_FRAMES, SEQ["step"], SEQ["yaw_rate"])
     ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
+    with ctx.Pool(min(workers, multiprocessing.cpu_count())) as pool:
         pairs = pool.map(_render_pair,
                          [(K, pose, planes, tex, IMG_SIZE, B)
                           for pose in poses])
@@ -181,14 +204,15 @@ def max_abs_err(a, b):
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
                              f"{tuple(b.shape)} {b.dtype}")
-    return float((a.double() - b.double()).abs().max())
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
 @dataclasses.dataclass
 class Case:
     """One kernel variant of phase 2. ``inputs`` are the tensors the
-    function must read (once each, for its byte bound); ``ops_per_elem``
-    counts its operations per element of its largest output."""
+    function must read (once each, for its byte bound) unless ``in_bytes``
+    says how much of them it must read; ``ops_per_elem`` counts its
+    operations per element of its largest output."""
     name: str
     variant: str
     path: str | None
@@ -198,14 +222,16 @@ class Case:
     inputs: tuple
     ops_per_elem: float
     source: str = SGBM_SRC
+    in_bytes: int | None = None   # bytes it must read, where not all inputs
 
 
 def bound(case, outs):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (each input read once, each output written once) over the HBM rate and
     its operations over the float32 rate."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*case.inputs, *outs))
+    nbytes = sum(t.numel() * t.element_size() for t in outs) + (
+        sum(t.numel() * t.element_size() for t in case.inputs)
+        if case.in_bytes is None else case.in_bytes)
     ops = case.ops_per_elem * max(t.numel() for t in outs)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -322,8 +348,10 @@ def kernel_cases(torch, seq, cam, cfg):
     fmask = ((disp_f >= cfg.min_valid_disparity)
              & (disp_f <= cfg.max_valid_disparity)).to(torch.uint8)
     det = orb.detect(img, fmask, cfg.orb)
-    wins, ip, iq, _ = orb.descriptor_inputs(det)
-    kp_valid = det["valid"]
+    ang = orb.orientations(det)
+    h4 = (det["stack"], det["octave"], det["xy_lvl"], torch.cos(ang),
+          torch.sin(ang), det["valid"])
+    h4_edges = brief_edge_inputs(torch, det["stack"].shape, dev)
 
     def vs(variant, path, diag, down, up, cost=C, pen=(p1, p2),
            into_s1=False):
@@ -392,12 +420,69 @@ def kernel_cases(torch, seq, cam, cfg):
         chain_case("D=33 on 64 rows: D not a multiple of 8, scalar loads "
                    "at 32 disparities a lane", 33, 64),
         chain_case("D=1024 on 64 rows: 32 disparities a lane", 1024, 64),
-        Case("brief_describe", "K=512", "off-lat",
-             lambda: orb_cuda.brief_describe(wins, ip, iq, kp_valid),
-             lambda: orb_cuda.brief_describe_plain(wins, ip, iq, kp_valid),
-             "openvo_tpu/ops/orb_pallas.py:60", (wins, ip, iq, kp_valid),
-             3 * 8, "openvo_tpu_torch/csrc/orb.cu"),
+        brief_case(torch, "K=512 on frame 0's pyramid", "off-lat", [h4]),
+        brief_case(torch, "random stack: window starts clamped at every "
+                   "edge, levels out of range, invalid rows; K=1440, 1 and 0",
+                   None, h4_edges),
     ]
+
+
+def brief_edge_inputs(torch, shape, dev):
+    """H4's inputs on a random non-integer stack of ``shape``: keypoints at
+    and beyond every edge where the window start is clamped, on each level
+    and on levels out of range, a fifth of the rows invalid, random angles;
+    then the first row alone, and no row."""
+    nl, H, W = shape
+    rng = np.random.default_rng(7)
+    stack = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+    edges_x = [-5, 0, 3, 21, 22, 23, W // 2, W - 24, W - 23, W - 22, W - 1,
+               W + 7]
+    edges_y = [-5, 0, 3, 21, 22, 23, H // 2, H - 24, H - 23, H - 22, H - 1,
+               H + 7]
+    lv, y, x = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(-1, nl + 1), edges_y, edges_x, indexing="ij"))
+    ang = torch.from_numpy(rng.uniform(-np.pi, np.pi, len(lv))
+                           .astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(len(lv)) > 0.2)
+    full = (stack.to(dev), torch.from_numpy(lv).to(dev),
+            torch.from_numpy(np.stack([x, y], 1)).to(dev), torch.cos(ang),
+            torch.sin(ang), valid.to(dev))
+    return [full, (full[0], *(t[:1] for t in full[1:])),
+            (full[0], *(t[:0] for t in full[1:]))]
+
+
+def window_union_bytes(torch, stack, octave, xy_lvl, valid):
+    """Bytes of ``stack`` under the union of the valid keypoints' 45x45 raw
+    windows, their starts clamped as H4 clamps them: what H4 must read of
+    the stack, each pixel once, where windows overlap."""
+    from openvo_tpu_torch.ops import orb_cuda
+
+    ids = torch.arange(stack.numel(), dtype=torch.int32,
+                       device=stack.device).view(stack.shape)
+    v = valid.bool()
+    under = orb_cuda.patch_windows_stack(ids, octave[v], xy_lvl[v],
+                                         orb_cuda.RAW_WIN)
+    return int(torch.unique(under).numel()) * stack.element_size()
+
+
+def brief_case(torch, variant, path, calls):
+    """H4 over each of ``calls`` (argument tuples). Its byte bound counts
+    the union of the valid keypoints' 45x45 raw windows (not the whole
+    stack, and each pixel once where windows overlap) and the per-keypoint
+    inputs; its operations are the blur's 13 a pixel over 45x39 + 39x39
+    pixels and 12 a test pair, per descriptor byte."""
+    from openvo_tpu_torch.ops import orb_cuda
+
+    in_bytes = sum(window_union_bytes(torch, a[0], a[1], a[2], a[5])
+                   + sum(t.numel() * t.element_size() for t in a[1:])
+                   for a in calls)
+    return Case("brief_describe", variant, path,
+                lambda: tuple(orb_cuda.brief_describe(*a) for a in calls),
+                lambda: tuple(orb_cuda.brief_describe_plain(*a)
+                              for a in calls),
+                K5, tuple(t for a in calls for t in a),
+                ((45 * 39 + 39 * 39) * 13 + 256 * 12) / 32, ORB_SRC,
+                in_bytes)
 
 
 def prefiltered_pair(torch, seq, cam, shift, cap):
@@ -521,8 +606,9 @@ def expected_launches(params):
 def run_path(torch, seq, name):
     """Phase 3 for one path: the odometer over the sequence with the plain
     versions disabled; returns launch counts per kernel name."""
-    from openvo_tpu_torch import OdometerConfig, StereoCamera, StereoOdometer
+    from openvo_tpu_torch import StereoCamera, StereoOdometer
     from openvo_tpu_torch.ops import orb_cuda, sgbm, sgbm_cuda
+    from openvo_tpu_torch.pose import rigid_clique
 
     kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
     plains = {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
@@ -539,7 +625,7 @@ def run_path(torch, seq, name):
     saved = {(m, n): getattr(m, n) for m, n in plains}
     for m, n in plains:
         setattr(m, n, tripwire)
-    odo = StereoOdometer(cam, config=OdometerConfig())
+    odo = StereoOdometer(cam, **(FILTERS if name == "filters" else {}))
     oks, causes, poses, lat = [], [], [], []
     gc.collect()
     torch.cuda.synchronize()
@@ -547,6 +633,7 @@ def run_path(torch, seq, name):
     torch.cuda.reset_peak_memory_stats()
     try:
         sgbm.speckle_filter.syncs = 0
+        rigid_clique.rigid_body_filter.syncs = 0
         for k in kernels:
             k.launches = 0
         for i in range(N_FRAMES):
@@ -557,6 +644,7 @@ def run_path(torch, seq, name):
             poses.append(odo.current_pose())
         launches = {k.__name__: k.launches for k in kernels}
         syncs = sgbm.speckle_filter.syncs
+        clique_syncs = rigid_clique.rigid_body_filter.syncs
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
@@ -575,9 +663,12 @@ def run_path(torch, seq, name):
         f"frame {lat[0] * 1e3} ms; device memory allocated {base:.1f} MiB "
         f"at the start, peak {peak:.1f} MiB")
     log(f"[{name}] kernel launches: {launches}; speckle host syncs "
-        f"{syncs} ({syncs / N_FRAMES} a frame)")
+        f"{syncs} ({syncs / N_FRAMES} a frame); rigid clique host syncs "
+        f"{clique_syncs} ({clique_syncs / N_FRAMES} a frame)")
     if not np.isfinite(poses).all():
         raise AssertionError(f"{name}: non-finite pose")
+    if name == "filters":
+        check_filters(tracked, ate, causes)
     _, min_tracked, max_ate = PATHS[name]
     if min_tracked is not None and tracked < min_tracked:
         raise AssertionError(f"{name}: {tracked} frames tracked, below "
@@ -590,6 +681,25 @@ def run_path(torch, seq, name):
                                  f"in {N_FRAMES} frames, expected "
                                  f"{per_frame} a frame")
     return launches
+
+
+def check_filters(tracked, ate, causes):
+    """The `filters` path against the JAX package's run of it."""
+    want = FILTERS_JAX
+    log(f"[filters] skip causes, frame by frame:\n  port {causes}\n  JAX  "
+        f"{want['causes']}")
+    log(f"[filters] tracked {tracked} (JAX {want['tracked']}), ATE {ate} m "
+        f"(JAX {want['ate_m']} m)")
+    if abs(tracked - want["tracked"]) > 1:
+        raise AssertionError(f"filters: {tracked} frames tracked, JAX "
+                             f"{want['tracked']}")
+    differ = [i for i, (a, b) in enumerate(zip(causes, want["causes"],
+                                               strict=True)) if a != b]
+    if len(differ) > FILTERS_CAUSES_DIFFERING:
+        raise AssertionError(f"filters: skip causes differ from JAX's at "
+                             f"frames {differ}")
+    if not abs(ate - want["ate_m"]) <= FILTERS_ATE_TOL:
+        raise AssertionError(f"filters: ATE {ate} m, JAX {want['ate_m']} m")
 
 
 def _tiled_rank(rank, tmp, out_q, device, p, q):

@@ -51,8 +51,9 @@ SIGNATURES = {
     # C, C is float32, s1, sv, svu (or NULL), disp16, H, W, D, P1, P2,
     # min_disp, uniqueness, disp12, stream
     "ovo_hsweep_wta_lr": (_P, _I, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
-    # wins, idx_p, idx_q, valid, out, K, S, N, stream
-    "ovo_brief_describe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # stack, nl, H, W, octave, xy, cos, sin, valid, pattern, taps (host),
+    # out, K, stream
+    "ovo_brief_describe": (_P, _I, _I, _I) + (_P,) * 8 + (_I, _P),
 }
 
 

@@ -1,6 +1,6 @@
-"""SE(3) utilities, PyTorch port of the pose-chain part of
-``openvo_tpu/geometry/se3.py``: composition, rigid inverse and the rotation
-magnitude that replaces ``cv2.Rodrigues`` in the motion gate."""
+"""SE(3) utilities, PyTorch port of ``openvo_tpu/geometry/se3.py``:
+composition, rigid inverse, the rotation magnitude that replaces
+``cv2.Rodrigues`` in the motion gate, and roll/pitch/yaw extraction."""
 
 from __future__ import annotations
 
@@ -28,3 +28,34 @@ def rotation_magnitude(R):
     tr = R.diagonal(dim1=-2, dim2=-1).sum(-1)
     c = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
     return torch.arccos(c)
+
+
+def rot2rpy(T):
+    """Roll, pitch and yaw of the rotation in ``T`` (..., >=3, >=3), in
+    float64, both Euler branches, as the reference's rot2RPY:
+
+    - pitch = atan2(-R20, +-cos_theta) with cos_theta = sqrt(R00^2 + R10^2),
+      roll and yaw divided by cos(pitch) per branch;
+    - gimbal lock (cos_theta < 1e-4): both branches are pitch = -R20 pi/2,
+      roll = R20 atan2(-R01, R11), yaw = 0.
+
+    Returns (roll, pitch, yaw), each of shape (..., 2, 1)."""
+    R = torch.as_tensor(T, dtype=torch.float64)[..., :3, :3]
+    r00, r01 = R[..., 0, 0], R[..., 0, 1]
+    r10, r11 = R[..., 1, 0], R[..., 1, 1]
+    r20, r21, r22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    cos_theta = torch.sqrt(r00**2 + r10**2)
+    locked = cos_theta < 1e-4
+
+    def branch(c):
+        pitch = torch.atan2(-r20, c)
+        cp = torch.cos(pitch)
+        return (torch.atan2(r21 / cp, r22 / cp), pitch,
+                torch.atan2(r10 / cp, r00 / cp))
+
+    locked_rpy = (r20 * torch.atan2(-r01, r11), -r20 * (torch.pi / 2.0),
+                  torch.zeros_like(r20))
+    both = [tuple(torch.where(locked, lk, v) for lk, v in zip(locked_rpy, b))
+            for b in (branch(cos_theta), branch(-cos_theta))]
+    return tuple(torch.stack([b0, b1], dim=-1)[..., :, None]
+                 for b0, b1 in zip(*both))

@@ -17,10 +17,11 @@ with the JAX package's observable semantics:
 One difference in form: JAX runs the fallback attempt under ``lax.cond``.
 Here the step reads ``use2`` on the host and runs the attempt only when it
 holds: one device-to-host sync per frame, which update() pays anyway to
-return ``ok``. The state is a ``NamedTuple`` of tensors with the JAX
-package's leaf order, so :func:`state_from_jax_leaves` continues a
-sequence started in JAX, and save_state/load_state read and write the same
-npz layout.
+return ``ok``. With the rigidity filter on, its greedy loop adds a few
+host checks per attempt (``pose/rigid_clique.py``). The state is a
+``NamedTuple`` of tensors with the JAX package's leaf order, so
+:func:`state_from_jax_leaves` continues a sequence started in JAX, and
+save_state/load_state read and write the same npz layout.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from openvo_tpu_torch.ops.hamming import ratio_test_match
 from openvo_tpu_torch.ops.interpolate import bilinear_sample_3d
 from openvo_tpu_torch.ops.orb import detect_and_compute
 from openvo_tpu_torch.pose.kabsch import kabsch
+from openvo_tpu_torch.pose.outlier import outlier_filter
+from openvo_tpu_torch.pose.rigid_clique import rigid_body_filter
 
 
 class FrameFeatures(NamedTuple):
@@ -117,17 +120,25 @@ def state_from_jax_leaves(leaves, device="cuda") -> OdomState:
 
 
 def make_point_cloud_transform(cfg: OdometerConfig):
-    """Transform fit + motion gates with the reference's gating order.
+    """Filters, transform fit and motion gates with the reference's gating
+    order: the rigid clique (if on), the rigidity cause below 10 points,
+    the outlier pass (if on, only with >= 10 points), too few points
+    counted after it, then the NaN, bigdist and bigrot gates.
     Returns fn(pts_a, pts_b, mask, skipped, skip_code) -> (T, ok, code)."""
-    if cfg.rigidity_threshold > 0 or cfg.outlier_threshold > 0:
-        raise NotImplementedError(
-            "the rigidity and outlier filters are not ported yet")
 
     def point_cloud_transform(pts_a, pts_b, mask, skipped, skip_code):
+        if cfg.rigidity_threshold > 0:
+            clique = rigid_body_filter(pts_a, pts_b, mask,
+                                       cfg.rigidity_threshold)
+            mask = mask & (clique > 0)
         n1 = mask.to(torch.int32).sum()
         rigidity_cause = n1 < 10
         skip_code = torch.where(rigidity_cause, SKIP_RIGIDITY, skip_code)
-        too_few = n1 < cfg.min_matches
+        if cfg.outlier_threshold > 0:
+            refined = outlier_filter(pts_a, pts_b, mask,
+                                     cfg.outlier_threshold)
+            mask = torch.where(n1 >= 10, refined, mask)
+        too_few = mask.to(torch.int32).sum() < cfg.min_matches
         skip_code = torch.where(too_few & ~rigidity_cause, SKIP_OUTLIER,
                                 skip_code)
         T = kabsch(pts_a, pts_b, mask)
@@ -360,9 +371,31 @@ class StereoOdometer:
             torch.tensor([float(y)], dtype=torch.float32))
         return out.numpy()[0]
 
+    def valid_distance_change(self, prev_kp_idx, current_kp_idx):
+        """Distance-change plausibility test between a previous and a
+        current keypoint (rows of prev_kps / current_kps): the drop in the
+        3D points' distance from the camera is at most MAX_DISTANCE_CHANGE
+        x (skipped_frames + 1)."""
+        p_x, p_y = self.prev_kps[prev_kp_idx]
+        c_x, c_y = self.current_kps[current_kp_idx]
+        d_prev = np.linalg.norm(self.prev_3d[int(p_y)][int(p_x)])
+        d_cur = np.linalg.norm(self.current_3d[int(c_y)][int(c_x)])
+        limit = self.MAX_DISTANCE_CHANGE * (self.skipped_frames + 1)
+        return bool(d_prev - d_cur <= limit)
+
+    def rigid_body_filter(self, prev_pts, pts):
+        """Greedy max-clique rigidity filter of (N, 3) point arrays at the
+        config's rigidity_threshold; 0/1 int32 numpy array."""
+        prev_pts = torch.as_tensor(np.asarray(prev_pts, np.float32),
+                                   device=self.device)
+        pts = torch.as_tensor(np.asarray(pts, np.float32), device=self.device)
+        mask = torch.ones(len(pts), dtype=torch.bool, device=self.device)
+        return rigid_body_filter(prev_pts, pts, mask,
+                                 self.config.rigidity_threshold).cpu().numpy()
+
     def point_cloud_transform(self, current_pts, next_pts):
-        """Rigid fit + motion gates; the 4x4 transform, or None (setting
-        skip_cause) when a gate fails."""
+        """Filters, rigid fit and motion gates; the 4x4 transform, or None
+        (setting skip_cause) when a gate fails."""
         cur = torch.as_tensor(np.asarray(current_pts, np.float32),
                               device=self.device)
         nxt = torch.as_tensor(np.asarray(next_pts, np.float32),

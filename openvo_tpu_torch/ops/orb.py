@@ -5,10 +5,10 @@ Stages, all on the image's device with static shapes: a batched
 (nlevels, H, W) scale pyramid (antialiased bilinear levels in the top-left
 corner of a zero canvas), FAST-9/16 score and corner test, 3x3 non-max
 suppression, Harris response, per-level top-k by Harris response with
-OpenCV's per-level budget, compaction to ``max_keypoints`` rows, one raw
-(45, 45) window per keypoint for the intensity-centroid angle and the
-7x7 sigma-2 blurred (39, 39) BRIEF window, GET_VALUE-rounded rotated
-pattern indices, and the descriptor kernel (``ops/orb_cuda.py``, H4).
+OpenCV's per-level budget, compaction to ``max_keypoints`` rows, the
+intensity-centroid angle from a (31, 31) window per keypoint, and the
+descriptor kernel H4 (``ops/orb_cuda.py``), which takes each keypoint's
+window from the pyramid, blurs it and samples the rotated rBRIEF pattern.
 
 Top-k and the compaction sort use ``torch.sort(..., stable=True)``: ties
 go to the lower index, as ``lax.top_k`` and the stable ``jnp.argsort``.
@@ -24,11 +24,11 @@ import torch.nn.functional as F
 
 from openvo_tpu_torch.config import ORBParams
 from openvo_tpu_torch.ops import orb_cuda
-from openvo_tpu_torch.ops.image import (box_filter, fma, gaussian_kernel_1d,
-                                        resize_bilinear, sobel_xy)
+from openvo_tpu_torch.ops.image import (box_filter, fma, resize_bilinear,
+                                        sobel_xy)
+from openvo_tpu_torch.ops.orb_cuda import RAW_WIN, patch_windows_stack
 
 HALF_PATCH = 15  # intensity-centroid circle radius (OpenCV halfPatchSize)
-BRIEF_WIN = 19   # rotated +/-13 pattern points stay < 19 px from the centre
 
 # FAST segment test circle of radius 3: 16 (dx, dy) offsets in circular order.
 FAST_CIRCLE = np.array(
@@ -38,14 +38,6 @@ FAST_CIRCLE = np.array(
     ],
     dtype=np.int32,
 )
-
-
-def brief_pattern():
-    """OpenCV's ORB rBRIEF 256-pair test pattern, int32 (256, 4):
-    (px, py, qx, qy)."""
-    from openvo_tpu_torch.ops.orb_pattern import CV2_ORB_PATTERN
-
-    return CV2_ORB_PATTERN
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,6 +67,23 @@ def centroid_weights(radius: int = HALF_PATCH):
     v, u = np.mgrid[-r:r + 1, -r:r + 1]
     circ = np.abs(u) <= umax[np.abs(v)]
     return (u * circ).astype(np.float32), (v * circ).astype(np.float32), circ
+
+
+@functools.lru_cache(maxsize=None)
+def _centroid_weights_on(device):
+    """The flattened (u, v) centroid weights on ``device``, built once per
+    device."""
+    uw, vw, _ = centroid_weights()
+    return tuple(torch.from_numpy(w.reshape(-1)).to(device) for w in (uw, vw))
+
+
+@functools.lru_cache(maxsize=None)
+def _level_scales_on(device, scale_factor: float, nlevels: int):
+    """Each level's scale (nlevels,) and the scale factor (a scalar), as
+    float32 tensors on ``device``, built once per device."""
+    tab = torch.tensor([scale_factor**lv for lv in range(nlevels)],
+                       dtype=torch.float32, device=device)
+    return tab, torch.tensor(scale_factor, device=device)
 
 
 def features_per_level(nfeatures: int, nlevels: int, scale_factor: float):
@@ -151,49 +160,20 @@ def _topk_flat(flat, k: int):
     return vals[:k], idx[:k]
 
 
-def _patch_windows_stack(stack, levels, xy, r: int):
-    """(K, 2r+1, 2r+1) windows centred at ``xy`` on each keypoint's level of
-    the (nl, H, W) stack. Starts are clamped into the canvas like
-    ``lax.dynamic_slice`` (padding rows at xy = 0 read level 0's corner)."""
-    nl, H, W = stack.shape
-    size = 2 * r + 1
-    ar = torch.arange(size, device=stack.device)
-    y0 = (xy[:, 1].to(torch.int64) - r).clamp(0, H - size)
-    x0 = (xy[:, 0].to(torch.int64) - r).clamp(0, W - size)
-    lv = levels.to(torch.int64).clamp(0, nl - 1)
-    rows = (y0[:, None] + ar)[:, :, None]
-    cols = (x0[:, None] + ar)[:, None, :]
-    return stack[lv[:, None, None], rows, cols]
+def orientations(det):
+    """Intensity-centroid angle (radians) of each keypoint of
+    :func:`detect`, from its (31, 31) window; 0 for invalid rows.
 
-
-def _orientations_from_windows(wins, valid):
-    """Intensity-centroid angle (radians) from (K, 31, 31) windows."""
-    uw, vw, _ = centroid_weights()
+    The JAX package cuts this window out of the (45, 45) descriptor window.
+    For a valid keypoint the two agree, since :func:`detect` keeps every
+    keypoint >= 22 px inside the stack, so neither window's start is
+    clamped; an invalid row's angle is 0 either way."""
+    wins = patch_windows_stack(det["stack"], det["octave"], det["xy_lvl"],
+                               HALF_PATCH)
+    uw, vw = _centroid_weights_on(wins.device)
     flat = wins.reshape(wins.shape[0], -1)
-    m10 = flat @ torch.from_numpy(uw.reshape(-1)).to(wins.device)
-    m01 = flat @ torch.from_numpy(vw.reshape(-1)).to(wins.device)
-    ang = torch.atan2(m01, m10)
-    return torch.where(valid, ang, 0.0)
-
-
-def brief_indices(angles):
-    """(K, 256) int32 flat indices into the (39, 39) window of the rotated
-    rBRIEF p and q points, with OpenCV's GET_VALUE rounding:
-    col = round(x cos - y sin), row = round(x sin + y cos)."""
-    pat = torch.from_numpy(brief_pattern()).to(angles.device, torch.float32)
-    px, py, qx, qy = pat[:, 0], pat[:, 1], pat[:, 2], pat[:, 3]
-    rw = BRIEF_WIN
-    size = 2 * rw + 1
-    ca = torch.cos(angles)[:, None]
-    sa = torch.sin(angles)[:, None]
-
-    def local_idx(x, y):
-        x, y = x[None, :], y[None, :]
-        col = rw + torch.round(fma(x, ca, -(y * sa))).to(torch.int32)
-        row = rw + torch.round(fma(x, sa, y * ca)).to(torch.int32)
-        return (row * size + col).contiguous()
-
-    return local_idx(px, py), local_idx(qx, qy)
+    ang = torch.atan2(flat @ vw, flat @ uw)
+    return torch.where(det["valid"], ang, 0.0)
 
 
 def _level_dims(H: int, W: int, params: ORBParams):
@@ -233,10 +213,10 @@ def detect(img, mask, params: ORBParams):
     imgf = img.to(torch.float32)
     nl = params.nlevels
     b = params.edge_threshold
-    if b < BRIEF_WIN + 3:
+    if b < RAW_WIN:
         raise ValueError(
-            f"edge_threshold={b} < {BRIEF_WIN + 3}: the batched raw-window"
-            " pipeline needs keypoints >= 22 px inside their level")
+            f"edge_threshold={b} < {RAW_WIN}: the descriptor kernel needs"
+            f" keypoints >= {RAW_WIN} px inside their level")
     budgets = features_per_level(params.nfeatures, nl, params.scale_factor)
     dims = _level_dims(H, W, params)
     k_eff = [max(min(budgets[lv], dims[lv][0] * dims[lv][1]), 1)
@@ -324,37 +304,6 @@ def detect(img, mask, params: ORBParams):
             "valid": compact(valid_flat, False)}
 
 
-def descriptor_inputs(det):
-    """Inputs of the descriptor kernel for the keypoints of :func:`detect`:
-    (wins (K, 39*39) float32 blurred windows, idx_p, idx_q (K, 256) int32,
-    angle (K,) intensity-centroid orientation).
-
-    One raw (45, 45) window per keypoint serves both: its 31x31 interior
-    is the IC_Angle patch, and the valid part of a separable 7-tap blur of
-    it is the (39, 39) BRIEF window, rounded like ORB's uint8 image."""
-    rw = BRIEF_WIN + 3
-    wins_raw = _patch_windows_stack(det["stack"], det["octave"],
-                                    det["xy_lvl"], rw)
-    c0 = rw - HALF_PATCH
-    wins_o = wins_raw[:, c0:c0 + 2 * HALF_PATCH + 1,
-                      c0:c0 + 2 * HALF_PATCH + 1]
-    ang = _orientations_from_windows(wins_o, det["valid"])
-    kb = [float(v) for v in gaussian_kernel_1d(7, 2.0)]
-    size_d = 2 * BRIEF_WIN + 1
-
-    def blur(taps):
-        # XLA's order: fma(k0, t0, k1 * t1), then fma(k_i, t_i, acc)
-        acc = fma(kb[0], taps(0), kb[1] * taps(1))
-        for i in range(2, 7):
-            acc = fma(kb[i], taps(i), acc)
-        return acc
-
-    h_pass = blur(lambda i: wins_raw[:, :, i:i + size_d])
-    wins = torch.round(blur(lambda i: h_pass[:, i:i + size_d, :]))
-    idx_p, idx_q = brief_indices(ang)
-    return wins.reshape(wins.shape[0], -1).contiguous(), idx_p, idx_q, ang
-
-
 def detect_and_compute(img, mask, params: ORBParams):
     """Full ORB on a (H, W) grayscale image (any dtype, on any device).
 
@@ -364,19 +313,15 @@ def detect_and_compute(img, mask, params: ORBParams):
     octave (K,) int64, size (K,), desc (K, 32) uint8, valid (K,) bool.
     """
     det = detect(img, mask, params)
-    wins, idx_p, idx_q, ang = descriptor_inputs(det)
+    ang = orientations(det)
     valid, octv = det["valid"], det["octave"]
-    desc = orb_cuda.brief_describe(wins, idx_p, idx_q, valid)
-    dev = img.device
-    scale_tab = torch.tensor([params.scale_factor**lv
-                              for lv in range(params.nlevels)],
-                             dtype=torch.float32, device=dev)
+    desc = orb_cuda.brief_describe(det["stack"], octv, det["xy_lvl"],
+                                   torch.cos(ang), torch.sin(ang), valid)
+    scale_tab, sf = _level_scales_on(img.device, params.scale_factor,
+                                     params.nlevels)
     xy = det["xy_lvl"].to(torch.float32) * scale_tab[octv][:, None]
-    size = torch.where(
-        valid,
-        31.0 * torch.pow(torch.tensor(params.scale_factor, device=dev),
-                         octv.to(torch.float32)),
-        0.0)
+    size = torch.where(valid, 31.0 * torch.pow(sf, octv.to(torch.float32)),
+                       0.0)
     return {
         "xy": xy,
         "response": det["response"],

@@ -1,7 +1,18 @@
 """Steered-BRIEF descriptor kernel H4 (``csrc/orb.cu``) and its plain
-version."""
+version: from a keypoint's pyramid level to its packed descriptor.
+
+The plain version is the JAX package's descriptor stage
+(``openvo_tpu/ops/orb.py:529-555``) in pieces: :func:`patch_windows_stack`
+gathers each keypoint's raw 45x45 window, :func:`blur_windows` blurs it
+with the 7 taps of ``gaussian_kernel_1d(7, 2.0)`` into the rounded 39x39
+BRIEF window, :func:`brief_indices` rotates the rBRIEF pattern with
+GET_VALUE rounding, and :func:`brief_sample_plain` compares and packs.
+"""
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -9,42 +20,127 @@ from openvo_tpu_torch import _build
 from openvo_tpu_torch.ops._dispatch import (check_cuda_input, device_of,
                                             stream_handle)
 from openvo_tpu_torch.ops.hamming import pack_bits
+from openvo_tpu_torch.ops.image import fma, gaussian_kernel_1d
+
+BRIEF_WIN = 19   # rotated +/-13 pattern points stay < 19 px from the centre
+BLUR_TAPS = tuple(float(v) for v in gaussian_kernel_1d(7, 2.0))
+RAW_WIN = BRIEF_WIN + len(BLUR_TAPS) // 2   # raw window radius, 22
 
 
-def brief_describe_plain(wins, idx_p, idx_q, valid):
-    """Plain H4: bit j of keypoint k is wins[k, p] < wins[k, q] at the flat
-    window indices p = idx_p[k, j], q = idx_q[k, j]; zero rows for invalid
-    keypoints; packed to (K, N/8) uint8."""
+@functools.lru_cache(maxsize=None)
+def brief_pattern(device) -> torch.Tensor:
+    """OpenCV's ORB rBRIEF 256-pair test pattern as float32 (256, 4)
+    (px, py, qx, qy) on ``device``, built once per device."""
+    from openvo_tpu_torch.ops.orb_pattern import CV2_ORB_PATTERN
+
+    return torch.from_numpy(CV2_ORB_PATTERN).to(device, torch.float32)
+
+
+def patch_windows_stack(stack, levels, xy, r: int):
+    """(K, 2r+1, 2r+1) windows centred at ``xy`` on each keypoint's level of
+    the (nl, H, W) stack. Starts are clamped into the stack like
+    ``lax.dynamic_slice`` (padding rows at xy = 0 read level 0's corner)."""
+    nl, H, W = stack.shape
+    size = 2 * r + 1
+    ar = torch.arange(size, device=stack.device)
+    y0 = (xy[:, 1].to(torch.int64) - r).clamp(0, H - size)
+    x0 = (xy[:, 0].to(torch.int64) - r).clamp(0, W - size)
+    lv = levels.to(torch.int64).clamp(0, nl - 1)
+    rows = (y0[:, None] + ar)[:, :, None]
+    cols = (x0[:, None] + ar)[:, None, :]
+    return stack[lv[:, None, None], rows, cols]
+
+
+def blur_windows(wins_raw):
+    """(K, 39, 39) BRIEF windows: the valid part of the separable 7-tap blur
+    of (K, 45, 45) raw windows, rows first, rounded half to even like ORB's
+    uint8 working image. XLA's order: fma(k0, t0, k1 * t1), then
+    fma(k_i, t_i, acc)."""
+    kb = BLUR_TAPS
+    size = 2 * BRIEF_WIN + 1
+
+    def blur(taps):
+        acc = fma(kb[0], taps(0), kb[1] * taps(1))
+        for i in range(2, len(kb)):
+            acc = fma(kb[i], taps(i), acc)
+        return acc
+
+    h_pass = blur(lambda i: wins_raw[:, :, i:i + size])
+    return torch.round(blur(lambda i: h_pass[:, i:i + size, :]))
+
+
+def brief_indices(cos_a, sin_a):
+    """(K, 256) int32 flat indices into the (39, 39) window of the rotated
+    rBRIEF p and q points, with OpenCV's GET_VALUE rounding:
+    col = round(x cos - y sin), row = round(x sin + y cos)."""
+    pat = brief_pattern(cos_a.device)
+    px, py, qx, qy = pat[:, 0], pat[:, 1], pat[:, 2], pat[:, 3]
+    rw = BRIEF_WIN
+    size = 2 * rw + 1
+    ca, sa = cos_a[:, None], sin_a[:, None]
+
+    def local_idx(x, y):
+        x, y = x[None, :], y[None, :]
+        col = rw + torch.round(fma(x, ca, -(y * sa))).to(torch.int32)
+        row = rw + torch.round(fma(x, sa, y * ca)).to(torch.int32)
+        return (row * size + col).contiguous()
+
+    return local_idx(px, py), local_idx(qx, qy)
+
+
+def brief_sample_plain(wins, idx_p, idx_q, valid):
+    """The sampling half of H4 (K5's gathers, then compare and pack): bit j
+    of keypoint k is wins[k, p] < wins[k, q] at the flat window indices
+    p = idx_p[k, j], q = idx_q[k, j]; zero rows for invalid keypoints;
+    packed to (K, N/8) uint8."""
     tp = torch.gather(wins, 1, idx_p.to(torch.int64))
     tq = torch.gather(wins, 1, idx_q.to(torch.int64))
     return pack_bits((tp < tq) & valid[:, None])
 
 
-def brief_describe(wins, idx_p, idx_q, valid):
-    """H4, replacing ``orb_pallas.brief_sample_t`` (K5) and the compare and
-    pack around it. wins (K, S) float32 blurred windows, idx_p/idx_q (K, N)
-    int32 flat sample indices (GET_VALUE-rounded rotations, always inside
-    the window), valid (K,) bool -> (K, N/8) uint8 descriptors.
+def brief_describe_plain(stack, octave, xy_lvl, cos_a, sin_a, valid):
+    """Plain H4: raw windows, blur, rotated pattern, compare and pack."""
+    wins = blur_windows(patch_windows_stack(stack, octave, xy_lvl, RAW_WIN))
+    idx_p, idx_q = brief_indices(cos_a, sin_a)
+    return brief_sample_plain(wins.flatten(1), idx_p, idx_q, valid)
 
-    One block per keypoint: the window goes to shared memory with coalesced
-    loads, each of the N threads reads its two samples there, and warp
-    ballots pack the bits. Bound by reading the window and the indices
-    (8.1 KB per keypoint, 4 MB at K = 512): a few microseconds of device
-    memory traffic, so launch latency dominates at this size."""
-    dev = device_of(wins, idx_p, idx_q, valid)
+
+def brief_describe(stack, octave, xy_lvl, cos_a, sin_a, valid):
+    """H4, replacing ``orb_pallas.brief_sample_t`` (K5) and the window
+    gather, blur and rotation around it: stack (nl, H, W) float32 pyramid,
+    octave (K,) int64 levels, xy_lvl (K, 2) int64 level coordinates,
+    cos_a/sin_a (K,) float32 cosine and sine of one angle per keypoint
+    (torch.cos/torch.sin), valid (K,) bool -> (K, 32) uint8 descriptors.
+
+    One block per keypoint reads its raw window from the stack into shared
+    memory, blurs it there and samples the 256 pairs (see ``csrc/orb.cu``):
+    one launch, bound by the windows' bytes (4.1 MB at K = 512)."""
+    dev = device_of(stack, octave, xy_lvl, cos_a, sin_a, valid)
     if dev.type == "cpu":
-        return brief_describe_plain(wins, idx_p, idx_q, valid)
-    K, S = wins.shape
-    N = idx_p.shape[1]
-    check_cuda_input(wins, torch.float32, (K, S), "wins")
-    check_cuda_input(idx_p, torch.int32, (K, N), "idx_p")
-    check_cuda_input(idx_q, torch.int32, (K, N), "idx_q")
+        return brief_describe_plain(stack, octave, xy_lvl, cos_a, sin_a,
+                                    valid)
+    nl, H, W = stack.shape
+    K = octave.shape[0]
+    check_cuda_input(stack, torch.float32, (nl, H, W), "stack")
+    check_cuda_input(octave, torch.int64, (K,), "octave")
+    check_cuda_input(xy_lvl, torch.int64, (K, 2), "xy_lvl")
+    check_cuda_input(cos_a, torch.float32, (K,), "cos_a")
+    check_cuda_input(sin_a, torch.float32, (K,), "sin_a")
     check_cuda_input(valid, torch.bool, (K,), "valid")
+    size = 2 * RAW_WIN + 1
+    if H < size or W < size:
+        raise ValueError(f"stack: levels of {H}x{W}, smaller than the "
+                         f"{size}x{size} window")
+    out = torch.empty((K, 32), dtype=torch.uint8, device=dev)
+    if K == 0:
+        return out
     lib = _build.library()
-    out = torch.empty((K, N // 8), dtype=torch.uint8, device=dev)
-    err = lib.ovo_brief_describe(wins.data_ptr(), idx_p.data_ptr(),
-                                 idx_q.data_ptr(), valid.data_ptr(),
-                                 out.data_ptr(), K, S, N, stream_handle(dev))
+    pattern = brief_pattern(dev)
+    taps = (ctypes.c_float * len(BLUR_TAPS))(*BLUR_TAPS)
+    err = lib.ovo_brief_describe(
+        stack.data_ptr(), nl, H, W, octave.data_ptr(), xy_lvl.data_ptr(),
+        cos_a.data_ptr(), sin_a.data_ptr(), valid.data_ptr(),
+        pattern.data_ptr(), taps, out.data_ptr(), K, stream_handle(dev))
     brief_describe.launches += 1
     _build.check_launch(err, "brief_describe")
     return out

@@ -1,5 +1,5 @@
-"""Masked rigid 3D-3D alignment (Kabsch, rotation forced), PyTorch port of
-``openvo_tpu/pose/kabsch.py``.
+"""Masked rigid 3D-3D alignment (Kabsch, rotation forced) and the outlier
+pass's residual, PyTorch port of ``openvo_tpu/pose/kabsch.py``.
 
 R from the SVD of the masked cross-covariance with the determinant-sign
 fix, t = mean(dst) - R mean(src). With fewer than 3 valid points the result
@@ -10,6 +10,22 @@ odometer's NaN gate catches it.
 from __future__ import annotations
 
 import torch
+
+from openvo_tpu_torch.ops.image import fma
+
+
+def transform_points(T, pts):
+    """Apply the 4x4 ``T`` to (N, 3) points."""
+    return pts @ T[:3, :3].T + T[:3, 3]
+
+
+def row_norm(v):
+    """Euclidean norm of each row of (..., n) float32 ``v``, with XLA:CPU's
+    order: a chain of fused multiply-adds over the components, then sqrt."""
+    acc = v[..., 0] * v[..., 0]
+    for i in range(1, v.shape[-1]):
+        acc = fma(v[..., i], v[..., i], acc)
+    return torch.sqrt(acc)
 
 
 def kabsch(src, dst, mask):
@@ -39,3 +55,13 @@ def kabsch(src, dst, mask):
     T[:3, :3] = torch.where(finite, R, float("nan"))
     T[:3, 3] = torch.where(finite, t, float("nan"))
     return torch.where(mask.sum() < 3, float("nan"), T)
+
+
+def residuals_relative(T, src, dst, mask):
+    """The outlier pass's residual ||h_dst - T h_src|| / ||h_dst|| over
+    homogeneous 4-vectors; inf where ``mask`` is False."""
+    ones = torch.ones((src.shape[0], 1), dtype=src.dtype, device=src.device)
+    hs = torch.cat([src, ones], dim=1)
+    hd = torch.cat([dst, ones], dim=1)
+    err = row_norm(hd - hs @ T.T) / row_norm(hd)
+    return torch.where(mask, err, float("inf"))

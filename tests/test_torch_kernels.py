@@ -417,21 +417,45 @@ def test_sgbm_configurations_equal_cpu(cuda, change):
     assert torch.equal(out.cpu(), ref)
 
 
-def test_brief_describe_equals_plain(cuda):
-    rng = np.random.default_rng(1)
-    K = 512
-    wins = torch.from_numpy(np.round(rng.uniform(0, 255, (K, 1521)))
-                            .astype(np.float32)).to(cuda)
-    ip = torch.from_numpy(rng.integers(0, 1521, (K, 256), dtype=np.int32)
-                          ).to(cuda)
-    iq = torch.from_numpy(rng.integers(0, 1521, (K, 256), dtype=np.int32)
-                          ).to(cuda)
-    valid = torch.from_numpy(rng.random(K) > 0.1).to(cuda)
+def brief_inputs(dev, K, integer, nl=8, H=96, W=160, seed=1):
+    """H4's inputs on a random (nl, H, W) stack: integer or non-integer
+    pixels (a resized level's), keypoints at and beyond every edge where
+    the window start is clamped, on every level and on levels out of range,
+    then random rows; a fifth of the rows invalid; random angles."""
+    rng = np.random.default_rng(seed)
+    stack = rng.uniform(0, 255, (nl, H, W)).astype(np.float32)
+    if integer:
+        stack = np.round(stack)
+    ex = [-3, 0, 21, 22, 23, W // 2, W - 23, W - 22, W - 1, W + 4]
+    ey = [-3, 0, 21, 22, 23, H // 2, H - 23, H - 22, H - 1, H + 4]
+    lv, y, x = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(-1, nl + 1), ey, ex, indexing="ij"))
+    n = max(K - len(lv), 0)
+    lv = np.r_[lv, rng.integers(0, nl, n)][:K]
+    y = np.r_[y, rng.integers(22, H - 22, n)][:K]
+    x = np.r_[x, rng.integers(22, W - 22, n)][:K]
+    ang = torch.from_numpy(rng.uniform(-np.pi, np.pi, K).astype(np.float32))
+    valid = rng.random(K) > 0.2
+    return tuple(t.to(dev) for t in (
+        torch.from_numpy(stack), torch.from_numpy(lv.astype(np.int64)),
+        torch.from_numpy(np.stack([x, y], 1).astype(np.int64)),
+        torch.cos(ang), torch.sin(ang), torch.from_numpy(valid)))
+
+
+@pytest.mark.parametrize("K", [0, 1, 7, 512, 1200])
+@pytest.mark.parametrize("integer", [True, False])
+def test_brief_describe_equals_plain(cuda, K, integer):
+    """H4 from the stack to the packed descriptor equals its plain version
+    bit for bit (1200 rows hold every edge on every level), and launches
+    once (not at all for K = 0)."""
+    args = brief_inputs(cuda, K, integer)
     n0 = orb_cuda.brief_describe.launches
-    out = orb_cuda.brief_describe(wins, ip, iq, valid)
-    assert orb_cuda.brief_describe.launches == n0 + 1
-    assert torch.equal(out, orb_cuda.brief_describe_plain(wins, ip, iq,
-                                                          valid))
+    out = orb_cuda.brief_describe(*args)
+    assert orb_cuda.brief_describe.launches == n0 + (K > 0)
+    ref = orb_cuda.brief_describe_plain(*args)
+    assert out.shape == (K, 32) and out.dtype == torch.uint8
+    assert torch.equal(out, ref)
+    assert not out[~args[5]].any()
 
 
 def test_wrappers_reject_wrong_input(cuda):
@@ -459,3 +483,21 @@ def test_wrappers_reject_wrong_input(cuda):
     S = torch.zeros((16, 64, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="added into s1"):
         sgbm_cuda.hsweep_wta_lr(C.to(torch.int16), S, S, 400, 1600, 0, 10, 1)
+    stack, octv, xy, ca, sa, valid = brief_inputs(cuda, 16, True)
+    with pytest.raises(TypeError):
+        orb_cuda.brief_describe(stack.double(), octv, xy, ca, sa, valid)
+    with pytest.raises(TypeError):
+        orb_cuda.brief_describe(stack, octv.int(), xy, ca, sa, valid)
+    with pytest.raises(TypeError):
+        orb_cuda.brief_describe(stack, octv, xy.int(), ca, sa, valid)
+    with pytest.raises(ValueError):
+        orb_cuda.brief_describe(stack, octv, xy[:, :1].contiguous(), ca, sa,
+                                valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        orb_cuda.brief_describe(stack.transpose(1, 2), octv, xy, ca, sa,
+                                valid)
+    with pytest.raises(ValueError, match="device mismatch"):
+        orb_cuda.brief_describe(stack, octv, xy, ca.cpu(), sa, valid)
+    with pytest.raises(ValueError, match="smaller than"):
+        orb_cuda.brief_describe(stack[:, :40].contiguous(), octv, xy, ca, sa,
+                                valid)

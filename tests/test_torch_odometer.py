@@ -163,12 +163,100 @@ def test_point_cloud_transform_gates_match_jax(kind, skipped, min_matches,
                                equal_nan=True)
 
 
-def test_filters_outside_the_slice_raise(seq):
-    _, cam = cameras(seq)
-    with pytest.raises(NotImplementedError):
-        openvo_tpu_torch.StereoOdometer(cam, rigidity_threshold=0.05)
-    with pytest.raises(NotImplementedError):
-        openvo_tpu_torch.StereoOdometer(cam, outlier_threshold=0.01)
+FILTERS = dict(rigidity_threshold=0.05, outlier_threshold=0.01)
+
+
+def filter_cases(kind):
+    """Point clouds for the filters' gates (tests/test_odometer.py:214-235):
+    ``rigid_few`` keeps 8 of 16 points in the clique, ``outlier_spread``
+    spreads the residuals of 12 points, ``planted`` has 6 non-rigid points
+    among 32."""
+    rng = np.random.default_rng(2)
+    if kind == "rigid_few":
+        a = rng.uniform(-3, 3, size=(16, 3)).astype(np.float32)
+        b = a + np.float32([0.05, 0, 0])
+        b[8:] += rng.uniform(0.5, 1.0, size=(8, 3)).astype(np.float32)
+    elif kind == "outlier_spread":
+        rng0 = np.random.default_rng(0)
+        a = rng0.uniform(-3, 3, (12, 3)).astype(np.float32)
+        b = a + np.float32([0.05, 0, 0])
+        b[6:] += np.linspace(1, 3, 6)[:, None].astype(np.float32)
+    elif kind == "planted":
+        a = rng.uniform(-3, 3, size=(32, 3)).astype(np.float32)
+        b = a + np.float32([0.05, 0.01, 0])
+        b[:6] += rng.normal(scale=0.3, size=(6, 3)).astype(np.float32)
+    else:
+        a, b = crafted(kind)
+    return a, b
+
+
+@pytest.mark.parametrize("kind", ["rigid_few", "outlier_spread", "planted",
+                                  "bigdist", "nan", "ok"])
+@pytest.mark.parametrize("cfg", [
+    dict(rigidity_threshold=0.01, min_matches=5),
+    dict(outlier_threshold=0.01),
+    dict(FILTERS)])
+def test_point_cloud_transform_filters_match_jax(kind, cfg):
+    """With each filter on and with both: the same skip code and ok as JAX,
+    T within atol 1e-5 (the clique and the inlier mask are equal)."""
+    a, b = filter_cases(kind)
+    mask = np.ones(len(a), bool)
+    mask[-1] = kind != "planted"
+    Tj, okj, cj = jax.jit(jax_pct(JaxOdometerConfig(**cfg)))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask),
+        jnp.asarray(0, jnp.int32), jnp.asarray(0, jnp.int32))
+    Tt, okt, ct = make_point_cloud_transform(OdometerConfig(**cfg))(
+        torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(mask),
+        torch.tensor(0, dtype=torch.int32),
+        torch.tensor(0, dtype=torch.int32))
+    assert int(ct) == int(cj)
+    assert bool(okt) == bool(okj)
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=0, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.fixture(scope="module")
+def filters_runs(seq):
+    """JAX's and the port's odometers over the sequence with both filters
+    on: per-frame (ok, cause, pose) of each, and the two odometers."""
+    cam_j, cam_t = cameras(seq)
+    odos = (openvo_tpu.StereoOdometer(cam_j, **FILTERS),
+            openvo_tpu_torch.StereoOdometer(cam_t, **FILTERS))
+    runs = ([], [])
+    for i in range(N):
+        for odo, run in zip(odos, runs):
+            ok = odo.update(*frame(seq, i))
+            run.append((ok, odo.skip_cause, odo.current_pose()))
+    return runs, odos
+
+
+def test_ten_frames_with_filters_match_jax(filters_runs):
+    """Frame by frame as JAX. At 320x240 the clique at 0.05 m keeps fewer
+    than 10 points on some frames, so JAX skips those as "rigidity" (5 of
+    10 frames tracked): both outcomes of the filters are held to it."""
+    (want, got), _ = filters_runs
+    for i in range(N):
+        assert_frame_matches(i, got[i], want[i])
+    assert sum(w[0] for w in want) >= 5
+    assert "rigidity" in [w[1] for w in want]
+
+
+def test_filter_methods_match_jax(filters_runs):
+    """The reference methods rigid_body_filter and valid_distance_change,
+    numpy in and out, on the odometers' last two frames."""
+    _, (odo_j, odo_t) = filters_runs
+    a, b = filter_cases("planted")
+    got = odo_t.rigid_body_filter(a, b)
+    np.testing.assert_array_equal(got, odo_j.rigid_body_filter(a, b))
+    assert got.dtype == np.int32 and got[:6].sum() == 0
+    np.testing.assert_array_equal(odo_t.prev_kps, odo_j.prev_kps)
+    np.testing.assert_array_equal(odo_t.current_kps, odo_j.current_kps)
+    pairs = [(i, j) for i in range(0, len(odo_j.prev_kps), 37)
+             for j in range(0, len(odo_j.current_kps), 41)]
+    assert len(pairs) > 50
+    for i, j in pairs:
+        assert (odo_t.valid_distance_change(i, j)
+                == odo_j.valid_distance_change(i, j))
 
 
 def test_reference_helper_methods_match_jax(seq):

@@ -22,7 +22,7 @@ from openvo_tpu.io.synthetic import render_stereo_sequence
 from openvo_tpu.ops import image as jimage
 from openvo_tpu.ops import orb as jorb
 from openvo_tpu_torch.config import ORBParams
-from openvo_tpu_torch.ops import image, orb
+from openvo_tpu_torch.ops import image, orb, orb_cuda
 
 
 @pytest.fixture(scope="module")
@@ -129,8 +129,8 @@ def test_topk_ties_go_to_lower_index():
 
 
 def test_brief_indices_and_plain_kernel_match_jax_gather():
-    """H4's plain version equals the JAX descriptor stage on the same
-    windows and angles."""
+    """H4's sampling half (rotated indices, then compare and pack) equals
+    the JAX descriptor stage on the same windows and angles."""
     rng = np.random.default_rng(1)
     K = 64
     wins = np.round(rng.uniform(0, 255, (K, 39, 39))).astype(np.float32)
@@ -139,11 +139,10 @@ def test_brief_indices_and_plain_kernel_match_jax_gather():
     ref = np.asarray(jorb._descriptors(None, None, jnp.asarray(ang),
                                        jnp.asarray(valid),
                                        wins=jnp.asarray(wins)))
-    from openvo_tpu_torch.ops import orb_cuda
-
-    ip, iq = orb.brief_indices(torch.from_numpy(ang))
-    out = orb_cuda.brief_describe(torch.from_numpy(wins.reshape(K, -1)), ip,
-                                  iq, torch.from_numpy(valid))
+    a = torch.from_numpy(ang)
+    ip, iq = orb_cuda.brief_indices(torch.cos(a), torch.sin(a))
+    out = orb_cuda.brief_sample_plain(torch.from_numpy(wins.reshape(K, -1)),
+                                      ip, iq, torch.from_numpy(valid))
     np.testing.assert_array_equal(out.numpy(), ref)
     assert (out.numpy()[~valid] == 0).all()
 
@@ -152,3 +151,83 @@ def test_cv2_ranking_not_ported_yet(frames):
     with pytest.raises(NotImplementedError):
         orb.detect_and_compute(torch.from_numpy(frames[0][0]), None,
                                ORBParams(cv2_ranking=True))
+
+
+def jax_descriptor_inputs(img, mask):
+    """JAX's ORB on ``img`` plus the inputs of its descriptor stage: the
+    pyramid stack as openvo_tpu/ops/orb.py:410-434 builds it, each row's
+    level coordinates (xy / scale, exact in float32) and the angle."""
+    params = JaxORBParams()
+    r = {k: np.array(v) for k, v in jax.jit(
+        lambda a, m: jorb.detect_and_compute(a, m, params))(
+        jnp.asarray(img), jnp.asarray(mask)).items()}
+    H, W = img.shape
+
+    def pyramid(a):
+        imgf = a.astype(jnp.float32)
+        levels = [imgf]
+        for lv in range(1, params.nlevels):
+            s = params.scale_factor**lv
+            h_l, w_l = (max(int(round(n / s)), 2 * params.edge_threshold + 3)
+                        for n in (H, W))
+            levels.append(jnp.pad(jimage.resize_bilinear(imgf, h_l, w_l),
+                                  ((0, H - h_l), (0, W - w_l))))
+        return jnp.stack(levels)
+
+    stack = np.asarray(jax.jit(pyramid)(jnp.asarray(img)))
+    scale = np.float64(params.scale_factor) ** r["octave"]
+    xy_lvl = np.round(r["xy"] / scale[:, None]).astype(np.int32)
+    return r, stack, xy_lvl
+
+
+def test_descriptor_stage_equals_jax_at_every_level(frames):
+    """The plain H4 (window, blur, rotation, sampling), fed JAX's own
+    pyramid, levels, coordinates and angles, gives JAX's descriptors bit
+    for bit on every pyramid level (openvo_tpu/ops/orb.py:529-555)."""
+    r, stack, xy_lvl = jax_descriptor_inputs(*frames[0])
+    octv, valid, ang = r["octave"], r["valid"], r["angle"]
+
+    def jax_desc(stack, octv, xy, ang, valid):
+        wins_raw = jorb._patch_windows_stack(stack, octv, xy, 22)
+        kb = jnp.asarray(jimage.gaussian_kernel_1d(7, 2.0))
+        h_pass = sum(kb[i] * wins_raw[:, :, i:i + 39] for i in range(7))
+        wins_d = jnp.round(sum(kb[i] * h_pass[:, i:i + 39, :]
+                               for i in range(7)))
+        return jorb._descriptors(None, xy, ang, valid, wins=wins_d)
+
+    want = np.asarray(jax.jit(jax_desc)(stack, octv, xy_lvl, ang, valid))
+    a = torch.from_numpy(ang)
+    got = orb_cuda.brief_describe(
+        torch.from_numpy(stack), torch.from_numpy(octv.astype(np.int64)),
+        torch.from_numpy(xy_lvl.astype(np.int64)), torch.cos(a), torch.sin(a),
+        torch.from_numpy(valid)).numpy()
+    levels = set(octv[valid].tolist())
+    assert levels == set(range(JaxORBParams().nlevels)), levels
+    for lv in sorted(levels):
+        rows = valid & (octv == lv)
+        np.testing.assert_array_equal(got[rows], want[rows],
+                                      err_msg=f"level {lv}")
+    np.testing.assert_array_equal(got, want)
+    # the stage as JAX's ORB ran it inside detect_and_compute
+    np.testing.assert_array_equal(want, r["desc"])
+
+
+def test_angle_window_is_the_descriptor_window_interior(frames):
+    """The (31, 31) angle window gathered at r = 15 equals the interior of
+    the (45, 45) raw window for every valid keypoint (neither start is
+    clamped), so the angles equal those of the 45x45 window's interior;
+    invalid rows get angle 0 either way."""
+    img, mask = frames[0]
+    det = orb.detect(torch.from_numpy(img), torch.from_numpy(mask),
+                     ORBParams())
+    valid = det["valid"]
+    args = (det["stack"], det["octave"], det["xy_lvl"])
+    w15 = orb.patch_windows_stack(*args, 15)
+    w22 = orb.patch_windows_stack(*args, 22)[:, 7:38, 7:38]
+    assert valid.sum() > 400
+    assert torch.equal(w15[valid], w22[valid])
+    uw, vw, _ = orb.centroid_weights()
+    flat = w22.reshape(w22.shape[0], -1)
+    ang22 = torch.where(valid, torch.atan2(flat @ torch.from_numpy(
+        vw.reshape(-1)), flat @ torch.from_numpy(uw.reshape(-1))), 0.0)
+    assert torch.equal(orb.orientations(det), ang22)
