@@ -22,18 +22,26 @@ Phases, in order; any failure exits non-zero before the final line:
    function on the CPU, and time block13's plain float32 cost volume;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
-   SGBM configurations and with the rigid clique and outlier filters on
-   (PATHS), with the plain versions disabled, and check tracking, ATE
-   (`filters`: against the JAX package's run, FILTERS_JAX) and every
-   kernel's launches per frame;
-4. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
+   SGBM configurations, with the rigid clique and outlier filters on, and
+   with ORB's cv2.ORB two-stage ranking (PATHS), with the plain versions
+   disabled, and check tracking, ATE (`filters` and `cv2rank`: against
+   the JAX package's runs, FILTERS_JAX and tools/jax_mono_reference.npz)
+   and every kernel's launches per frame;
+4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
+   same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
+   with the uniforms of JAX's draws replayed and held to JAX's run (the
+   npz) frame by frame, then with the port's own sampler; H4 launches
+   once a frame and no SGBM kernel;
+5. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
    the card (a gloo group, messages staged through host memory: NCCL
    refuses two ranks on one GPU) over the 64 frames with the off-lat
    parameters, and on frame 0 with the block13 parameters on the shifted
    pair; the ranks' bands must equal the single-device disparity on the
    card, and every rank must launch the band H1 and the carry H2.
 
-The second-to-last lines are a JSON object with one entry per kernel
+Phase 2 also times K4's one-call PyTorch equivalent, ``torch.gather``
+of best_r at x - best. The second-to-last lines are a JSON object with one
+entry per kernel
 variant on a path (and the variants checked outside any path under
 "checks"), each with its time, its plain version's, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s),
@@ -77,6 +85,8 @@ PATHS = {
     # the odometer's rigid clique and outlier pass on (FILTERS): held to
     # FILTERS_JAX instead
     "filters": ({}, None, None),
+    # ORB's cv2.ORB ranking: held to the JAX package's run instead
+    "cv2rank": ({}, None, None),
 }
 # The `filters` path: off-lat with both of the odometer's filters on, at the
 # thresholds of the JAX package's own tests (tests/test_odometer.py:228,
@@ -93,6 +103,44 @@ FILTERS_JAX = {"tracked": 62, "ate_m": 0.1577573594804592,
                "causes": [""] * 60 + ["bigdist"] * 4}   # 60, 63 not tracked
 FILTERS_ATE_TOL = 0.01
 FILTERS_CAUSES_DIFFERING = 1
+# RANSAC hypotheses a frame of MonoOdometer's default (ransac_iters 256:
+# max(256 // 4, 16) five-point samples)
+MONO_ITERS = 64
+# The JAX package's runs of `cv2rank` and `mono` on the CPU (jax 0.9.0),
+# with the uniforms of its draws for `mono`:
+#     JAX_PLATFORMS=cpu python3 tools/jax_mono_reference.py
+JAX_REFERENCE = "tools/jax_mono_reference.npz"
+# `cv2rank` is held as `filters` is: frames tracked within 1 of JAX's, the
+# skip cause equal at every frame but at most one, ATE within 0.01 m.
+CV2RANK_ATE_TOL = 0.01
+CV2RANK_CAUSES_DIFFERING = 1
+# `mono` replays JAX's draws, but its five-point candidates come from
+# cuSOLVER's null-space basis, not LAPACK's (pose/fivepoint.py), so
+# another near-tie E can win a frame's vote. The port's first run on an
+# H100 accepted all 64 frames as JAX did, every skip code equal, ATE 0.104
+# m against JAX's 0.110: held to the same frames accepted, the skip code
+# equal at every frame but at most one, every pose finite, ATE within
+# 0.02 m of JAX's (three times the gap measured). Frame by frame, each
+# frame's motion against JAX's (tools/compare_mono_runs.py, run on an
+# H100): a median rotation gap of 4.8e-6 rad and translation-direction gap
+# of 1.8e-4 rad, the direction more than 0.1 rad off at frames 28, 48, 58
+# and 61 (at 61 JAX is 1.52 rad off the ground truth, the port 1.21);
+# the port with the CPU's SVD gave medians of 5.3e-5 and 1.5e-3 rad and
+# 7 such frames. Held to medians within 1e-4 and 1e-3 rad and at most one
+# frame more beyond 0.1 rad, so that a cheirality or recoverPose fault
+# that turns a few frames fails.
+# `mono-own` draws its own samples (measured: 64/64, ATE 0.122 m): every
+# pose finite, at most one frame fewer accepted than JAX, ATE within 0.05
+# m of JAX's.
+MONO_ACCEPTED_WITHIN = 0
+MONO_CODES_DIFFERING = 1
+MONO_ATE_TOL = 0.02
+MONO_ROT_MEDIAN = 1e-4
+MONO_DIR_MEDIAN = 1e-3
+MONO_DIR_OFF = 0.1
+MONO_DIR_OFF_FRAMES = 5
+MONO_OWN_ACCEPTED_BELOW = 1
+MONO_OWN_ATE_TOL = 0.05
 DEVICE = "cuda"
 TILED_RANKS = 4
 PROFILED = 8             # tiled frames profiled on the first and last rank
@@ -590,6 +638,38 @@ def check_plain_stages(torch, seq, cam):
              "ms": cost_ms, "peak_mib": cost_mib}]
 
 
+def time_k4_library(torch, dev, smi):
+    """K4 (``lr_lookup``: d_r[h, x] = best_r[h, x - best[h, x]]) as one
+    PyTorch call, ``torch.gather`` along x at (376, 1242) int32, timed by
+    CUDA events. H3 does this lookup from shared memory in its epilogue;
+    the call is timed here for PERF.md's table and used nowhere in the
+    port. Disparities of frame 0's off-lat WTA range (0-127)."""
+    H, W = IMG_SIZE[1], IMG_SIZE[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    best = torch.randint(0, 128, (H, W), generator=gen, device=dev,
+                         dtype=torch.int32)
+    best_r = torch.randint(0, 128, (H, W), generator=gen, device=dev,
+                           dtype=torch.int32)
+    x = torch.arange(W, device=dev, dtype=torch.int32)
+    idx = (x - best).clamp_min(0).long()   # built once: the call is the lookup
+
+    def call():
+        return torch.gather(best_r, 1, idx)
+
+    d_r = call()
+    want = best_r.cpu().numpy()[np.arange(H)[:, None], np.maximum(
+        np.arange(W) - best.cpu().numpy(), 0)]
+    if not np.array_equal(d_r.cpu().numpy(), want):
+        raise AssertionError("K4's gather disagrees with numpy")
+    ms = min(time_ms(torch, call, 50), time_ms(torch, call, 50))
+    log(f"[kernels] K4 lr_lookup as torch.gather at ({H}, {W}) int32: "
+        f"{ms:.4f} ms (library call; in the port it is H3's epilogue); "
+        f"{smi}")
+    return {"name": "lr_lookup", "variant": "torch.gather (library call)",
+            "route": "torch", "source": "chip_smoke.py",
+            "replaces": f"{PALLAS_SGBM}:827", "library_ms": ms}
+
+
 def expected_launches(params):
     """Each kernel's launches per frame on a single-device path."""
     from openvo_tpu_torch.ops import sgbm
@@ -603,7 +683,41 @@ def expected_launches(params):
             "brief_describe": 1}
 
 
-def run_path(torch, seq, name):
+def plain_tripwires():
+    """The plain versions of every kernel, as (module, name): a path runs
+    with each replaced by a function that fails."""
+    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
+
+    return {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
+            (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
+            (orb_cuda, "brief_describe_plain")}
+
+
+def tripwire(*_a, **_k):
+    raise AssertionError("a plain version ran on the main path")
+
+
+def odometer_kwargs(name):
+    from openvo_tpu_torch import OdometerConfig, ORBParams
+
+    if name == "filters":
+        return dict(FILTERS)
+    if name == "cv2rank":
+        return {"config": OdometerConfig(orb=ORBParams(cv2_ranking=True))}
+    return {}
+
+
+def jax_reference():
+    """The JAX package's `cv2rank` and `mono` runs (JAX_REFERENCE)."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JAX_REFERENCE)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def run_path(torch, seq, name, smi):
     """Phase 3 for one path: the odometer over the sequence with the plain
     versions disabled; returns launch counts per kernel name."""
     from openvo_tpu_torch import StereoCamera, StereoOdometer
@@ -611,13 +725,7 @@ def run_path(torch, seq, name):
     from openvo_tpu_torch.pose import rigid_clique
 
     kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
-    plains = {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
-              (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
-              (orb_cuda, "brief_describe_plain")}
-
-    def tripwire(*_a, **_k):
-        raise AssertionError("a plain version ran on the main path")
-
+    plains = plain_tripwires()
     params = path_params(name)
     cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
                        {"R": seq["R"], "T": seq["T"]}, params, IMG_SIZE,
@@ -625,7 +733,7 @@ def run_path(torch, seq, name):
     saved = {(m, n): getattr(m, n) for m, n in plains}
     for m, n in plains:
         setattr(m, n, tripwire)
-    odo = StereoOdometer(cam, **(FILTERS if name == "filters" else {}))
+    odo = StereoOdometer(cam, **odometer_kwargs(name))
     oks, causes, poses, lat = [], [], [], []
     gc.collect()
     torch.cuda.synchronize()
@@ -661,14 +769,22 @@ def run_path(torch, seq, name):
         f"latency median {med} ms (frames 2-{N_FRAMES - 1}), min "
         f"{min(lat[2:]) * 1e3} ms, max {max(lat[2:]) * 1e3} ms, first "
         f"frame {lat[0] * 1e3} ms; device memory allocated {base:.1f} MiB "
-        f"at the start, peak {peak:.1f} MiB")
+        f"at the start, peak {peak:.1f} MiB; {smi}")
     log(f"[{name}] kernel launches: {launches}; speckle host syncs "
         f"{syncs} ({syncs / N_FRAMES} a frame); rigid clique host syncs "
         f"{clique_syncs} ({clique_syncs / N_FRAMES} a frame)")
     if not np.isfinite(poses).all():
         raise AssertionError(f"{name}: non-finite pose")
     if name == "filters":
-        check_filters(tracked, ate, causes)
+        check_against_jax(name, tracked, ate, causes, FILTERS_JAX,
+                          FILTERS_ATE_TOL, FILTERS_CAUSES_DIFFERING)
+    if name == "cv2rank":
+        ref = jax_reference()
+        want = {"tracked": int(ref["cv2rank_ok"].sum()),
+                "ate_m": float(ref["cv2rank_ate_m"]),
+                "causes": [str(c) for c in ref["cv2rank_causes"]]}
+        check_against_jax(name, tracked, ate, causes, want, CV2RANK_ATE_TOL,
+                          CV2RANK_CAUSES_DIFFERING)
     _, min_tracked, max_ate = PATHS[name]
     if min_tracked is not None and tracked < min_tracked:
         raise AssertionError(f"{name}: {tracked} frames tracked, below "
@@ -683,23 +799,210 @@ def run_path(torch, seq, name):
     return launches
 
 
-def check_filters(tracked, ate, causes):
-    """The `filters` path against the JAX package's run of it."""
-    want = FILTERS_JAX
-    log(f"[filters] skip causes, frame by frame:\n  port {causes}\n  JAX  "
+def check_against_jax(name, tracked, ate, causes, want, ate_tol,
+                      differing):
+    """A path against the JAX package's run of it: frames tracked within 1,
+    the skip cause equal at all frames but ``differing``, the ATE within
+    ``ate_tol`` m."""
+    log(f"[{name}] skip causes, frame by frame:\n  port {causes}\n  JAX  "
         f"{want['causes']}")
-    log(f"[filters] tracked {tracked} (JAX {want['tracked']}), ATE {ate} m "
+    log(f"[{name}] tracked {tracked} (JAX {want['tracked']}), ATE {ate} m "
         f"(JAX {want['ate_m']} m)")
     if abs(tracked - want["tracked"]) > 1:
-        raise AssertionError(f"filters: {tracked} frames tracked, JAX "
+        raise AssertionError(f"{name}: {tracked} frames tracked, JAX "
                              f"{want['tracked']}")
     differ = [i for i, (a, b) in enumerate(zip(causes, want["causes"],
                                                strict=True)) if a != b]
-    if len(differ) > FILTERS_CAUSES_DIFFERING:
-        raise AssertionError(f"filters: skip causes differ from JAX's at "
+    if len(differ) > differing:
+        raise AssertionError(f"{name}: skip causes differ from JAX's at "
                              f"frames {differ}")
-    if not abs(ate - want["ate_m"]) <= FILTERS_ATE_TOL:
-        raise AssertionError(f"filters: ATE {ate} m, JAX {want['ate_m']} m")
+    if not abs(ate - want["ate_m"]) <= ate_tol:
+        raise AssertionError(f"{name}: ATE {ate} m, JAX {want['ate_m']} m")
+
+
+def motion_gaps(poses, ref_poses):
+    """Per frame, the rotation (rad) and the angle between translation
+    directions (rad) of the motion from the previous frame, against the
+    reference's. The rotation is 2 asin(|Ra - Rb|_F / 2 sqrt 2), which
+    stays exact for small angles where the trace's arccos of float32
+    rotations has a floor near 4e-4 rad."""
+    rot, ang = [0.0], [0.0]
+    for i in range(1, len(poses)):
+        a = np.linalg.inv(poses[i - 1]) @ poses[i]
+        b = np.linalg.inv(ref_poses[i - 1]) @ ref_poses[i]
+        rot.append(float(2 * np.arcsin(min(1.0, np.linalg.norm(
+            a[:3, :3] - b[:3, :3]) / (2 * np.sqrt(2))))))
+        na, nb = np.linalg.norm(a[:3, 3]), np.linalg.norm(b[:3, 3])
+        ang.append(float(np.arccos(np.clip(
+            a[:3, 3] @ b[:3, 3] / max(na * nb, 1e-12), -1.0, 1.0)))
+            if na > 0 and nb > 0 else 0.0)
+    return np.asarray(rot), np.asarray(ang)
+
+
+def run_mono(torch, seq, name, smi, profiled=4):
+    """Phase 4: MonoOdometer.update over the left images with the plain
+    versions disabled, ``trans_scale`` the ground-truth step; `mono`
+    replays the uniforms of JAX's draws, `mono-own` draws its own. Checks
+    it against the JAX package's run and returns launch counts per kernel
+    name."""
+    from openvo_tpu_torch.models.mono_odometer import (MONO_SKIP_STRINGS,
+                                                       MonoOdometer,
+                                                       ransac_samples)
+    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
+
+    ref = jax_reference()
+    if ransac_samples(256) != MONO_ITERS or ref["mono_u"].shape[1:] != (
+            MONO_ITERS, 5):
+        raise AssertionError("the reference's draws do not fit the odometer")
+    replay = name == "mono"
+    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
+    for m, n in saved:
+        setattr(m, n, tripwire)
+    us = [torch.from_numpy(u).to(DEVICE) for u in ref["mono_u"]]
+    odo = MonoOdometer(seq["K"], device=DEVICE)
+    accepted, codes, poses, lat = [], [], [], []
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in kernels:
+            k.launches = 0
+        for i in range(N_FRAMES):
+            t0 = time.perf_counter()
+            accepted.append(odo.update(seq["left"][i],
+                                       trans_scale=SEQ["step"],
+                                       u=us[i] if replay else None))
+            lat.append(time.perf_counter() - t0)   # update() ends in a sync
+            codes.append(int(odo.last_stats["skip_code"]))
+            poses.append(odo.current_pose())
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        # launches and synchronizing calls a frame, from the profiler, over
+        # frames run again outside the timed loop
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(profiled):
+                odo.update(seq["left"][i], trans_scale=SEQ["step"])
+            torch.cuda.synchronize()
+        syncs = sync_sources(torch, lambda: odo.update(
+            seq["left"][min(profiled, N_FRAMES - 1)],
+            trans_scale=SEQ["step"]))
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    avg = prof.key_averages()
+    per_frame = {e.key: e.count / profiled for e in avg
+                 if "LaunchKernel" in e.key or "Synchronize" in e.key
+                 or "Memcpy" in e.key}
+    device_ms = sum(e.self_device_time_total for e in avg) / 1e3 / profiled
+    poses = np.stack(poses)
+    gt = np.asarray(seq["T_wc"], np.float64)
+    ate = float(np.mean(np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3],
+                                       axis=1)))
+    n_acc = int(sum(accepted))
+    med = float(np.median(lat[2:])) * 1e3
+    want_codes = [int(c) for c in ref["mono_code"]]
+    want_acc = int(ref["mono_accept"].sum())
+    log(f"[{name}] accepted {n_acc}/{N_FRAMES} (JAX {want_acc}), ATE {ate} "
+        f"m (JAX {float(ref['mono_ate_m'])} m) over "
+        f"{SEQ['step'] * (N_FRAMES - 1)} m, per-frame update latency median "
+        f"{med} ms (frames 2-{N_FRAMES - 1}), min {min(lat[2:]) * 1e3} ms, "
+        f"max {max(lat[2:]) * 1e3} ms, first frame {lat[0] * 1e3} ms; "
+        f"device memory allocated {base:.1f} MiB at the start, peak "
+        f"{peak:.1f} MiB; {smi}")
+    log(f"[{name}] kernel launches: {launches} ({launches['brief_describe']}"
+        f" H4 in {N_FRAMES} frames); per frame under torch.profiler "
+        f"({profiled} frames): {per_frame}, device time {device_ms:.3f} ms; "
+        f"synchronizing calls in one frame, by the line that made them: "
+        f"{syncs}")
+    log(f"[{name}] skip codes where either is not 0: port "
+        f"{[(i, MONO_SKIP_STRINGS[c]) for i, c in enumerate(codes) if c]}, "
+        f"JAX {[(i, c) for i, c in enumerate(want_codes) if c]}")
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"{name}: non-finite pose")
+    stray = [k for k in syncs if k.startswith("openvo_tpu_torch/pose/")
+             and k != svd_line()]
+    if stray:
+        raise AssertionError(f"{name}: host syncs in RANSAC at {stray}")
+    if launches["brief_describe"] != N_FRAMES or any(
+            launches[k.__name__] for k in sgbm_cuda.KERNELS):
+        raise AssertionError(f"{name}: launches {launches}, expected H4 once "
+                             f"a frame and no SGBM kernel")
+    if replay:
+        ref_poses = np.linalg.inv(ref["mono_c_T_w"].astype(np.float64))
+        rot, ang = motion_gaps(poses, ref_poses)
+        off = np.nonzero(ang > MONO_DIR_OFF)[0].tolist()
+        log(f"[{name}] against JAX's poses: each frame's motion rotated by "
+            f"median {float(np.median(rot))} rad (max {float(rot.max())} at "
+            f"frame {int(rot.argmax())}), its direction by median "
+            f"{float(np.median(ang))} rad (max {float(ang.max())} at frame "
+            f"{int(ang.argmax())}; frames beyond {MONO_DIR_OFF} rad: {off});"
+            f" positions up to "
+            f"{float(np.abs(poses[:, :3, 3] - ref_poses[:, :3, 3]).max())} m"
+            f" apart")
+        differ = [i for i, (a, b) in enumerate(zip(codes, want_codes))
+                  if a != b]
+        if abs(n_acc - want_acc) > MONO_ACCEPTED_WITHIN:
+            raise AssertionError(f"{name}: {n_acc} frames accepted, JAX "
+                                 f"{want_acc}")
+        if len(differ) > MONO_CODES_DIFFERING:
+            raise AssertionError(f"{name}: skip codes differ from JAX's at "
+                                 f"frames {differ}")
+        if not abs(ate - float(ref["mono_ate_m"])) <= MONO_ATE_TOL:
+            raise AssertionError(f"{name}: ATE {ate} m, JAX "
+                                 f"{float(ref['mono_ate_m'])} m")
+        if not (np.median(rot) <= MONO_ROT_MEDIAN
+                and np.median(ang) <= MONO_DIR_MEDIAN
+                and len(off) <= MONO_DIR_OFF_FRAMES):
+            raise AssertionError(f"{name}: motion off JAX's: median rotation "
+                                 f"{np.median(rot)} rad, direction "
+                                 f"{np.median(ang)} rad, frames beyond "
+                                 f"{MONO_DIR_OFF} rad {off}")
+    else:
+        if n_acc < want_acc - MONO_OWN_ACCEPTED_BELOW:
+            raise AssertionError(f"{name}: {n_acc} frames accepted, JAX "
+                                 f"{want_acc}")
+        if not abs(ate - float(ref["mono_ate_m"])) <= MONO_OWN_ATE_TOL:
+            raise AssertionError(f"{name}: ATE {ate} m, JAX "
+                                 f"{float(ref['mono_ate_m'])} m")
+    return launches
+
+
+def svd_line():
+    """file:line of the torch.linalg.svd call in pose/kabsch.py: the one
+    host sync RANSAC makes on purpose (torch checks the SVD's convergence
+    on the host)."""
+    import inspect
+
+    from openvo_tpu_torch.pose import kabsch
+
+    lines, first = inspect.getsourcelines(kabsch.svd)
+    at = next(i for i, line in enumerate(lines) if "torch.linalg.svd(" in line)
+    return f"openvo_tpu_torch/pose/kabsch.py:{first + at}"
+
+
+def sync_sources(torch, fn):
+    """Run fn() once with CUDA's sync debug mode on; the synchronizing
+    calls it made, counted by the Python line that made them."""
+    import collections
+    import os
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)).most_common())
 
 
 def _tiled_rank(rank, tmp, out_q, device, p, q):
@@ -885,9 +1188,12 @@ def main() -> int:
     results = check_kernels(torch, seq, cam, OdometerConfig())
     checks = [r for r in results if r["path"] is None]
     checks += check_plain_stages(torch, seq, cam)
+    checks.append(time_k4_library(torch, cam.device, smi))
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {name: run_path(torch, seq, name) for name in PATHS}
+    launches = {name: run_path(torch, seq, name, smi) for name in PATHS}
+    for name in ("mono", "mono-own"):
+        launches[name] = run_mono(torch, seq, name, smi)
     launches["tiled4"] = run_tiled4(torch, seq, cam)
     kernels = [r for r in results if r["path"] is not None]
     for r in results:

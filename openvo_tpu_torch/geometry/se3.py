@@ -1,6 +1,7 @@
 """SE(3) utilities, PyTorch port of ``openvo_tpu/geometry/se3.py``:
 composition, rigid inverse, the rotation magnitude that replaces
-``cv2.Rodrigues`` in the motion gate, and roll/pitch/yaw extraction."""
+``cv2.Rodrigues`` in the motion gate, (R, t) to a 4x4 transform, Rodrigues'
+formula, and roll/pitch/yaw extraction."""
 
 from __future__ import annotations
 
@@ -28,6 +29,33 @@ def rotation_magnitude(R):
     tr = R.diagonal(dim1=-2, dim2=-1).sum(-1)
     c = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
     return torch.arccos(c)
+
+
+def rt_to_T(R, t):
+    """Stack R (..., 3, 3) and t (..., 3) into (..., 4, 4) homogeneous
+    transforms."""
+    t = t.reshape(R.shape[:-2] + (3, 1))
+    top = torch.cat([R, t], dim=-1)
+    bottom = R.new_zeros(R.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def rodrigues_vec_to_R(rvec):
+    """Axis-angle vectors (..., 3) -> rotation matrices (Rodrigues'
+    formula); the identity at theta = 0."""
+    rvec = torch.as_tensor(rvec)
+    theta = torch.linalg.vector_norm(rvec, dim=-1, keepdim=True)
+    k = rvec / torch.where(theta > 1e-12, theta, 1.0)
+    kx, ky, kz = k[..., 0], k[..., 1], k[..., 2]
+    zero = torch.zeros_like(kx)
+    K = torch.stack([torch.stack([zero, -kz, ky], dim=-1),
+                     torch.stack([kz, zero, -kx], dim=-1),
+                     torch.stack([-ky, kx, zero], dim=-1)], dim=-2)
+    th = theta[..., None]
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    R = eye + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
+    return torch.where(th > 1e-12, R, eye)
 
 
 def rot2rpy(T):

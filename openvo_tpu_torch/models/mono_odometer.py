@@ -1,0 +1,208 @@
+"""Monocular visual odometry by essential-matrix tracking, PyTorch port of
+``openvo_tpu/models/mono_odometer.py``.
+
+Per frame, on the state's device: ORB on the full frame (its descriptor
+kernel H4), Hamming ratio matching against the last accepted frame,
+5-point RANSAC for E (``pose/ransac.ransac_essential_5pt``) and
+cheirality-based pose recovery. Monocular scale is unobservable: each
+frame's translation is unit-norm, scaled by ``trans_scale``.
+
+JAX splits a PRNG key every frame; here the state holds a
+``torch.Generator`` on its device (seeded 0) that draws the frame's
+(iters, 5) uniforms every frame, the first included, so the two chains
+stay aligned frame for frame. A caller may pass the uniforms instead
+(``update(..., u=...)``), for example JAX's own, to replay its samples.
+The step reads nothing back to the host; ``update`` reads its stats once.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from openvo_tpu_torch.config import OdometerConfig
+from openvo_tpu_torch.geometry.se3 import rt_to_T
+from openvo_tpu_torch.ops._dispatch import target_device
+from openvo_tpu_torch.ops.hamming import ratio_test_match
+from openvo_tpu_torch.ops.orb import detect_and_compute
+from openvo_tpu_torch.pose.ransac import (ransac_essential_5pt, recover_pose,
+                                          uniforms)
+
+
+class MonoFrame(NamedTuple):
+    kp_xy: torch.Tensor     # (K, 2) float32
+    desc: torch.Tensor      # (K, 32) uint8
+    kp_valid: torch.Tensor  # (K,) bool
+
+
+class MonoState(NamedTuple):
+    cur: MonoFrame
+    has_cur: torch.Tensor     # () bool
+    c_T_w: torch.Tensor       # (4, 4) float32 world-in-camera
+    skipped: torch.Tensor     # () int32
+    generator: torch.Generator
+
+
+def init_state(max_keypoints: int, device="cuda") -> MonoState:
+    device = target_device(device)
+    return MonoState(
+        cur=MonoFrame(
+            kp_xy=torch.zeros((max_keypoints, 2), dtype=torch.float32,
+                              device=device),
+            desc=torch.zeros((max_keypoints, 32), dtype=torch.uint8,
+                             device=device),
+            kp_valid=torch.zeros((max_keypoints,), dtype=torch.bool,
+                                 device=device),
+        ),
+        has_cur=torch.tensor(False, device=device),
+        c_T_w=torch.eye(4, dtype=torch.float32, device=device),
+        skipped=torch.tensor(0, dtype=torch.int32, device=device),
+        generator=torch.Generator(device=device).manual_seed(0),
+    )
+
+
+def state_from_jax_leaves(leaves, device="cuda") -> MonoState:
+    """The port's state from the numpy leaves of a JAX ``MonoState``
+    (``jax.tree_util.tree_flatten`` order: kp_xy, desc, kp_valid, has_cur,
+    c_T_w, skipped, key). JAX's threefry key cannot seed a torch
+    generator's chain, so the state's generator starts from 0."""
+    device = target_device(device)
+    if len(leaves) != 7:
+        raise ValueError(f"expected 7 leaves, got {len(leaves)}")
+    t = [torch.as_tensor(np.array(x), device=device) for x in leaves[:6]]
+    return MonoState(MonoFrame(*t[:3]), *t[3:],
+                     torch.Generator(device=device).manual_seed(0))
+
+
+def ransac_samples(ransac_iters: int) -> int:
+    """5-point samples a frame for ``ransac_iters``: each sample gives up
+    to 10 candidate E's, so a quarter of the 8-point count."""
+    return max(ransac_iters // 4, 16)
+
+
+def make_step(K, cfg: OdometerConfig, ransac_iters: int = 256,
+              inlier_px: float = 1.0, min_inliers: int = 15):
+    """(state, img, trans_scale, u=None) -> (state', accept, stats). ``K``
+    is the 3x3 intrinsic matrix; images are (H, W) grayscale; ``u`` the
+    frame's (iters, 5) uniforms, drawn from the state's generator when
+    None."""
+    K = np.asarray(K, dtype=np.float64)
+    fx, fy, cx, cy = (float(v) for v in (K[0, 0], K[1, 1], K[0, 2], K[1, 2]))
+    # Sampson threshold in normalized coords ~ (px / f)^2
+    thresh = float((inlier_px / ((fx + fy) * 0.5)) ** 2)
+    iters = ransac_samples(ransac_iters)
+
+    def normalize(xy):
+        return torch.stack([(xy[:, 0] - cx) / fx, (xy[:, 1] - cy) / fy],
+                           dim=1)
+
+    def step(state: MonoState, img, trans_scale, u=None):
+        dev = state.c_T_w.device
+        # drawn before anything else, every frame, as JAX splits its key
+        u = uniforms(state.generator if u is None else u, (iters, 5), dev)
+        feats = detect_and_compute(img, None, cfg.orb)
+        frame = MonoFrame(feats["xy"], feats["desc"], feats["valid"])
+        n_kps = frame.kp_valid.to(torch.int32).sum()
+        first = ~state.has_cur
+
+        train_idx, mok = ratio_test_match(state.cur.desc, frame.desc,
+                                          cfg.match_threshold,
+                                          state.cur.kp_valid, frame.kp_valid)
+        x1 = normalize(state.cur.kp_xy)
+        x2 = normalize(frame.kp_xy[train_idx.to(torch.int64)])
+        n_matches = mok.to(torch.int32).sum()
+
+        E, inl, n_inl = ransac_essential_5pt(x1, x2, mok, u, iters=iters,
+                                             inlier_threshold=thresh)
+        R, t, support = recover_pose(E, x1, x2, inl)
+        n_support = support.to(torch.int32).sum()
+
+        few_kps = n_kps < cfg.min_matches
+        few_matches = n_matches < cfg.min_matches
+        few_inl = n_inl < min_inliers
+        few_sup = n_support < min_inliers // 2
+        ok = ~first & ~few_matches & ~few_inl & ~few_sup
+        # the failure cause (as StereoOdometer.skip_cause): the first
+        # failing check in keypoints, matches, inliers, support order
+        code = torch.zeros((), dtype=torch.int32, device=dev)
+        code = torch.where(few_sup, 4, code)
+        code = torch.where(few_inl, 3, code)
+        code = torch.where(few_matches, 2, code)
+        code = torch.where(few_kps, 1, code)
+        code = torch.where(first | ok, 0, code)
+        # T maps prev-camera coords to new-camera coords
+        T = rt_to_T(R.to(torch.float32), (t * trans_scale).to(torch.float32))
+        c_T_w = torch.where(ok, T @ state.c_T_w, state.c_T_w)
+
+        accept = first | ok
+        new_state = MonoState(
+            cur=MonoFrame(*(torch.where(accept, a, b)
+                            for a, b in zip(frame, state.cur))),
+            has_cur=state.has_cur | accept,
+            c_T_w=c_T_w,
+            skipped=torch.where(accept, 0, state.skipped + 1).to(torch.int32),
+            generator=state.generator,
+        )
+        stats = {"n_kps": n_kps, "n_matches": n_matches, "n_inliers": n_inl,
+                 "n_support": n_support, "skip_code": code}
+        return new_state, accept, stats
+
+    return step
+
+
+MONO_SKIP_STRINGS = {0: "", 1: "keypoints", 2: "matches", 3: "inliers",
+                     4: "support"}
+
+
+class MonoOdometer:
+    """Monocular frame-to-frame VO, with StereoOdometer's surface, on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+
+    def __init__(self, K, nfeatures: int = 500, match_threshold: float = 0.8,
+                 min_matches: int = 10, ransac_iters: int = 256,
+                 inlier_px: float = 1.0, min_inliers: int = 15,
+                 config: OdometerConfig | None = None, device="cuda"):
+        if config is None:
+            config = OdometerConfig(nfeatures=nfeatures,
+                                    match_threshold=match_threshold,
+                                    min_matches=min_matches)
+        self.config = config
+        self.device = target_device(device)
+        self._state = init_state(config.orb.max_keypoints, self.device)
+        self._step = make_step(K, config, ransac_iters, inlier_px,
+                               min_inliers)
+        self.skipped_frames = 0
+        self.skip_cause = ""
+        self.last_stats = {}
+
+    @property
+    def state(self) -> MonoState:
+        return self._state
+
+    @state.setter
+    def state(self, state: MonoState) -> None:
+        self._state = state
+        self.skipped_frames = int(state.skipped)
+
+    def update(self, img, trans_scale: float = 1.0, u=None) -> bool:
+        """Process one (H, W) grayscale frame; True iff it was accepted
+        (the first frame, or tracked). ``u``: the frame's (iters, 5)
+        uniforms in place of the generator's draw."""
+        img = torch.as_tensor(img, device=self.device)
+        self._state, accept, stats = self._step(self._state, img,
+                                                trans_scale, u)
+        names = list(stats)
+        vals = torch.stack([accept.to(torch.int32), self._state.skipped]
+                           + [stats[k].to(torch.int32) for k in names]).cpu()
+        self.skipped_frames = int(vals[1])
+        self.last_stats = {k: vals[2 + i].numpy() for i, k in
+                           enumerate(names)}
+        self.skip_cause = MONO_SKIP_STRINGS[int(self.last_stats["skip_code"])]
+        return bool(vals[0])
+
+    def current_pose(self):
+        """camera-in-world pose = inv(c_T_w), float64 numpy."""
+        return np.linalg.inv(self._state.c_T_w.cpu().numpy().astype(
+            np.float64))

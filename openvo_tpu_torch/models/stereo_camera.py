@@ -21,16 +21,13 @@ from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.geometry.rectify import (init_undistort_rectify_map,
                                                stereo_rectify)
 from openvo_tpu_torch.geometry.reproject import reproject_image_to_3d
+from openvo_tpu_torch.io.calib import SGBM_KEYS, load_pfiles
 from openvo_tpu_torch.ops._dispatch import target_device
 # bgr_to_gray lives in ops/image.py, as in the JAX package; importing it
 # from this module keeps working
 from openvo_tpu_torch.ops.image import bgr_to_gray
 from openvo_tpu_torch.ops.remap import make_remap, remap_bilinear
 from openvo_tpu_torch.ops.sgbm import sgbm_disparity
-
-SGBM_KEYS = ("minDisparity", "numDisparities", "blockSize", "P1", "P2",
-             "disp12MaxDiff", "preFilterCap", "uniquenessRatio",
-             "speckleWindowSize", "speckleRange")
 
 
 def _sgbm_params_from_dict(d) -> SGBMParams:
@@ -51,6 +48,16 @@ def _sgbm_params_from_dict(d) -> SGBMParams:
 
 class StereoCamera:
     """Holds calibration; builds rectify maps once; computes per-frame 3D."""
+
+    @classmethod
+    def from_pfiles(cls, left_cam_file, right_cam_file, rect_file, sgbm_file,
+                    img_size, device="cuda"):
+        """Calibration from the reference's four pickles: {'K', 'dist'}
+        of each camera, {'R', 'T'}, and the SGBM parameter dict."""
+        cam_left, cam_right, rect, sgbm = load_pfiles(
+            left_cam_file, right_cam_file, rect_file, sgbm_file)
+        return cls(cam_left["K"], cam_left["dist"], cam_right["K"],
+                   cam_right["dist"], rect, sgbm, img_size, device=device)
 
     @classmethod
     def from_npz(cls, path, img_size, device="cuda"):

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -40,3 +42,15 @@ def check_cuda_input(t, dtype, shape, name: str) -> None:
 
 def stream_handle(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """The constant tensor of ``values`` on ``device``, built once per
+    device: per-frame code reads it without a host-to-device copy.
+    ``values`` is a number, nested tuples, or a function of no arguments
+    that returns an array (cached by identity, so a large table is not
+    hashed on every call)."""
+    if callable(values):
+        values = values()
+    return torch.as_tensor(values, dtype=dtype, device=device)

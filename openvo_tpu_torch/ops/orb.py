@@ -1,11 +1,13 @@
 """ORB feature detection + description, PyTorch port of
-``openvo_tpu/ops/orb.py`` (the default ``cv2_ranking=False`` path).
+``openvo_tpu/ops/orb.py``.
 
 Stages, all on the image's device with static shapes: a batched
 (nlevels, H, W) scale pyramid (antialiased bilinear levels in the top-left
 corner of a zero canvas), FAST-9/16 score and corner test, 3x3 non-max
 suppression, Harris response, per-level top-k by Harris response with
-OpenCV's per-level budget, compaction to ``max_keypoints`` rows, the
+OpenCV's per-level budget (or, with ``cv2_ranking``, cv2.ORB's two stages:
+the best 2k by FAST score, then the best k of those by Harris),
+compaction to ``max_keypoints`` rows, the
 intensity-centroid angle from a (31, 31) window per keypoint, and the
 descriptor kernel H4 (``ops/orb_cuda.py``), which takes each keypoint's
 window from the pyramid, blurs it and samples the rotated rBRIEF pattern.
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from openvo_tpu_torch.config import ORBParams
 from openvo_tpu_torch.ops import orb_cuda
+from openvo_tpu_torch.ops._dispatch import device_constant
 from openvo_tpu_torch.ops.image import (box_filter, fma, resize_bilinear,
                                         sobel_xy)
 from openvo_tpu_torch.ops.orb_cuda import RAW_WIN, patch_windows_stack
@@ -69,21 +72,10 @@ def centroid_weights(radius: int = HALF_PATCH):
     return (u * circ).astype(np.float32), (v * circ).astype(np.float32), circ
 
 
-@functools.lru_cache(maxsize=None)
-def _centroid_weights_on(device):
-    """The flattened (u, v) centroid weights on ``device``, built once per
-    device."""
+def _centroid_uv():
+    """(2, 31 * 31): the flattened (u, v) centroid weights."""
     uw, vw, _ = centroid_weights()
-    return tuple(torch.from_numpy(w.reshape(-1)).to(device) for w in (uw, vw))
-
-
-@functools.lru_cache(maxsize=None)
-def _level_scales_on(device, scale_factor: float, nlevels: int):
-    """Each level's scale (nlevels,) and the scale factor (a scalar), as
-    float32 tensors on ``device``, built once per device."""
-    tab = torch.tensor([scale_factor**lv for lv in range(nlevels)],
-                       dtype=torch.float32, device=device)
-    return tab, torch.tensor(scale_factor, device=device)
+    return np.stack([uw.reshape(-1), vw.reshape(-1)])
 
 
 def features_per_level(nfeatures: int, nlevels: int, scale_factor: float):
@@ -170,7 +162,7 @@ def orientations(det):
     clamped; an invalid row's angle is 0 either way."""
     wins = patch_windows_stack(det["stack"], det["octave"], det["xy_lvl"],
                                HALF_PATCH)
-    uw, vw = _centroid_weights_on(wins.device)
+    uw, vw = device_constant(_centroid_uv, wins.device)
     flat = wins.reshape(wins.shape[0], -1)
     ang = torch.atan2(flat @ vw, flat @ uw)
     return torch.where(det["valid"], ang, 0.0)
@@ -206,8 +198,6 @@ def detect(img, mask, params: ORBParams):
     rows, valid first: xy_lvl (K, 2) int64 level coords, octave (K,),
     response (K,) Harris response, valid (K,) bool.
     """
-    if params.cv2_ranking:
-        raise NotImplementedError("ORB cv2_ranking=True is not ported yet")
     H, W = img.shape
     dev = img.device
     imgf = img.to(torch.float32)
@@ -260,10 +250,22 @@ def detect(img, mask, params: ORBParams):
         h_l, w_l = dims[lv]
         corner_l = corner[lv, :h_l, :w_l].reshape(-1)
         resp_l = resp[lv, :h_l, :w_l].reshape(-1)
-        tv, ti = _topk_flat(torch.where(corner_l, resp_l, neg_inf), k_eff[lv])
-        if k_eff[lv] < P:
-            tv = F.pad(tv, (0, P - k_eff[lv]), value=float("-inf"))
-            ti = F.pad(ti, (0, P - k_eff[lv]))
+        if not params.cv2_ranking:
+            kk = k_eff[lv]
+            tv, ti = _topk_flat(torch.where(corner_l, resp_l, neg_inf), kk)
+        else:
+            # the best 2k by FAST score (cv2's pre-Harris retainBest), then
+            # the best of those by Harris response
+            k2 = min(2 * k_eff[lv], h_l * w_l)
+            score_l = score[lv, :h_l, :w_l].reshape(-1)
+            fv, fi = _topk_flat(torch.where(corner_l, score_l, neg_inf), k2)
+            resp_at = torch.where(torch.isfinite(fv), resp_l[fi], neg_inf)
+            kk = min(P, k2)
+            tv, sel = _topk_flat(resp_at, kk)
+            ti = fi[sel]
+        if kk < P:
+            tv = F.pad(tv, (0, P - kk), value=float("-inf"))
+            ti = F.pad(ti, (0, P - kk))
         xy_list.append(torch.stack([ti % w_l, ti // w_l], dim=-1))
         val_list.append(tv)
     top_vals = torch.stack(val_list)                 # (nl, P)
@@ -317,8 +319,9 @@ def detect_and_compute(img, mask, params: ORBParams):
     valid, octv = det["valid"], det["octave"]
     desc = orb_cuda.brief_describe(det["stack"], octv, det["xy_lvl"],
                                    torch.cos(ang), torch.sin(ang), valid)
-    scale_tab, sf = _level_scales_on(img.device, params.scale_factor,
-                                     params.nlevels)
+    scale_tab = device_constant(tuple(params.scale_factor**lv for lv in
+                                      range(params.nlevels)), img.device)
+    sf = device_constant(params.scale_factor, img.device)
     xy = det["xy_lvl"].to(torch.float32) * scale_tab[octv][:, None]
     size = torch.where(valid, 31.0 * torch.pow(sf, octv.to(torch.float32)),
                        0.0)

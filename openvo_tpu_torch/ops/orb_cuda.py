@@ -12,12 +12,12 @@ GET_VALUE rounding, and :func:`brief_sample_plain` compares and packs.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from openvo_tpu_torch import _build
-from openvo_tpu_torch.ops._dispatch import (check_cuda_input, device_of,
+from openvo_tpu_torch.ops._dispatch import (check_cuda_input,
+                                            device_constant, device_of,
                                             stream_handle)
 from openvo_tpu_torch.ops.hamming import pack_bits
 from openvo_tpu_torch.ops.image import fma, gaussian_kernel_1d
@@ -27,13 +27,16 @@ BLUR_TAPS = tuple(float(v) for v in gaussian_kernel_1d(7, 2.0))
 RAW_WIN = BRIEF_WIN + len(BLUR_TAPS) // 2   # raw window radius, 22
 
 
-@functools.lru_cache(maxsize=None)
+def _cv2_orb_pattern():
+    from openvo_tpu_torch.ops.orb_pattern import CV2_ORB_PATTERN
+
+    return CV2_ORB_PATTERN
+
+
 def brief_pattern(device) -> torch.Tensor:
     """OpenCV's ORB rBRIEF 256-pair test pattern as float32 (256, 4)
     (px, py, qx, qy) on ``device``, built once per device."""
-    from openvo_tpu_torch.ops.orb_pattern import CV2_ORB_PATTERN
-
-    return torch.from_numpy(CV2_ORB_PATTERN).to(device, torch.float32)
+    return device_constant(_cv2_orb_pattern, device)
 
 
 def patch_windows_stack(stack, levels, xy, r: int):

@@ -28,6 +28,19 @@ def row_norm(v):
     return torch.sqrt(acc)
 
 
+def svd(a, full_matrices=True):
+    """``torch.linalg.svd`` of (..., m, n) that, like LAPACK under JAX,
+    returns NaN for a matrix holding a non-finite value instead of raising:
+    the SVD runs on a finite stand-in and NaN goes where LAPACK puts it."""
+    finite = torch.isfinite(a).all(dim=-1).all(dim=-1)
+    U, S, Vh = torch.linalg.svd(torch.where(finite[..., None, None], a, 0.0),
+                                full_matrices=full_matrices)
+    nan = float("nan")
+    return (torch.where(finite[..., None, None], U, nan),
+            torch.where(finite[..., None], S, nan),
+            torch.where(finite[..., None, None], Vh, nan))
+
+
 def kabsch(src, dst, mask):
     """Best-fit rigid (4, 4) float32 transform mapping ``src`` -> ``dst``
     over the rows where ``mask`` holds. Invalid rows may hold anything
@@ -42,18 +55,14 @@ def kabsch(src, dst, mask):
     X = (src_c - mu_s) * w
     Y = (dst_c - mu_d) * w
     H = X.T @ Y
-    # LAPACK propagates NaN through the SVD into R and t; torch.linalg.svd
-    # refuses non-finite input: decompose a finite stand-in, then put the
-    # NaNs where LAPACK would.
-    finite = torch.isfinite(H).all()
-    U, _, Vt = torch.linalg.svd(torch.where(finite, H, 0.0))
+    U, _, Vt = svd(H)   # NaN in H: NaN in R and t, as LAPACK under JAX
     d = torch.sign(torch.linalg.det(Vt.T @ U.T))
     D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
     R = Vt.T @ D @ U.T
     t = mu_d - R @ mu_s
     T = torch.eye(4, dtype=torch.float32, device=src.device)
-    T[:3, :3] = torch.where(finite, R, float("nan"))
-    T[:3, 3] = torch.where(finite, t, float("nan"))
+    T[:3, :3] = R
+    T[:3, 3] = t
     return torch.where(mask.sum() < 3, float("nan"), T)
 
 

@@ -501,3 +501,46 @@ def test_wrappers_reject_wrong_input(cuda):
     with pytest.raises(ValueError, match="smaller than"):
         orb_cuda.brief_describe(stack[:, :40].contiguous(), octv, xy, ca, sa,
                                 valid)
+
+
+def test_mono_odometer_on_the_card_equals_cpu(cuda):
+    """MonoOdometer over 5 frames of the 320x240 corridor on the card and
+    on the CPU with the same uniforms: H4 launches once a frame; the
+    accept and skip codes, keypoint and match counts equal; each frame's
+    motion within 5e-3 rad and its direction within 0.1 rad (cuSOLVER and
+    LAPACK give other null-space bases, as tests/test_torch_mono.py
+    explains for JAX's)."""
+    from openvo_tpu_torch.io.synthetic import render_stereo_sequence
+    from openvo_tpu_torch.models.mono_odometer import (MonoOdometer,
+                                                       ransac_samples)
+
+    seq = render_stereo_sequence(n_frames=5, img_size=(320, 240), f=280.0,
+                                 baseline=0.5, seed=0, step=0.3,
+                                 yaw_rate=0.004)
+    gen = torch.Generator().manual_seed(3)
+    us = [torch.rand((ransac_samples(256), 5), generator=gen)
+          for _ in range(5)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        odo = MonoOdometer(seq["K"], nfeatures=300, device=dev)
+        n0 = orb_cuda.brief_describe.launches
+        run = []
+        for i in range(5):
+            img = np.clip(seq["left"][i], 0, 255).astype(np.uint8)
+            ok = odo.update(img, trans_scale=0.3, u=us[i])
+            run.append((ok, dict(odo.last_stats), odo.current_pose()))
+        if dev.type == "cuda":
+            assert orb_cuda.brief_describe.launches == n0 + 5
+        runs.append(run)
+    prev = (np.eye(4), np.eye(4))
+    for i, (g, w) in enumerate(zip(*runs)):
+        assert g[0] == w[0] and w[0]
+        for k in ("skip_code", "n_kps", "n_matches"):
+            assert int(g[1][k]) == int(w[1][k]), (i, k)
+        mg, mw = (np.linalg.inv(p) @ c for p, c in zip(prev, (g[2], w[2])))
+        rot = np.arccos(np.clip((np.trace(mg[:3, :3].T @ mw[:3, :3]) - 1)
+                                / 2, -1, 1))
+        cd = mg[:3, 3] @ mw[:3, 3] / max(
+            np.linalg.norm(mg[:3, 3]) * np.linalg.norm(mw[:3, 3]), 1e-12)
+        assert rot < 5e-3 and (i == 0 or np.arccos(min(cd, 1.0)) < 0.1), i
+        prev = (g[2], w[2])

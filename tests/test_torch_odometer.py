@@ -13,10 +13,11 @@ import torch
 import openvo_tpu
 import openvo_tpu_torch
 from openvo_tpu.config import OdometerConfig as JaxOdometerConfig
+from openvo_tpu.config import ORBParams as JaxORBParams
 from openvo_tpu.io.synthetic import render_stereo_sequence
 from openvo_tpu.models.stereo_odometer import (
     make_point_cloud_transform as jax_pct)
-from openvo_tpu_torch.config import OdometerConfig
+from openvo_tpu_torch.config import OdometerConfig, ORBParams
 from openvo_tpu_torch.models.stereo_odometer import (
     make_point_cloud_transform, state_from_jax_leaves)
 
@@ -239,6 +240,24 @@ def test_ten_frames_with_filters_match_jax(filters_runs):
         assert_frame_matches(i, got[i], want[i])
     assert sum(w[0] for w in want) >= 5
     assert "rigidity" in [w[1] for w in want]
+
+
+def test_cv2_ranking_odometer_matches_jax(seq):
+    """ORB with cv2.ORB's two-stage retention (``cv2_ranking=True``) in
+    both odometers over the first 4 frames: the same ok and skip_cause,
+    poses within POSE_ATOL."""
+    cam_j, cam_t = cameras(seq)
+    odo_j = openvo_tpu.StereoOdometer(cam_j, config=JaxOdometerConfig(
+        orb=JaxORBParams(cv2_ranking=True)))
+    odo_t = openvo_tpu_torch.StereoOdometer(cam_t, config=OdometerConfig(
+        orb=ORBParams(cv2_ranking=True)))
+    for i in range(4):
+        want = (odo_j.update(*frame(seq, i)), odo_j.skip_cause,
+                odo_j.current_pose())
+        got = (odo_t.update(*frame(seq, i)), odo_t.skip_cause,
+               odo_t.current_pose())
+        assert_frame_matches(i, got, want)
+    assert want[0]
 
 
 def test_filter_methods_match_jax(filters_runs):

@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from openvo_tpu.config import ORBParams as JaxORBParams
-from openvo_tpu.io.synthetic import render_stereo_sequence
+from openvo_tpu.io.synthetic import make_texture, render_stereo_sequence
 from openvo_tpu.ops import image as jimage
 from openvo_tpu.ops import orb as jorb
 from openvo_tpu_torch.config import ORBParams
@@ -147,12 +147,6 @@ def test_brief_indices_and_plain_kernel_match_jax_gather():
     assert (out.numpy()[~valid] == 0).all()
 
 
-def test_cv2_ranking_not_ported_yet(frames):
-    with pytest.raises(NotImplementedError):
-        orb.detect_and_compute(torch.from_numpy(frames[0][0]), None,
-                               ORBParams(cv2_ranking=True))
-
-
 def jax_descriptor_inputs(img, mask):
     """JAX's ORB on ``img`` plus the inputs of its descriptor stage: the
     pyramid stack as openvo_tpu/ops/orb.py:410-434 builds it, each row's
@@ -231,3 +225,50 @@ def test_angle_window_is_the_descriptor_window_interior(frames):
     ang22 = torch.where(valid, torch.atan2(flat @ torch.from_numpy(
         vw.reshape(-1)), flat @ torch.from_numpy(uw.reshape(-1))), 0.0)
     assert torch.equal(orb.orientations(det), ang22)
+
+
+# --- cv2_ranking: FAST top-2k, then Harris top-k per level ----------------
+
+def scene(seed=0, h=240, w=320):
+    """tests/test_orb.py:22's textured scene."""
+    tex = make_texture(np.random.default_rng(seed), 512)
+    return tex[:h, :w].astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["scene", "frame0", "frame1"])
+def test_cv2_ranking_matches_jax_at_every_level(frames, case):
+    """``ORBParams(cv2_ranking=True)``: tests/test_orb.py:44's 300 features
+    on its scene, and the default 500 on the masked corridor frames. Per
+    level the counts, the keypoints and their descriptors equal JAX's as
+    sets; level 0's rows bit-equal. FAST scores tie often and both top-k
+    steps send ties to the lower index, as lax.top_k does; above level 0
+    the resize's ulps (see the module docstring) may reorder rows within
+    a level (at most 2% of the rows)."""
+    if case == "scene":
+        img, mask = scene(0), None
+        kw = dict(nfeatures=300, max_keypoints=512, cv2_ranking=True)
+    else:
+        img, mask = frames[int(case[-1])]
+        kw = dict(cv2_ranking=True)
+    rj = {k: np.asarray(v) for k, v in jax.jit(
+        lambda a, m: jorb.detect_and_compute(a, m, JaxORBParams(**kw)))(
+        jnp.asarray(img), None if mask is None else jnp.asarray(mask)
+    ).items()}
+    rt = {k: v.numpy() for k, v in orb.detect_and_compute(
+        torch.from_numpy(img), None if mask is None else
+        torch.from_numpy(mask), ORBParams(**kw)).items()}
+    np.testing.assert_array_equal(rt["valid"], rj["valid"])
+    np.testing.assert_array_equal(rt["octave"], rj["octave"])
+    assert rj["valid"].sum() >= 200
+    for lv in range(8):
+        assert keypoint_set(rt, {lv}) == keypoint_set(rj, {lv}), lv
+    lvl0 = rj["octave"] == 0
+    for k in ("xy", "desc", "response"):
+        np.testing.assert_array_equal(rt[k][lvl0], rj[k][lvl0])
+    moved = ((rt["xy"] != rj["xy"]).any(1)
+             | (rt["desc"] != rj["desc"]).any(1))
+    assert moved.mean() <= 0.02, f"{moved.sum()} rows moved"
+    # the two rankings keep other corners
+    default = orb.detect_and_compute(
+        torch.from_numpy(img), None, ORBParams(**{**kw, "cv2_ranking": False}))
+    assert not torch.equal(default["xy"], torch.from_numpy(rt["xy"]))
