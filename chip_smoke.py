@@ -18,8 +18,11 @@ Phases, in order; any failure exits non-zero before the final line:
    redesigned H1, H2, H3 and H5 log their block walks' earlier times
    beside theirs (in the log only, not in the JSON line); H4 from frame
    0's pyramid and on a random stack with keypoints at every clamped
-   edge; also hold the speckle filter on the card against the same
-   function on the CPU, and time block13's plain float32 cost volume;
+   edge; then H1, H2 (the top-down trio into s1), H3 and H4 launched once
+   over a batch of frames 0-15, each also held to its 16 single-frame
+   launches, timed a frame; also hold the speckle filter on the card
+   against the same function on the CPU, and time block13's plain float32
+   cost volume;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
    SGBM configurations, with the rigid clique and outlier filters on, and
@@ -27,6 +30,11 @@ Phases, in order; any failure exits non-zero before the final line:
    disabled, and check tracking, ATE (`filters` and `cv2rank`: against
    the JAX package's runs, FILTERS_JAX and tools/jax_mono_reference.npz)
    and every kernel's launches per frame;
+   then `off-tp`: ``parallel/stream.make_stream_fn`` with chunks of 16
+   (each extracted batched: H1-H4 once a chunk) and `rig8`:
+   ``parallel/rig.RigOdometer`` with 8 cameras, camera 7 fed a blank pair
+   at frame 20; both held to off-lat frame by frame (ok, skip cause,
+   c_T_w within 1e-5), with launches and host syncs a frame;
 4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
@@ -37,7 +45,11 @@ Phases, in order; any failure exits non-zero before the final line:
    refuses two ranks on one GPU) over the 64 frames with the off-lat
    parameters, and on frame 0 with the block13 parameters on the shifted
    pair; the ranks' bands must equal the single-device disparity on the
-   card, and every rank must launch the band H1 and the carry H2.
+   card, and every rank must launch the band H1 and the carry H2;
+6. `shard4`: the frame-sharded trajectory (parallel/sharding.py) on 4
+   ranks sharing the card over frames 0-15, 4 a rank, against the
+   one-process relative poses composed on the card; every rank launches
+   each of H1-H4 once.
 
 Phase 2 also times K4's one-call PyTorch equivalent, ``torch.gather``
 of best_r at x - best. The second-to-last lines are a JSON object with one
@@ -144,10 +156,19 @@ MONO_OWN_ATE_TOL = 0.05
 DEVICE = "cuda"
 TILED_RANKS = 4
 PROFILED = 8             # tiled frames profiled on the first and last rank
+BATCH = 16               # frames a chunk on off-tp, and of phase 2's batches
+RIG_CAMERAS = 8          # bench.py:47
+RIG_BLANK = (7, 20)      # (camera, frame) fed a blank pair on rig8
+SHARD_RANKS = 4
+SHARD_FRAMES = 16        # frames 0-15 on shard4, 4 a rank
+POSE_TOL = 1e-5          # c_T_w against off-lat's (tests/test_parallel.py:270)
+# the paths that launch the batched kernel variants
+BATCHED_PATHS = ("off-tp", "rig8", "shard4")
 SHIFT = 0.37             # px: frame 0 resampled so every pixel is fractional
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SGBM_SRC = "openvo_tpu_torch/csrc/sgbm.cu"
+WTA_SRC = "openvo_tpu_torch/csrc/sgbm_wta.cu"   # H3
 ORB_SRC = "openvo_tpu_torch/csrc/orb.cu"
 K5 = "openvo_tpu/ops/orb_pallas.py:60"
 PALLAS_SGBM = "openvo_tpu/ops/sgbm_pallas.py"
@@ -271,6 +292,12 @@ class Case:
     ops_per_elem: float
     source: str = SGBM_SRC
     in_bytes: int | None = None   # bytes it must read, where not all inputs
+    # a batched variant: its frames, the single-frame launches of the
+    # kernel on each frame, which it must equal, and the same launches as
+    # timed beside it (where ``single`` copies inputs for the check)
+    frames: int = 1
+    single: object = None
+    single_run: object = None
 
 
 def bound(case, outs):
@@ -454,16 +481,16 @@ def kernel_cases(torch, seq, cam, cfg):
              "off-lat",
              lambda: sc.hsweep_wta_lr(C, s1v, None, *wta),
              lambda: sc.hsweep_wta_lr_plain(C, s1v, None, *wta), K3_K4,
-             (C, s1v), 20 * p.num_disparities),
+             (C, s1v), 20 * p.num_disparities, WTA_SRC),
         Case("hsweep_wta_lr", "float32 C (block13, shifted pair)", "block13",
              lambda: sc.hsweep_wta_lr(Cf, s1f, svf, *wta13),
              lambda: sc.hsweep_wta_lr_plain(Cf, s1f, svf, *wta13), K7_K4,
-             (Cf, s1f, svf), 20 * q.num_disparities),
+             (Cf, s1f, svf), 20 * q.num_disparities, WTA_SRC),
         Case("hsweep_wta_lr", "float32 C with the bottom-up partial apart "
              "(8 paths)", None,
              lambda: sc.hsweep_wta_lr(Cf, s1f, svf, *wta13, svuf),
              lambda: sc.hsweep_wta_lr_plain(Cf, s1f, svf, *wta13, svuf),
-             K7_K4, (Cf, s1f, svf, svuf), 22 * q.num_disparities),
+             K7_K4, (Cf, s1f, svf, svuf), 22 * q.num_disparities, WTA_SRC),
         chain_case("D=48: 2 disparities a lane in every walk", 48),
         chain_case("D=33 on 64 rows: D not a multiple of 8, scalar loads "
                    "at 32 disparities a lane", 33, 64),
@@ -533,39 +560,120 @@ def brief_case(torch, variant, path, calls):
                 in_bytes)
 
 
-def prefiltered_pair(torch, seq, cam, shift, cap):
-    """Frame 0, rectified (and resampled by ``shift`` px), prefiltered."""
+def batched_cases(torch, seq, cam, cfg):
+    """Phase 2's batched variants, as the off-tp, rig8 and shard4 paths
+    launch them: H1, H2 (the top-down trio into s1), H3 and H4 once over
+    frames 0-15 (BATCH) at KITTI shapes, each against its kernel's
+    single-frame launch on each frame and its plain version on the batch."""
+    from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda as sc
+
+    dev = cam.device
+    p = cam.sgbm
+    cap = max(p.pre_filter_cap, 15) | 1
+    frames = range(BATCH)
+    lp, rp = (torch.stack(t) for t in zip(*(
+        prefiltered_pair(torch, seq, cam, 0.0, cap, i) for i in frames)))
+    p1, p2 = 2 * p.effective_p1, 2 * p.effective_p2
+    h1 = (p.min_disparity, p.num_disparities, p.block_size,
+          sgbm.int16_sentinel(p.block_size, cap), p1, p2, True)
+    C, s1 = sc.cost_hsweep(lp, rp, *h1)
+    s1v = sc.vsweep(C, p1, p2, True, acc=s1.clone())
+    acc = s1.clone()
+    wta = (p1, p2, p.min_disparity, p.uniqueness_ratio, p.disp12_max_diff)
+    variant = f"batch of {BATCH} frames (frames 0-{BATCH - 1})"
+
+    _, disp, img = cam.compute_3d_fn(False, False)(
+        torch.as_tensor(seq["left"][:BATCH], device=dev),
+        torch.as_tensor(seq["right"][:BATCH], device=dev))
+    fmask = ((disp >= cfg.min_valid_disparity)
+             & (disp <= cfg.max_valid_disparity)).to(torch.uint8)
+    det = orb.detect(img, fmask, cfg.orb)
+    ang = orb.orientations(det)
+    h4 = (det["stack"], det["octave"], det["xy_lvl"], torch.cos(ang),
+          torch.sin(ang), det["valid"])
+    h4_bytes = sum(window_union_bytes(torch, h4[0][i], h4[1][i], h4[2][i],
+                                      h4[5][i]) for i in frames) + sum(
+        t.numel() * t.element_size() for t in h4[1:])
+
+    return [
+        Case("cost_hsweep", f"int16 C, {variant}", "off-tp",
+             lambda: sc.cost_hsweep(lp, rp, *h1),
+             lambda: sc.cost_hsweep_plain(lp, rp, *h1), K1, (lp, rp),
+             20 * p.block_size + 12, frames=BATCH,
+             single=lambda: [sc.cost_hsweep(lp[i], rp[i], *h1)
+                             for i in frames]),
+        Case("vsweep", f"down trio into s1, int16 C (5 paths), {variant}",
+             "off-tp", lambda: sc.vsweep(C, p1, p2, True, acc=acc),
+             lambda: s1 + sc.vsweep_plain(C, p1, p2, True), K2, (C, s1), 30,
+             frames=BATCH,
+             single=lambda: [sc.vsweep(C[i], p1, p2, True,
+                                       acc=s1[i].clone()) for i in frames],
+             single_run=lambda: [sc.vsweep(C[i], p1, p2, True, acc=acc[i])
+                                 for i in frames]),
+        Case("hsweep_wta_lr", f"int16 C, s1 holding the vertical sum, "
+             f"{variant}", "off-tp",
+             lambda: sc.hsweep_wta_lr(C, s1v, None, *wta),
+             lambda: sc.hsweep_wta_lr_plain(C, s1v, None, *wta), K3_K4,
+             (C, s1v), 20 * p.num_disparities, WTA_SRC, frames=BATCH,
+             single=lambda: [sc.hsweep_wta_lr(C[i], s1v[i], None, *wta)
+                             for i in frames]),
+        Case("brief_describe", f"K=512 on each frame's pyramid, {variant}",
+             "off-tp", lambda: orb_cuda.brief_describe(*h4),
+             lambda: orb_cuda.brief_describe_plain(*h4), K5, h4,
+             ((45 * 39 + 39 * 39) * 13 + 256 * 12) / 32, ORB_SRC, h4_bytes,
+             frames=BATCH,
+             single=lambda: [orb_cuda.brief_describe(*(t[i] for t in h4))
+                             for i in frames]),
+    ]
+
+
+def prefiltered_pair(torch, seq, cam, shift, cap, frame=0):
+    """A frame (0 unless given), rectified (and resampled by ``shift`` px),
+    prefiltered."""
     from openvo_tpu_torch.ops import sgbm
     from openvo_tpu_torch.ops.remap import remap_bilinear
 
     return tuple(
         sgbm.prefilter_xsobel(remap_bilinear(
-            torch.as_tensor(seq[side][0], device=cam.device).to(torch.float32),
-            mx + shift, my + shift), cap)
+            torch.as_tensor(seq[side][frame], device=cam.device).to(
+                torch.float32), mx + shift, my + shift), cap)
         for side, (mx, my) in (("left", cam.map_left),
                                ("right", cam.map_right)))
 
 
 def check_kernels(torch, seq, cam, cfg):
-    """Phase 2: each kernel variant against its plain version."""
+    """Phase 2: each kernel variant against its plain version (a batched
+    variant also against its kernel's single-frame launch on each frame;
+    its times and bound are per frame)."""
     results = []
-    cases = kernel_cases(torch, seq, cam, cfg)
+    cases = kernel_cases(torch, seq, cam, cfg) + batched_cases(torch, seq,
+                                                               cam, cfg)
     for c in cases:
         out, ref = as_tuple(c.kern()), as_tuple(c.plain())
         err = max(max_abs_err(a, b) for a, b in zip(out, ref))
+        err_single = None
+        if c.single is not None:
+            err_single = max(max_abs_err(a[i], b)
+                             for i, one in enumerate(c.single())
+                             for a, b in zip(out, as_tuple(one), strict=True))
         log(f"[kernels] {c.name} [{c.variant}]: shapes "
-            f"{[tuple(o.shape) for o in out]}, max_abs_err vs plain {err}")
-        if err != 0.0:
+            f"{[tuple(o.shape) for o in out]}, max_abs_err vs plain {err}"
+            + ("" if err_single is None else
+               f", vs {c.frames} single-frame launches {err_single}"))
+        if err != 0.0 or err_single:
             raise AssertionError(f"{c.name} [{c.variant}] differs from its "
-                                 f"plain version")
+                                 f"plain version or its single-frame "
+                                 f"launches")
         bound_ms, bound_by = bound(c, out)
         results.append({"name": c.name, "variant": c.variant, "path": c.path,
                         "route": "cuda", "source": c.source,
                         "replaces": c.replaces, "max_abs_err": err,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bound_ms": bound_ms / c.frames, "bound_by": bound_by,
                         # no one PyTorch call computes an SGM scan, a fused
                         # cost + box + scan, or BRIEF's sampling and packing
                         "library_ms": None})
+        if c.frames > 1:
+            results[-1]["frames"] = c.frames
     # times: plain, kernel, kernel, plain, each by CUDA events
     for r, c in zip(results, cases):
         reps_plain = 20 if c.name == "brief_describe" else 1
@@ -573,15 +681,25 @@ def check_kernels(torch, seq, cam, cfg):
         t_k1 = time_ms(torch, c.kern, 20)
         t_k2 = time_ms(torch, c.kern, 20)
         t_p2 = time_ms(torch, c.plain, reps_plain)
-        r["ms"] = min(t_k1, t_k2)
-        r["plain_ms"] = min(t_p1, t_p2)
+        r["ms"] = min(t_k1, t_k2) / c.frames
+        r["plain_ms"] = min(t_p1, t_p2) / c.frames
         earlier = BLOCK_WALK_MS.get((c.name, c.variant))
+        single = ""
+        if c.frames > 1:
+            # the same frames by single-frame launches back to back, timed
+            # between the batched rounds' neighbours
+            run = c.single_run or c.single
+            t_s = min(time_ms(torch, run, 5), time_ms(torch, run, 5))
+            r["single_frame_ms"] = t_s / c.frames
+            single = (f"; a frame {r['ms']:.4f} ms, by {c.frames} "
+                      f"single-frame launches back to back "
+                      f"{r['single_frame_ms']:.4f} ms")
         log(f"[kernels] {c.name} [{c.variant}]: kernel {t_k1:.4f} / "
             f"{t_k2:.4f} ms"
             + ("" if earlier is None else
                f" (redesigned; the block walk: {earlier} ms)")
             + f", plain {t_p1:.4f} / {t_p2:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms'] * c.frames:.4f} ms ({r['bound_by']})" + single)
     return results
 
 
@@ -719,7 +837,8 @@ def jax_reference():
 
 def run_path(torch, seq, name, smi):
     """Phase 3 for one path: the odometer over the sequence with the plain
-    versions disabled; returns launch counts per kernel name."""
+    versions disabled; returns launch counts per kernel name and, frame by
+    frame, ok, the skip cause and c_T_w."""
     from openvo_tpu_torch import StereoCamera, StereoOdometer
     from openvo_tpu_torch.ops import orb_cuda, sgbm, sgbm_cuda
     from openvo_tpu_torch.pose import rigid_clique
@@ -734,7 +853,7 @@ def run_path(torch, seq, name, smi):
     for m, n in plains:
         setattr(m, n, tripwire)
     odo = StereoOdometer(cam, **odometer_kwargs(name))
-    oks, causes, poses, lat = [], [], [], []
+    oks, causes, poses, ctws, lat = [], [], [], [], []
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated() / 2 ** 20
@@ -749,7 +868,8 @@ def run_path(torch, seq, name, smi):
             oks.append(odo.update(seq["left"][i], seq["right"][i]))
             lat.append(time.perf_counter() - t0)   # update() ends in a sync
             causes.append(odo.skip_cause)
-            poses.append(odo.current_pose())
+            ctws.append(odo.c_T_w)   # current_pose() is its inverse
+            poses.append(np.linalg.inv(ctws[-1].astype(np.float64)))
         launches = {k.__name__: k.launches for k in kernels}
         syncs = sgbm.speckle_filter.syncs
         clique_syncs = rigid_clique.rigid_body_filter.syncs
@@ -796,7 +916,8 @@ def run_path(torch, seq, name, smi):
             raise AssertionError(f"{name}: {k} launched {launches[k]} times "
                                  f"in {N_FRAMES} frames, expected "
                                  f"{per_frame} a frame")
-    return launches
+    return launches, {"ok": oks, "causes": causes, "c_T_w": np.stack(ctws),
+                      "poses": poses}
 
 
 def check_against_jax(name, tracked, ate, causes, want, ate_tol,
@@ -1155,6 +1276,367 @@ def run_tiled4(torch, seq, cam):
             for k in reports[0]["launches"]}
 
 
+def count_launches(torch, fn):
+    """CUDA kernel launches fn() makes, from torch.profiler's
+    LaunchKernel events."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+
+
+def batched_path_kernels(launches, name, want):
+    """Fail unless each of H1-H4 launched ``want`` times on a batched path
+    (H1, ``cost_hsweep``, is its two kernels bt_box and hwalk) and H5 not
+    at all."""
+    expected = {"cost_hsweep": want, "vsweep": want, "hsweep_wta_lr": want,
+                "brief_describe": want, "hsweep": 0}
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expected}")
+
+
+def off_lat_camera(calib):
+    """The off-lat camera of the corridor's calibration (K, dist, R, T of
+    the rendered sequence, or of a rank's inputs)."""
+    from openvo_tpu_torch import StereoCamera
+
+    return StereoCamera(calib["K"], calib["dist"], calib["K"], calib["dist"],
+                        {"R": calib["R"], "T": calib["T"]},
+                        path_params("off-lat"), IMG_SIZE, device=DEVICE)
+
+
+def held_to_off_lat(name, ok, causes, ctws, ref, frames=None):
+    """A path's per-frame ok, skip cause and c_T_w against off-lat's."""
+    frames = range(N_FRAMES) if frames is None else frames
+    bad = [i for i in frames if ok[i] != ref["ok"][i]
+           or causes[i] != ref["causes"][i]]
+    gap = max(float(np.abs(ctws[i] - ref["c_T_w"][i]).max()) for i in frames)
+    log(f"[{name}] against off-lat: frames differing in ok or skip cause "
+        f"{bad}; c_T_w up to {gap} apart (limit {POSE_TOL})")
+    if bad or not gap <= POSE_TOL:
+        raise AssertionError(f"{name}: differs from off-lat at frames {bad}, "
+                             f"c_T_w gap {gap}")
+
+
+def run_stream(torch, seq, smi, ref):
+    """off-tp: ``make_stream_fn`` with chunk BATCH over the 64 frames (each
+    chunk extracted batched, H1-H4 launched once a chunk), the plain
+    versions disabled, held to off-lat's run frame by frame. Returns launch
+    counts per kernel name."""
+    from openvo_tpu_torch import OdometerConfig
+    from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
+    from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
+                                                         init_state,
+                                                         make_pipeline_fns)
+    from openvo_tpu_torch.ops import orb, orb_cuda, sgbm_cuda
+    from openvo_tpu_torch.parallel.stream import make_stream_fn
+
+    cam = off_lat_camera(seq)
+    cfg = OdometerConfig()
+    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    stream = make_stream_fn(cam, cfg, chunk=BATCH)
+    fns = make_pipeline_fns(cam, cfg, False)
+    lefts = torch.as_tensor(seq["left"], device=cam.device)
+    rights = torch.as_tensor(seq["right"], device=cam.device)
+
+    def fresh():
+        return init_state(cam.cropped_shape, cfg.orb.max_keypoints,
+                          cam.device)
+
+    def chunk0():
+        return stream(fresh(), lefts[:BATCH], rights[:BATCH])
+
+    saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
+    for m, n in saved:
+        setattr(m, n, tripwire)
+    try:
+        chunk0()   # first-call costs outside the timed run
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        _, (ok, ctw) = stream(fresh(), lefts, rights)
+        ok, ctw = ok.cpu().numpy(), ctw.cpu().numpy()
+        secs = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        # launches and host syncs a frame, over one chunk run again
+        per_frame = count_launches(torch, chunk0) / BATCH
+        syncs = sync_sources(torch, chunk0)
+        # each frame's skip code: the stream's steps again, with their stats
+        state, causes, ok2, ctw2 = fresh(), [], [], []
+        for c0 in range(0, N_FRAMES, BATCH):
+            feats = fns["extract"](lefts[c0:c0 + BATCH],
+                                   rights[c0:c0 + BATCH])
+            for i in range(BATCH):
+                state, ok_i, stats = fns["step_feats"](
+                    state, FrameFeatures(*(x[i] for x in feats)))
+                causes.append(SKIP_CAUSE_STRINGS[int(stats["skip_code"])])
+                ok2.append(bool(ok_i))
+                ctw2.append(state.c_T_w.cpu().numpy())
+        # the batched extract against the single-frame one, frame by frame
+        batched = fns["extract"](lefts[:BATCH], rights[:BATCH])
+        differ = {}
+        for i in range(BATCH):
+            one = fns["extract"](lefts[i], rights[i])
+            for name in one._fields:
+                if not torch.equal(getattr(batched, name)[i],
+                                   getattr(one, name)):
+                    differ.setdefault(name, []).append(i)
+        del batched, one
+        # the plain stages' launches a frame, one frame against a chunk
+        _, disp, img = cam.compute_3d_fn(False, False)(lefts[:BATCH],
+                                                       rights[:BATCH])
+        fmask = ((disp >= cfg.min_valid_disparity)
+                 & (disp <= cfg.max_valid_disparity)).to(torch.uint8)
+        stages = {}
+        for stage, call in (
+                ("extract", lambda x: fns["extract"](lefts[x], rights[x])),
+                ("ORB detect", lambda x: orb.detect(img[x], fmask[x],
+                                                    cfg.orb))):
+            stages[stage] = (count_launches(torch, lambda: call(0)),
+                             count_launches(torch, lambda: call(
+                                 slice(0, BATCH))) / BATCH)
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    tracked = int(ok.sum())
+    n_syncs = sum(syncs.values()) / BATCH
+    log(f"[off-tp] chunk {BATCH}: tracked {tracked}/{N_FRAMES} (skipped: "
+        f"{[(i, causes[i]) for i in range(N_FRAMES) if not ok[i]]}); "
+        f"{N_FRAMES / secs} fps, {secs * 1e3 / N_FRAMES} ms a frame over "
+        f"the {N_FRAMES} frames (host clock, one sync at the end); "
+        f"{per_frame} kernel launches and {n_syncs} host syncs a frame "
+        f"(one chunk under torch.profiler and sync debug mode); device "
+        f"memory allocated {base:.1f} MiB at the start, peak {peak:.1f} MiB; "
+        f"{smi}")
+    log(f"[off-tp] kernel launches: {launches}; synchronizing calls in one "
+        f"chunk, by the line that made them: {syncs}")
+    for stage, (one, batched) in stages.items():
+        log(f"[off-tp] {stage}: {one} launches for one frame, {batched} a "
+            f"frame in a chunk of {BATCH}")
+    log(f"[off-tp] the batched extract of frames 0-{BATCH - 1} against "
+        f"single-frame calls, fields differing by frame: {differ}")
+    if {"disp", "kp_xy", "desc", "kp_valid"} & set(differ):
+        raise AssertionError(f"off-tp: the batched extract differs from the "
+                             f"single-frame one: {differ}")
+    if not (np.array_equal(ok, ok2) and np.abs(ctw - np.stack(ctw2)).max()
+            <= POSE_TOL):
+        raise AssertionError("off-tp: the steps run again differ from the "
+                             "stream")
+    held_to_off_lat("off-tp", ok, causes, ctw, ref)
+    if tracked < 63 or ok[40] or causes[40] != "bigdist":
+        raise AssertionError(f"off-tp: {tracked} tracked, frame 40 "
+                             f"{causes[40]!r}")
+    batched_path_kernels(launches, "off-tp", N_FRAMES // BATCH)
+    return launches
+
+
+def run_rig8(torch, seq, smi, ref):
+    """rig8: ``RigOdometer`` with RIG_CAMERAS cameras over the 64 frames,
+    every camera fed the frame's pair but camera RIG_BLANK[0], fed a blank
+    pair at frame RIG_BLANK[1]; the plain versions disabled. Cameras 0-6
+    are held to off-lat frame by frame; the blank camera must skip that
+    frame as ``keypoints``, track the next against its retained frame, and
+    track all but 2 frames. Returns launch counts per kernel name."""
+    from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
+    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
+    from openvo_tpu_torch.parallel.rig import RigOdometer
+
+    cam = off_lat_camera(seq)
+    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    blank_cam, blank_frame = RIG_BLANK
+    steps = []
+    for i in range(N_FRAMES):   # the inputs, on the card before the run
+        pair = []
+        for side in ("left", "right"):
+            t = torch.as_tensor(seq[side][i], device=cam.device)
+            t = t.expand((RIG_CAMERAS,) + t.shape).clone()
+            if i == blank_frame:
+                t[blank_cam] = 0
+            pair.append(t)
+        steps.append(pair)
+    saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
+    for m, n in saved:
+        setattr(m, n, tripwire)
+    rig = RigOdometer(cam, RIG_CAMERAS)
+    oks, causes, poses, lat = [], [], [], []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in kernels:
+            k.launches = 0
+        for i in range(N_FRAMES):
+            t0 = time.perf_counter()
+            oks.append(rig.update(*steps[i]))   # ends in a sync
+            lat.append(time.perf_counter() - t0)
+            causes.append([SKIP_CAUSE_STRINGS[int(c)]
+                           for c in rig.last_stats["skip_code"]])
+            poses.append(rig.current_poses())
+        launches = {k.__name__: k.launches for k in kernels}
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    oks, poses = np.stack(oks), np.stack(poses)   # (frames, cameras, ...)
+    secs = sum(lat)
+    around = slice(blank_frame, blank_frame + 2)
+    log(f"[rig8] {RIG_CAMERAS} cameras x {N_FRAMES} frames: "
+        f"{RIG_CAMERAS * N_FRAMES / secs} camera-frames a second in all, "
+        f"update median {float(np.median(lat[2:])) * 1e3} ms a step "
+        f"(frames 2-{N_FRAMES - 1}), first {lat[0] * 1e3} ms; tracked per "
+        f"camera {oks.sum(0).tolist()}; camera {blank_cam} at frames "
+        f"{blank_frame}-{blank_frame + 1}: ok "
+        f"{oks[around, blank_cam].tolist()}, causes "
+        f"{[c[blank_cam] for c in causes[around]]}; "
+        f"peak device memory {peak:.1f} MiB; {smi}")
+    log(f"[rig8] kernel launches: {launches}")
+    for c in range(RIG_CAMERAS):
+        if c == blank_cam:
+            continue
+        held_to_off_lat(f"rig8 camera {c}", oks[:, c],
+                        [x[c] for x in causes],
+                        np.linalg.inv(poses[:, c]).astype(np.float32), ref)
+    b = oks[:, blank_cam]
+    if (b[blank_frame] or causes[blank_frame][blank_cam] != "keypoints"
+            or not b[blank_frame + 1] or b.sum() < N_FRAMES - 2
+            or not np.isfinite(poses).all()):
+        raise AssertionError(f"rig8: camera {blank_cam} tracked {b.sum()}, "
+                             f"frames {blank_frame}-{blank_frame + 1} "
+                             f"{b[blank_frame:blank_frame + 2]}")
+    batched_path_kernels(launches, "rig8", N_FRAMES)
+    return launches
+
+
+def _shard_rank(rank, tmp, out_q, device):
+    """One rank of shard4: the sharded trajectory over the frames in a gloo
+    group, the plain versions disabled."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from openvo_tpu_torch import OdometerConfig
+    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
+    from openvo_tpu_torch.parallel.sharding import make_sharded_trajectory_fn
+
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                                rank=rank, world_size=SHARD_RANKS,
+                                timeout=datetime.timedelta(seconds=300))
+        data = np.load(f"{tmp}/inputs.npz")
+        left, right = data["left"], data["right"]
+        fn = make_sharded_trajectory_fn(off_lat_camera(data),
+                                        OdometerConfig())
+        kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+        for m, n in plain_tripwires():
+            setattr(m, n, tripwire)
+        fn(left, right)   # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        traj, ok = fn(left, right)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        dist.barrier()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(left, right)
+            torch.cuda.synchronize()
+        table = ""
+        if rank in (0, SHARD_RANKS - 1):
+            table = prof.key_averages().table(sort_by="cpu_time_total",
+                                              row_limit=12)
+        np.savez(f"{tmp}/rank{rank}.npz", traj=traj.cpu().numpy(),
+                 ok=ok.cpu().numpy())
+        dist.destroy_process_group()
+        out_q.put((rank, {"launches": launches, "ms": secs * 1e3,
+                          "profile": table}))
+    except BaseException as e:  # reported to the parent, which fails
+        out_q.put((rank, {"error": f"{type(e).__name__}: {e}"}))
+        raise
+
+
+def run_shard4(torch, seq, smi):
+    """shard4: ``make_sharded_trajectory_fn`` on SHARD_RANKS ranks sharing
+    the card (gloo, staged through the host) over frames 0-15, against
+    ``make_relative_pose_fn`` + ``compose_trajectory`` in this process on
+    the card. Returns launch counts summed over the ranks."""
+    from openvo_tpu_torch import OdometerConfig
+    from openvo_tpu_torch.parallel.sharding import (compose_trajectory,
+                                                    make_relative_pose_fn)
+
+    left, right = seq["left"][:SHARD_FRAMES], seq["right"][:SHARD_FRAMES]
+    T_rel, ok_ref = make_relative_pose_fn(off_lat_camera(seq),
+                                          OdometerConfig())(left, right)
+    traj_ref = compose_trajectory(T_rel).cpu().numpy()
+    ok_ref = ok_ref.cpu().numpy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/inputs.npz", left=left, right=right,
+                 **{k: seq[k] for k in ("K", "dist", "R", "T")})
+        ctx = multiprocessing.get_context("spawn")
+        out_q = ctx.Queue()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_shard_rank,
+                             args=(r, tmp, out_q, DEVICE))
+                 for r in range(SHARD_RANKS)]
+        for pr in procs:
+            pr.start()
+        reports = {}
+        try:
+            deadline = time.perf_counter() + 600
+            while len(reports) < SHARD_RANKS:
+                rank, rep = out_q.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+                reports[rank] = rep
+                if "error" in rep:
+                    break
+        finally:
+            for pr in procs:
+                pr.join(timeout=60)
+                if pr.is_alive():
+                    pr.kill()
+        errors = {r: v["error"] for r, v in reports.items() if "error" in v}
+        if errors:
+            raise AssertionError(f"shard4 ranks failed: {errors}")
+        outs = [np.load(f"{tmp}/rank{r}.npz") for r in range(SHARD_RANKS)]
+        outs = [(o["traj"], o["ok"]) for o in outs]
+    log(f"[shard4] {SHARD_RANKS} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s (start-up included); "
+        f"{SHARD_FRAMES} frames, {SHARD_FRAMES // SHARD_RANKS} a rank: "
+        f"one call (warm) "
+        f"{[round(reports[r]['ms'], 3) for r in range(SHARD_RANKS)]} ms by "
+        f"rank; tracked {int(ok_ref.sum())}/{SHARD_FRAMES} in one "
+        f"process; {smi}")
+    for r in (0, SHARD_RANKS - 1):
+        log(f"[shard4] rank {r}, one call under torch.profiler:\n"
+            f"{reports[r]['profile']}")
+    gap = max(float(np.abs(t - traj_ref).max()) for t, _ in outs)
+    same_ok = all(np.array_equal(o, ok_ref) for _, o in outs)
+    log(f"[shard4] against one process: flags equal {same_ok}, trajectory "
+        f"up to {gap} apart (limit {POSE_TOL}); launches by rank "
+        f"{[reports[r]['launches'] for r in range(SHARD_RANKS)]}")
+    if not same_ok or not gap <= POSE_TOL:
+        raise AssertionError("shard4 differs from the one-process trajectory")
+    for r in range(SHARD_RANKS):
+        batched_path_kernels(reports[r]["launches"], f"shard4 rank {r}", 1)
+    return {k: sum(reports[r]["launches"][k] for r in range(SHARD_RANKS))
+            for k in reports[0]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1191,16 +1673,30 @@ def main() -> int:
     checks.append(time_k4_library(torch, cam.device, smi))
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {name: run_path(torch, seq, name, smi) for name in PATHS}
+    launches, records = {}, {}
+    for name in PATHS:
+        launches[name], records[name] = run_path(torch, seq, name, smi)
+    launches["off-tp"] = run_stream(torch, seq, smi, records["off-lat"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["rig8"] = run_rig8(torch, seq, smi, records["off-lat"])
+    gc.collect()
+    torch.cuda.empty_cache()
     for name in ("mono", "mono-own"):
         launches[name] = run_mono(torch, seq, name, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches["tiled4"] = run_tiled4(torch, seq, cam)
+    launches["shard4"] = run_shard4(torch, seq, smi)
     kernels = [r for r in results if r["path"] is not None]
     for r in results:
         r["launches"] = launches[r["path"]][r["name"]] if r["path"] else 0
     for r in kernels:
+        # a batched variant's launches are those of the batched paths
+        batched = (r.get("frames", 1) > 1)
         r["launches_by_path"] = {n: c[r["name"]] for n, c in launches.items()
-                                 if c.get(r["name"])}
+                                 if c.get(r["name"])
+                                 and (n in BATCHED_PATHS) == batched}
     print(json.dumps({"kernels": kernels, "checks": checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

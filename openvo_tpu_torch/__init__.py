@@ -2,8 +2,9 @@
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package ``openvo_tpu`` (which stays the reference), module
-for module: ``config``, ``geometry``, ``io``, ``ops``, ``pose``, ``models``
-and ``utils`` keep the JAX package's names. This package imports ``torch``
+for module: ``config``, ``geometry``, ``io``, ``ops``, ``pose``, ``models``,
+``parallel`` and ``utils`` keep the JAX package's names, and ``entry``
+stands for the repo's ``__graft_entry__.py``. This package imports ``torch``
 and never ``jax`` or ``openvo_tpu``.
 
 Its API is the openVO reference's four exports (``StereoCamera``,

@@ -36,24 +36,25 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of csrc/*.cu: name -> argument types. Each returns the
 # cudaError_t of its launch.
 SIGNATURES = {
     # lp, rp, C, s1, H, W, D, min_disp, radius, sentinel, P1, P2, bf16,
-    # row0, rows, clamp_lo, clamp_hi, stream
-    "ovo_cost_hsweep": (_P, _P, _P, _P) + (_I,) * 13 + (_P,),
+    # row0, rows, clamp_lo, clamp_hi, frames, stream
+    "ovo_cost_hsweep": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
     # C, C is float32, sv, H, W, D, P1, P2, dir0, ndirs, down, up, assign
-    # (float32: sv = L), init carry (or NULL), carry out (or NULL), stream
-    "ovo_vsweep": (_P, _I, _P) + (_I,) * 10 + (_P, _P, _P),
+    # (float32: sv = L), init carry (or NULL), carry out (or NULL), frames,
+    # a frame's carry elements, stream
+    "ovo_vsweep": (_P, _I, _P) + (_I,) * 10 + (_P, _P, _I, _LL, _P),
     # C, out, H, W, D, P1, P2, stream
     "ovo_hsweep": (_P, _P, _I, _I, _I, _I, _I, _P),
     # C, C is float32, s1, sv, svu (or NULL), disp16, H, W, D, P1, P2,
     # min_disp, uniqueness, disp12, stream
     "ovo_hsweep_wta_lr": (_P, _I, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     # stack, nl, H, W, octave, xy, cos, sin, valid, pattern, taps (host),
-    # out, K, stream
-    "ovo_brief_describe": (_P, _I, _I, _I) + (_P,) * 8 + (_I, _P),
+    # out, K (a frame), frames, stream
+    "ovo_brief_describe": (_P, _I, _I, _I) + (_P,) * 8 + (_I, _I, _P),
 }
 
 

@@ -16,7 +16,9 @@
 //      rounding, compares its two samples, and each warp packs its 32 bits
 //      with one ballot into a 32-bit word: four bytes LSB first in
 //      little-endian memory, the layout of hamming.pack_bits and of cv2.
-// An invalid keypoint writes a zero row and reads nothing.
+// An invalid keypoint writes a zero row and reads nothing. A batch of
+// frames is one launch: keypoint k of the batch reads frame k / kpf's
+// stack (kpf keypoints a frame), and nothing else changes.
 //
 // Bound: the raw windows' bytes (8.1 KB a keypoint, 4.1 MB at K = 512,
 // about 1.2 us at 3.35 TB/s); at this size the launch dominates. The loads
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(kPairs)
                           const float* __restrict__ sin_a,
                           const uint8_t* __restrict__ valid,
                           const float* __restrict__ pattern, Taps taps,
-                          uint32_t* __restrict__ out) {
+                          uint32_t* __restrict__ out, int kpf) {
   __shared__ float raw[kRaw * kRaw];   // raw window, then the blurred one
   __shared__ float hp[kRaw * kWin];    // rows blurred
   const int k = blockIdx.x, t = threadIdx.x;
@@ -86,7 +88,8 @@ __global__ void __launch_bounds__(kPairs)
   const int lv = clampi(octave[k], 0, nl - 1);
   const int y0 = clampi(xy[2 * k + 1] - kRad, 0, H - kRaw);
   const int x0 = clampi(xy[2 * k] - kRad, 0, W - kRaw);
-  const float* src = stack + ((size_t)lv * H + y0) * W + x0;
+  const float* src =
+      stack + (((size_t)(k / kpf) * nl + lv) * H + y0) * W + x0;
   for (int i = t; i < kRaw * kRaw; i += kPairs) {
     const int r = i / kRaw, c = i - r * kRaw;
     raw[i] = __ldg(src + (size_t)r * W + c);
@@ -126,13 +129,15 @@ extern "C" int ovo_brief_describe(const float* stack, int nl, int H, int W,
                                   const float* cos_a, const float* sin_a,
                                   const uint8_t* valid, const float* pattern,
                                   const float* taps, uint32_t* out, int K,
-                                  void* stream) {
-  if (K < 0 || nl <= 0 || H < kRaw || W < kRaw)
+                                  int frames, void* stream) {
+  // K keypoints a frame, `frames` stacks of (nl, H, W) one after another
+  if (K < 0 || frames <= 0 || nl <= 0 || H < kRaw || W < kRaw ||
+      (long long)K * frames > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (K == 0) return (int)cudaSuccess;
   Taps tp;
   for (int i = 0; i < kTaps; ++i) tp.k[i] = taps[i];
-  brief_describe_kernel<<<K, kPairs, 0, (cudaStream_t)stream>>>(
-      stack, nl, H, W, octave, xy, cos_a, sin_a, valid, pattern, tp, out);
+  brief_describe_kernel<<<K * frames, kPairs, 0, (cudaStream_t)stream>>>(
+      stack, nl, H, W, octave, xy, cos_a, sin_a, valid, pattern, tp, out, K);
   return (int)cudaGetLastError();
 }

@@ -170,7 +170,10 @@ size_t box_smem(int r, int tx) {
 }
 
 // H1, first kernel: C for output rows [i0, i0 + 16) x columns [x0, x0 + tx)
-// x disparities [dc, dc + 32) of a block. Input row j of the tile is row
+// x disparities [dc, dc + 32) of a block, of frame blockIdx.z / ceil(D/32)
+// of a batch (frames of H input rows and `rows` output rows each, one
+// after another: a frame changes only the base offsets, and no box sum
+// crosses a frame's edge). Input row j of the tile is row
 // row0 + i0 - r + j clamped to [clamp_lo, clamp_hi] (the image's edge rows
 // for a whole image, the band's own rows, or the core's first / last row at
 // a tile on the image's top / bottom edge: K1's band_halo); tile column xi
@@ -187,11 +190,15 @@ __global__ void __launch_bounds__(kBoxThreads)
     bt_box_kernel(const float* __restrict__ lp, const float* __restrict__ rp,
                   int16_t* __restrict__ C, int W, int D, int m, int r,
                   int sentinel, int row0, int rows, int clamp_lo,
-                  int clamp_hi, int tx) {
+                  int clamp_hi, int tx, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ny = kBoxRows + 2 * r, nx = tx + 2 * r, nr = nx + 31;
   const int x0 = blockIdx.x * tx, i0 = blockIdx.y * kBoxRows;
-  const int dc = blockIdx.z * 32;
+  const int nzd = (D + 31) / 32, frame = blockIdx.z / nzd;
+  const int dc = (blockIdx.z - frame * nzd) * 32;
+  lp += (size_t)frame * H * W;
+  rp += (size_t)frame * H * W;
+  C += (size_t)frame * rows * W * D;
   float* lenv = reinterpret_cast<float*>(smem);  // [3][ny][nx]
   float* renv = lenv + 3 * ny * nx;              // [3][ny][nr]
   int16_t* st = reinterpret_cast<int16_t*>(renv + 3 * ny * nr);  // [ny][nx][32]
@@ -483,7 +490,8 @@ __global__ void __launch_bounds__(32 * kWalkWarps, kVsweepBlocks<P, VPL>)
                   int H, int W, int D, int P1, int P2, int dir0, int ndirs,
                   int down, int per_way, int nlines, int assign,
                   const typename P::L* __restrict__ init,
-                  typename P::L* __restrict__ cout) {
+                  typename P::L* __restrict__ cout, int frames,
+                  long long carry_stride) {
   using CT = typename P::C;
   using L = typename P::L;
   constexpr bool kExact = P::kSumsExact;
@@ -491,8 +499,16 @@ __global__ void __launch_bounds__(32 * kWalkWarps, kVsweepBlocks<P, VPL>)
   constexpr bool kStaged = kExact && kVec;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= nlines) return;
+  int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= nlines * frames) return;
+  // line b of frame f: a frame moves C, sv and the carries by its own
+  // volume (carry_stride elements for the carries)
+  const int f = b / nlines;
+  b -= f * nlines;
+  C += (size_t)f * H * W * D;
+  sv += (size_t)f * H * W * D;
+  if (init) init += f * carry_stride;
+  if (cout) cout += f * carry_stride;
   const VLine v = vline(b, H, W, dir0, ndirs, down, per_way);
   const int d0 = VPL * lane, n = min(max(D - d0, 0), VPL);
   const L p1 = (L)P1, p2 = (L)P2;
@@ -590,7 +606,8 @@ __global__ void __launch_bounds__(32 * kWalkWarps, kVsweepBlocks<P, VPL>)
 template <typename P>
 int launch_vsweep(const void* C, void* sv, int H, int W, int D, int P1,
                   int P2, int dir0, int ndirs, int down, int up, int assign,
-                  const void* init, void* cout, cudaStream_t stream) {
+                  const void* init, void* cout, cudaStream_t stream,
+                  int frames = 1, long long carry_stride = 0) {
   using CT = typename P::C;
   using L = typename P::L;
   int per_way = 0;
@@ -604,10 +621,12 @@ int launch_vsweep(const void* C, void* sv, int H, int W, int D, int P1,
     auto kernel = vsweep_kernel<P, decltype(vpl)::value, F>;
     const int e = set_smem((const void*)kernel, kWalkWarps * warp_bytes);
     if (e) return e;
-    kernel<<<(nlines + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps,
-             kWalkWarps * warp_bytes, stream>>>(
-        (const CT*)C, (L*)sv, H, W, D, P1, P2, dir0, ndirs, down, per_way,
-        nlines, assign, (const L*)init, (L*)cout);
+    const long long blocks =
+        ((long long)nlines * frames + kWalkWarps - 1) / kWalkWarps;
+    kernel<<<(unsigned)blocks, 32 * kWalkWarps, kWalkWarps * warp_bytes,
+             stream>>>((const CT*)C, (L*)sv, H, W, D, P1, P2, dir0, ndirs,
+                       down, per_way, nlines, assign, (const L*)init,
+                       (L*)cout, frames, carry_stride);
     return (int)cudaGetLastError();
   });
 }
@@ -616,15 +635,19 @@ int launch_vsweep(const void* C, void* sv, int H, int W, int D, int P1,
 
 extern "C" {
 
-// lp, rp: H input rows; C, s1: `rows` output rows, input rows row0.. of it
+// lp, rp: `frames` frames of H input rows; C, s1: `rows` output rows a
+// frame, input rows row0.. of it. The frames of a batch share one launch
+// of each kernel: bt_box takes the frame from its grid's z, hwalk walks
+// frames * rows rows
 int ovo_cost_hsweep(const float* lp, const float* rp, int16_t* C,
                     int32_t* s1, int H, int W, int D, int min_disp,
                     int radius, int sentinel, int P1, int P2, int bf16,
                     int row0, int rows, int clamp_lo, int clamp_hi,
-                    void* stream) {
+                    int frames, void* stream) {
   if (bad_d(D) || H <= 0 || W <= 0 || radius < 0 || rows <= 0 ||
       row0 < 0 || row0 + rows > H || clamp_lo < 0 || clamp_lo > clamp_hi ||
-      clamp_hi >= H)
+      clamp_hi >= H || frames <= 0 || frames * ((D + 31) / 32) > 65535 ||
+      (long long)frames * rows > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   // the widest tile (of 32, 16, 8 columns) within 100 KB, so that two
@@ -638,41 +661,52 @@ int ovo_cost_hsweep(const float* lp, const float* rp, int16_t* C,
   int err = set_smem(box, smem);
   if (err) return err;
   const dim3 grid((W + tx - 1) / tx, (rows + kBoxRows - 1) / kBoxRows,
-                  (D + 31) / 32);
+                  frames * ((D + 31) / 32));
   if (bf16)
     bt_box_kernel<true><<<grid, kBoxThreads, smem, st>>>(
         lp, rp, C, W, D, min_disp, radius, sentinel, row0, rows, clamp_lo,
-        clamp_hi, tx);
+        clamp_hi, tx, H);
   else
     bt_box_kernel<false><<<grid, kBoxThreads, smem, st>>>(
         lp, rp, C, W, D, min_disp, radius, sentinel, row0, rows, clamp_lo,
-        clamp_hi, tx);
+        clamp_hi, tx, H);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_hwalk<X2>(C, s1, rows, W, D, P1, P2, st);
+  return launch_hwalk<X2>(C, s1, frames * rows, W, D, P1, P2, st);
 }
 
 // C int16 with int32 sv/init/cout (f32 = 0: sv holds the sum so far, zeros
 // or a partial sum) or all float32 (f32 = 1: one direction and one
 // direction of travel; sv = sv + L, or sv = L where `assign`); directions
 // [dir0, dir0 + ndirs) of (straight, +1, -1); init/cout (ndirs, W, D) or
-// NULL
+// NULL. `frames` volumes of (H, W, D) one after another in C and sv, each
+// with its carries carry_stride elements after the previous frame's: the
+// lines of every frame in one launch
 int ovo_vsweep(const void* C, int f32, void* sv, int H, int W, int D, int P1,
                int P2, int dir0, int ndirs, int down, int up, int assign,
-               const void* init, void* cout, void* stream) {
+               const void* init, void* cout, int frames,
+               long long carry_stride, void* stream) {
   const bool one_way = !(down && up);
   if (bad_d(D) || H <= 0 || W <= 0 || !(down || up) || dir0 < 0 ||
       ndirs < 1 || dir0 + ndirs > 3 || ((init || cout) && !one_way) ||
-      (f32 && (ndirs != 1 || !one_way)) || (assign && !f32))
+      (f32 && (ndirs != 1 || !one_way)) || (assign && !f32) || frames <= 0 ||
+      carry_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  int per_frame = 0;  // a frame's lines, at most: every direction both ways
+  for (int j = dir0; j < dir0 + ndirs; ++j) per_frame += 2 * (W + H - 1);
+  if ((long long)per_frame * frames > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (f32)
     return launch_vsweep<F32>(C, sv, H, W, D, P1, P2, dir0, ndirs, down, up,
-                              assign, init, cout, (cudaStream_t)stream);
+                              assign, init, cout, (cudaStream_t)stream,
+                              frames, carry_stride);
   return launch_vsweep<X2>(C, sv, H, W, D, P1, P2, dir0, ndirs, down, up, 0,
-                           init, cout, (cudaStream_t)stream);
+                           init, cout, (cudaStream_t)stream, frames,
+                           carry_stride);
 }
 
-// H5: the left-to-right scan of float32 C, out = L
+// H5: the left-to-right scan of float32 C, out = L (a batch of frames is
+// H = frames * rows rows: each row is a line of its own)
 int ovo_hsweep(const float* C, float* out, int H, int W, int D, int P1,
                int P2, void* stream) {
   if (bad_d(D) || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;

@@ -11,13 +11,15 @@ import torch
 
 
 def reproject_image_to_3d(disparity, Q):
-    """(H, W) float disparity -> (H, W, 3) float32 points."""
-    H, W = disparity.shape
+    """(H, W) float disparity -> (H, W, 3) float32 points; (B, H, W) ->
+    (B, H, W, 3)."""
+    H, W = disparity.shape[-2:]
     dev = disparity.device
     Q = torch.as_tensor(Q, dtype=torch.float32, device=dev)
-    x = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
-    y = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     d = disparity.to(torch.float32)
+    x = torch.arange(W, dtype=torch.float32, device=dev).expand(d.shape)
+    y = torch.arange(H, dtype=torch.float32,
+                     device=dev)[:, None].expand(d.shape)
     v = torch.stack([x, y, d, torch.ones_like(d)], dim=-1)
     out = v @ Q.T
     return out[..., :3] / out[..., 3:4]

@@ -140,7 +140,9 @@ class StereoCamera:
         """The function (imgL, imgR) -> (img_3d, disparity, img_left), all
         cropped, on the camera's device. Invalid disparity (the
         minDisparity - 1 marker) reprojects to inf, so the inf-aware
-        sampler drops it."""
+        sampler drops it. A batch of pairs ((B, H, W), or (B, H, W, 3)
+        with ``color``) gives each output a leading frame axis, from one
+        launch of each SGBM kernel."""
         remap_l, remap_r, q = self._remap_left, self._remap_right, self._q_dev
         params = self.sgbm
         sl = self.crop_slice
@@ -158,8 +160,8 @@ class StereoCamera:
             img_3d = reproject_image_to_3d(disparity, q)
             valid = disparity >= (params.min_disparity - 0.75)
             img_3d = torch.where(valid[..., None], img_3d, float("inf"))
-            return (img_3d[sl[0], sl[1], :], disparity[sl[0], sl[1]],
-                    img_left[sl[0], sl[1]])
+            return (img_3d[..., sl[0], sl[1], :],
+                    disparity[..., sl[0], sl[1]], img_left[..., sl[0], sl[1]])
 
         return fn
 

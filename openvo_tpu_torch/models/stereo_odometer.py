@@ -18,7 +18,16 @@ One difference in form: JAX runs the fallback attempt under ``lax.cond``.
 Here the step reads ``use2`` on the host and runs the attempt only when it
 holds: one device-to-host sync per frame, which update() pays anyway to
 return ``ok``. With the rigidity filter on, its greedy loop adds a few
-host checks per attempt (``pose/rigid_clique.py``). The state is a
+host checks per attempt (``pose/rigid_clique.py``).
+
+Every stage takes a batch as well, a leading axis on each tensor, where
+JAX maps the stage with ``jax.vmap``: ``extract`` over (B, H, W) frames
+(``parallel/stream.py``, ``parallel/sharding.py``), ``attempt`` over B
+pairs of features, and ``step_feats`` over a batch of states (the cameras
+of ``parallel/rig.py``). Under ``vmap`` JAX's ``lax.cond`` runs both
+branches and selects; the batched step reads ``use2.any()`` once on the
+host, runs the fallback for the whole batch where any member needs it and
+selects by ``use2``: still one sync a step. The state is a
 ``NamedTuple`` of tensors with the JAX package's leaf order, so
 :func:`state_from_jax_leaves` continues a sequence started in JAX, and
 save_state/load_state read and write the same npz layout.
@@ -119,34 +128,60 @@ def state_from_jax_leaves(leaves, device="cuda") -> OdomState:
                      *t[2 * n:])
 
 
+def _per_item(fn, *args):
+    """``fn`` over the leading axis of its tensor arguments (a batch of
+    point clouds), stacked: the filters, whose greedy loop and masked
+    medians take one cloud at a time."""
+    if args[0].ndim == 2:
+        return fn(*args)
+    return torch.stack([fn(*a) for a in zip(*args)])
+
+
+def _compose(a, b):
+    """``a @ b`` of float32 4x4 transforms, in float64 and rounded once: a
+    batch gives each member the bits of its own product."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.float32)
+
+
+def _bcast(m, x):
+    """Per-item mask ``m`` (B,) or () broadcast against ``x`` (B, ...)."""
+    return m.reshape(m.shape + (1,) * (x.ndim - m.ndim))
+
+
 def make_point_cloud_transform(cfg: OdometerConfig):
     """Filters, transform fit and motion gates with the reference's gating
     order: the rigid clique (if on), the rigidity cause below 10 points,
     the outlier pass (if on, only with >= 10 points), too few points
     counted after it, then the NaN, bigdist and bigrot gates.
-    Returns fn(pts_a, pts_b, mask, skipped, skip_code) -> (T, ok, code)."""
+    Returns fn(pts_a, pts_b, mask, skipped, skip_code) -> (T, ok, code);
+    (B, N, 3) clouds with (B,) counters give (B, 4, 4), (B,), (B,)."""
 
     def point_cloud_transform(pts_a, pts_b, mask, skipped, skip_code):
         if cfg.rigidity_threshold > 0:
-            clique = rigid_body_filter(pts_a, pts_b, mask,
-                                       cfg.rigidity_threshold)
+            clique = _per_item(
+                lambda a, b, m: rigid_body_filter(a, b, m,
+                                                  cfg.rigidity_threshold),
+                pts_a, pts_b, mask)
             mask = mask & (clique > 0)
-        n1 = mask.to(torch.int32).sum()
+        n1 = mask.to(torch.int32).sum(-1)
         rigidity_cause = n1 < 10
         skip_code = torch.where(rigidity_cause, SKIP_RIGIDITY, skip_code)
         if cfg.outlier_threshold > 0:
-            refined = outlier_filter(pts_a, pts_b, mask,
-                                     cfg.outlier_threshold)
-            mask = torch.where(n1 >= 10, refined, mask)
-        too_few = mask.to(torch.int32).sum() < cfg.min_matches
+            refined = _per_item(
+                lambda a, b, m: outlier_filter(a, b, m,
+                                               cfg.outlier_threshold),
+                pts_a, pts_b, mask)
+            mask = torch.where((n1 >= 10)[..., None], refined, mask)
+        too_few = mask.to(torch.int32).sum(-1) < cfg.min_matches
         skip_code = torch.where(too_few & ~rigidity_cause, SKIP_OUTLIER,
                                 skip_code)
         T = kabsch(pts_a, pts_b, mask)
-        is_nan = torch.isnan(T).any()
+        is_nan = torch.isnan(T).flatten(-2).any(-1)
         skip_code = torch.where(~too_few & is_nan, SKIP_NAN, skip_code)
         lim = (skipped + 1).to(torch.float32)
-        big_dist = torch.linalg.norm(T[:3, 3]) > cfg.max_distance_change * lim
-        big_rot = (rotation_magnitude(T[:3, :3])
+        big_dist = (torch.linalg.norm(T[..., :3, 3], dim=-1)
+                    > cfg.max_distance_change * lim)
+        big_rot = (rotation_magnitude(T[..., :3, :3])
                    > cfg.max_rotation_change * lim)
         gates_on = ~too_few & ~is_nan
         # bigdist then bigrot: bigrot wins if both fire
@@ -177,10 +212,11 @@ def make_pipeline_fns(camera, cfg: OdometerConfig, color: bool):
         train_idx, mok = ratio_test_match(fa.desc, fb.desc,
                                           cfg.match_threshold, fa.kp_valid,
                                           fb.kp_valid)
-        n = mok.to(torch.int32).sum()
-        pts_a = bilinear_sample_3d(fa.xyz, fa.kp_xy[:, 0], fa.kp_xy[:, 1])
-        xy_b = fb.kp_xy[train_idx.to(torch.int64)]
-        pts_b = bilinear_sample_3d(fb.xyz, xy_b[:, 0], xy_b[:, 1])
+        n = mok.to(torch.int32).sum(-1)
+        pts_a = bilinear_sample_3d(fa.xyz, fa.kp_xy[..., 0], fa.kp_xy[..., 1])
+        idx = train_idx.to(torch.int64)[..., None].expand(fb.kp_xy.shape)
+        xy_b = torch.gather(fb.kp_xy, -2, idx)
+        pts_b = bilinear_sample_3d(fb.xyz, xy_b[..., 0], xy_b[..., 1])
         return pts_a, pts_b, mok, n >= cfg.min_matches, n
 
     point_cloud_transform = make_point_cloud_transform(cfg)
@@ -204,11 +240,13 @@ def make_pipeline_fns(camera, cfg: OdometerConfig, color: bool):
 
 def make_feats_step(cfg: OdometerConfig, attempt):
     """The state-machine half of the step, on precomputed FrameFeatures:
-    (state, feats) -> (state', success, stats)."""
+    (state, feats) -> (state', success, stats). A batch of states and
+    features (the cameras of a rig) steps each member on its own: the
+    fallback runs for the whole batch where any member needs it, and each
+    member takes its own branch's result."""
 
     def step_feats(state: OdomState, feats: FrameFeatures):
-        dev = state.c_T_w.device
-        n_kps = feats.kp_valid.to(torch.int32).sum()
+        n_kps = feats.kp_valid.to(torch.int32).sum(-1)
         few_kps = n_kps < cfg.min_matches
         first = ~state.has_cur
 
@@ -217,38 +255,41 @@ def make_feats_step(cfg: OdometerConfig, attempt):
         # Fallback against the prev-prev frame (reference :139-150), on a
         # host branch: the one sync of the step.
         use2 = ~ok1 & state.has_prev
-        if bool(use2):
+        if bool(use2.any()):
             T2, ok2, code2, nm2 = attempt(state.prev, feats, state.skipped,
                                           code1)
         else:
-            T2 = torch.eye(4, dtype=torch.float32, device=dev)
-            ok2 = torch.tensor(False, device=dev)
-            code2, nm2 = code1, torch.zeros((), dtype=torch.int32, device=dev)
+            T2 = torch.eye(4, dtype=torch.float32,
+                           device=T1.device).expand(T1.shape)
+            ok2 = torch.zeros_like(ok1)
+            code2, nm2 = code1, torch.zeros_like(nm1)
         ok = ok1 | (use2 & ok2)
         code_final = torch.where(use2, code2, code1)
 
+        def where(m, a, b):
+            return torch.where(_bcast(m, a), a, b)
+
         # Attempt 1 composes onto c_T_w, the fallback onto the old
         # c_T_w_prev (skipping the failed frame's motion).
-        c_T_w_new = torch.where(ok1, T1 @ state.c_T_w,
-                                torch.where(use2 & ok2, T2 @ state.c_T_w_prev,
-                                            state.c_T_w))
-        c_T_w_prev_new = torch.where(ok, state.c_T_w, state.c_T_w_prev)
+        c_T_w_new = where(ok1, _compose(T1, state.c_T_w),
+                          where(use2 & ok2, _compose(T2, state.c_T_w_prev),
+                                state.c_T_w))
+        c_T_w_prev_new = where(ok, state.c_T_w, state.c_T_w_prev)
 
         success = ~few_kps & (first | ok)
         tracked = ~few_kps & ~first & ok
 
         def sel(a, b):
-            return type(a)(*(torch.where(success, x, y)
-                             for x, y in zip(a, b)))
+            return type(a)(*(where(success, x, y) for x, y in zip(a, b)))
 
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        zero = torch.zeros_like(state.skipped)
         new_state = OdomState(
             cur=sel(feats, state.cur),
             prev=sel(state.cur, state.prev),
             has_cur=state.has_cur | success,
             has_prev=torch.where(success, state.has_cur, state.has_prev),
-            c_T_w=torch.where(tracked, c_T_w_new, state.c_T_w),
-            c_T_w_prev=torch.where(tracked, c_T_w_prev_new, state.c_T_w_prev),
+            c_T_w=where(tracked, c_T_w_new, state.c_T_w),
+            c_T_w_prev=where(tracked, c_T_w_prev_new, state.c_T_w_prev),
             skipped=torch.where(success, torch.where(first, state.skipped,
                                                      zero),
                                 state.skipped + 1).to(torch.int32),

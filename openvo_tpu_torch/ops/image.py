@@ -120,14 +120,26 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 def resize_bilinear(img, out_h: int, out_w: int):
     """Antialiased bilinear resize with half-pixel centres, as
     ``jax.image.resize(img, (out_h, out_w), "linear")``: two float32
-    contractions with the triangle-kernel weight matrices, rows first."""
+    contractions with the triangle-kernel weight matrices, rows first.
+
+    (B, H, W) images take the same two contractions frame by frame (the
+    weights uploaded once): a batched matmul may pick another kernel and
+    round otherwise, and one ulp reorders Harris near-ties."""
     img = img.to(torch.float32)
-    H, W = img.shape
-    out = img
+    H, W = img.shape[-2:]
+    wh = ww = None
     if out_h != H:
-        wh = torch.from_numpy(resize_weights(H, out_h)).to(img.device)
-        out = wh.T @ out
+        wh = torch.from_numpy(resize_weights(H, out_h)).to(img.device).T
     if out_w != W:
         ww = torch.from_numpy(resize_weights(W, out_w)).to(img.device)
-        out = out @ ww
-    return out
+
+    def one(out):
+        if wh is not None:
+            out = wh @ out
+        if ww is not None:
+            out = out @ ww
+        return out
+
+    if img.ndim == 2:
+        return one(img)
+    return torch.stack([one(f) for f in img])

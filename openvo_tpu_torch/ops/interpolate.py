@@ -13,22 +13,23 @@ import torch
 
 
 def bilinear_sample_3d(img3d, xs, ys):
-    """Sample (H, W, 3) ``img3d`` at N subpixel positions -> (N, 3)."""
-    H, W, C = img3d.shape
-    flat = img3d.reshape(H * W, C)
+    """Sample (H, W, 3) ``img3d`` at N subpixel positions -> (N, 3); a
+    batch, (B, H, W, 3) images at (B, N) positions, gives (B, N, 3)."""
+    H, W, C = img3d.shape[-3:]
+    flat = img3d.reshape(img3d.shape[:-3] + (H * W, C))
     x0 = torch.floor(xs)
     y0 = torch.floor(ys)
-    rx = (xs - x0)[:, None]
-    ry = (ys - y0)[:, None]
+    rx = (xs - x0)[..., None]
+    ry = (ys - y0)[..., None]
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
 
     def tap(yi, xi, in_bounds):
         idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-        vals = flat[idx]
+        vals = torch.gather(flat, -2, idx[..., None].expand(idx.shape + (C,)))
         # only +/-inf excludes a neighbour; NaNs pass through into the sum
         noinf = ~torch.isinf(vals).any(-1)
-        return vals, (noinf & in_bounds)[:, None]
+        return vals, (noinf & in_bounds)[..., None]
 
     in10 = (x0i + 1) < W
     in01 = (y0i + 1) < H

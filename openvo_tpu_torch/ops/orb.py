@@ -147,9 +147,10 @@ def harris_response(img, block_size: int = 7, k: float = 0.04):
 
 
 def _topk_flat(flat, k: int):
-    """Top-k of a 1-D tensor, ties to the lower index (``lax.top_k``)."""
+    """Top-k along the last axis, ties to the lower index (``lax.top_k``):
+    a stable sort, so a row of a batch gets the 1-D call's indices."""
     vals, idx = torch.sort(flat, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    return vals[..., :k], idx[..., :k]
 
 
 def orientations(det):
@@ -159,12 +160,20 @@ def orientations(det):
     The JAX package cuts this window out of the (45, 45) descriptor window.
     For a valid keypoint the two agree, since :func:`detect` keeps every
     keypoint >= 22 px inside the stack, so neither window's start is
-    clamped; an invalid row's angle is 0 either way."""
+    clamped; an invalid row's angle is 0 either way. A batch's windows are
+    gathered at once; the two weighted sums (matrix-vector products) run
+    frame by frame, so that each frame's angle has the one-frame call's
+    bits."""
     wins = patch_windows_stack(det["stack"], det["octave"], det["xy_lvl"],
                                HALF_PATCH)
     uw, vw = device_constant(_centroid_uv, wins.device)
-    flat = wins.reshape(wins.shape[0], -1)
-    ang = torch.atan2(flat @ vw, flat @ uw)
+    flat = wins.flatten(-2)
+
+    def angle(f):
+        return torch.atan2(f @ vw, f @ uw)
+
+    ang = angle(flat) if flat.ndim == 2 else torch.stack(
+        [angle(f) for f in flat])
     return torch.where(det["valid"], ang, 0.0)
 
 
@@ -197,8 +206,15 @@ def detect(img, mask, params: ORBParams):
     a dict: stack (nl, H, W) pyramid, and with K = params.max_keypoints
     rows, valid first: xy_lvl (K, 2) int64 level coords, octave (K,),
     response (K,) Harris response, valid (K,) bool.
+
+    A batch, (B, H, W) images (and masks), gives every output a leading
+    frame axis, each frame's bit for bit: the per-pixel stages, the
+    per-level top-k and the compaction run once for the batch (sorts along
+    the last axis, stable); only the resize's contractions go frame by
+    frame (:func:`resize_bilinear`).
     """
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    lead = tuple(img.shape[:-2])
     dev = img.device
     imgf = img.to(torch.float32)
     nl = params.nlevels
@@ -214,22 +230,23 @@ def detect(img, mask, params: ORBParams):
     P = max(k_eff)
 
     # --- pyramid stack (and mask stack) ---
-    stack = torch.zeros((nl, H, W), dtype=torch.float32, device=dev)
-    stack[0] = imgf
+    stack = torch.zeros(lead + (nl, H, W), dtype=torch.float32, device=dev)
+    stack[..., 0, :, :] = imgf
     mstack = None
     if mask is not None:
         m0 = mask > 0
-        mstack = torch.zeros((nl, H, W), dtype=torch.bool, device=dev)
-        mstack[0] = m0
+        mstack = torch.zeros(lead + (nl, H, W), dtype=torch.bool, device=dev)
+        mstack[..., 0, :, :] = m0
     for level in range(1, nl):
         h_l, w_l = dims[level]
         hh, ww = min(h_l, H), min(w_l, W)
-        stack[level, :hh, :ww] = resize_bilinear(imgf, h_l, w_l)[:hh, :ww]
+        stack[..., level, :hh, :ww] = resize_bilinear(
+            imgf, h_l, w_l)[..., :hh, :ww]
         if mask is not None:
             yy, xx = _mask_level_index(H, W, h_l, w_l)
-            m_l = m0[torch.from_numpy(yy).to(dev)][:, torch.from_numpy(xx)
-                                                      .to(dev)]
-            mstack[level, :hh, :ww] = m_l[:hh, :ww]
+            m_l = m0.index_select(-2, torch.from_numpy(yy).to(dev))
+            m_l = m_l.index_select(-1, torch.from_numpy(xx).to(dev))
+            mstack[..., level, :hh, :ww] = m_l[..., :hh, :ww]
 
     # --- per-pixel stages over the whole stack ---
     score, corner = fast_score(stack, float(params.fast_threshold))
@@ -248,8 +265,8 @@ def detect(img, mask, params: ORBParams):
     xy_list, val_list = [], []
     for lv in range(nl):
         h_l, w_l = dims[lv]
-        corner_l = corner[lv, :h_l, :w_l].reshape(-1)
-        resp_l = resp[lv, :h_l, :w_l].reshape(-1)
+        corner_l = corner[..., lv, :h_l, :w_l].reshape(lead + (-1,))
+        resp_l = resp[..., lv, :h_l, :w_l].reshape(lead + (-1,))
         if not params.cv2_ranking:
             kk = k_eff[lv]
             tv, ti = _topk_flat(torch.where(corner_l, resp_l, neg_inf), kk)
@@ -257,19 +274,20 @@ def detect(img, mask, params: ORBParams):
             # the best 2k by FAST score (cv2's pre-Harris retainBest), then
             # the best of those by Harris response
             k2 = min(2 * k_eff[lv], h_l * w_l)
-            score_l = score[lv, :h_l, :w_l].reshape(-1)
+            score_l = score[..., lv, :h_l, :w_l].reshape(lead + (-1,))
             fv, fi = _topk_flat(torch.where(corner_l, score_l, neg_inf), k2)
-            resp_at = torch.where(torch.isfinite(fv), resp_l[fi], neg_inf)
+            resp_at = torch.where(torch.isfinite(fv), resp_l.gather(-1, fi),
+                                  neg_inf)
             kk = min(P, k2)
             tv, sel = _topk_flat(resp_at, kk)
-            ti = fi[sel]
+            ti = fi.gather(-1, sel)
         if kk < P:
             tv = F.pad(tv, (0, P - kk), value=float("-inf"))
             ti = F.pad(ti, (0, P - kk))
         xy_list.append(torch.stack([ti % w_l, ti // w_l], dim=-1))
         val_list.append(tv)
-    top_vals = torch.stack(val_list)                 # (nl, P)
-    xy2 = torch.stack(xy_list)                       # (nl, P, 2)
+    top_vals = torch.stack(val_list, dim=-2)         # (..., nl, P)
+    xy2 = torch.stack(xy_list, dim=-3)               # (..., nl, P, 2)
     rank = torch.arange(P, device=dev)[None, :]
     budget = torch.tensor(k_eff, device=dev)[:, None]
     valid2 = torch.isfinite(top_vals) & (rank < budget)
@@ -278,26 +296,27 @@ def detect(img, mask, params: ORBParams):
     # order (or best response first when more than K can be valid) ---
     K = params.max_keypoints
     n = nl * P
-    lv_flat = torch.arange(nl, device=dev).repeat_interleave(P)
-    xy_flat = xy2.reshape(-1, 2)
-    resp_flat = top_vals.reshape(-1)
-    valid_flat = valid2.reshape(-1)
+    lv_flat = torch.arange(nl, device=dev).repeat_interleave(P).expand(
+        lead + (n,))
+    xy_flat = xy2.reshape(lead + (n, 2))
+    resp_flat = top_vals.reshape(lead + (n,))
+    valid_flat = valid2.reshape(lead + (n,))
     inf = torch.tensor(float("inf"), device=dev)
     if sum(k_eff) > K:
         order_key = torch.where(valid_flat, -resp_flat, inf)
     else:
         order_key = torch.where(
             valid_flat, torch.arange(n, dtype=torch.float32, device=dev), inf)
-    perm = torch.sort(order_key, stable=True).indices
-    if n > K:
-        perm = perm[:K]
+    perm = torch.sort(order_key, stable=True).indices[..., :K]
+    ax = len(lead)   # the row axis
 
     def compact(a, pad_val=0):
-        a = a[perm]
+        idx = perm.reshape(perm.shape + (1,) * (a.ndim - perm.ndim))
+        a = a.gather(ax, idx.expand(perm.shape + a.shape[ax + 1:]))
         if n < K:
-            padding = torch.full((K - n,) + a.shape[1:], pad_val,
+            padding = torch.full(lead + (K - n,) + a.shape[ax + 1:], pad_val,
                                  dtype=a.dtype, device=dev)
-            a = torch.cat([a, padding])
+            a = torch.cat([a, padding], dim=ax)
         return a
 
     return {"stack": stack, "xy_lvl": compact(xy_flat),
@@ -313,6 +332,8 @@ def detect_and_compute(img, mask, params: ORBParams):
     Returns a dict of fixed-capacity tensors (K = params.max_keypoints):
     xy (K, 2) float32 level-0 coords, response (K,), angle (K,),
     octave (K,) int64, size (K,), desc (K, 32) uint8, valid (K,) bool.
+    A (B, H, W) batch gives each a leading frame axis (:func:`detect`),
+    with one launch of H4 for the batch.
     """
     det = detect(img, mask, params)
     ang = orientations(det)
@@ -322,7 +343,7 @@ def detect_and_compute(img, mask, params: ORBParams):
     scale_tab = device_constant(tuple(params.scale_factor**lv for lv in
                                       range(params.nlevels)), img.device)
     sf = device_constant(params.scale_factor, img.device)
-    xy = det["xy_lvl"].to(torch.float32) * scale_tab[octv][:, None]
+    xy = det["xy_lvl"].to(torch.float32) * scale_tab[octv][..., None]
     size = torch.where(valid, 31.0 * torch.pow(sf, octv.to(torch.float32)),
                        0.0)
     return {

@@ -7,6 +7,7 @@ gathers each keypoint's raw 45x45 window, :func:`blur_windows` blurs it
 with the 7 taps of ``gaussian_kernel_1d(7, 2.0)`` into the rounded 39x39
 BRIEF window, :func:`brief_indices` rotates the rBRIEF pattern with
 GET_VALUE rounding, and :func:`brief_sample_plain` compares and packs.
+Each takes a batch of frames on a leading axis as well.
 """
 
 from __future__ import annotations
@@ -42,16 +43,21 @@ def brief_pattern(device) -> torch.Tensor:
 def patch_windows_stack(stack, levels, xy, r: int):
     """(K, 2r+1, 2r+1) windows centred at ``xy`` on each keypoint's level of
     the (nl, H, W) stack. Starts are clamped into the stack like
-    ``lax.dynamic_slice`` (padding rows at xy = 0 read level 0's corner)."""
-    nl, H, W = stack.shape
+    ``lax.dynamic_slice`` (padding rows at xy = 0 read level 0's corner).
+    A batch, (B, nl, H, W) stacks with (B, K) levels and (B, K, 2) xy,
+    gives (B, K, 2r+1, 2r+1): each frame's keypoints read its own stack."""
+    nl, H, W = stack.shape[-3:]
     size = 2 * r + 1
     ar = torch.arange(size, device=stack.device)
-    y0 = (xy[:, 1].to(torch.int64) - r).clamp(0, H - size)
-    x0 = (xy[:, 0].to(torch.int64) - r).clamp(0, W - size)
+    y0 = (xy[..., 1].to(torch.int64) - r).clamp(0, H - size)
+    x0 = (xy[..., 0].to(torch.int64) - r).clamp(0, W - size)
     lv = levels.to(torch.int64).clamp(0, nl - 1)
-    rows = (y0[:, None] + ar)[:, :, None]
-    cols = (x0[:, None] + ar)[:, None, :]
-    return stack[lv[:, None, None], rows, cols]
+    if stack.ndim == 4:   # the frame's levels in the (B * nl) levels
+        lv = lv + nl * torch.arange(stack.shape[0],
+                                    device=stack.device)[:, None]
+    rows = (y0[..., None] + ar)[..., :, None]
+    cols = (x0[..., None] + ar)[..., None, :]
+    return stack.reshape(-1, H, W)[lv[..., None, None], rows, cols]
 
 
 def blur_windows(wins_raw):
@@ -68,8 +74,8 @@ def blur_windows(wins_raw):
             acc = fma(kb[i], taps(i), acc)
         return acc
 
-    h_pass = blur(lambda i: wins_raw[:, :, i:i + size])
-    return torch.round(blur(lambda i: h_pass[:, i:i + size, :]))
+    h_pass = blur(lambda i: wins_raw[..., :, i:i + size])
+    return torch.round(blur(lambda i: h_pass[..., i:i + size, :]))
 
 
 def brief_indices(cos_a, sin_a):
@@ -80,10 +86,9 @@ def brief_indices(cos_a, sin_a):
     px, py, qx, qy = pat[:, 0], pat[:, 1], pat[:, 2], pat[:, 3]
     rw = BRIEF_WIN
     size = 2 * rw + 1
-    ca, sa = cos_a[:, None], sin_a[:, None]
+    ca, sa = cos_a[..., None], sin_a[..., None]
 
     def local_idx(x, y):
-        x, y = x[None, :], y[None, :]
         col = rw + torch.round(fma(x, ca, -(y * sa))).to(torch.int32)
         row = rw + torch.round(fma(x, sa, y * ca)).to(torch.int32)
         return (row * size + col).contiguous()
@@ -96,16 +101,16 @@ def brief_sample_plain(wins, idx_p, idx_q, valid):
     of keypoint k is wins[k, p] < wins[k, q] at the flat window indices
     p = idx_p[k, j], q = idx_q[k, j]; zero rows for invalid keypoints;
     packed to (K, N/8) uint8."""
-    tp = torch.gather(wins, 1, idx_p.to(torch.int64))
-    tq = torch.gather(wins, 1, idx_q.to(torch.int64))
-    return pack_bits((tp < tq) & valid[:, None])
+    tp = torch.gather(wins, -1, idx_p.to(torch.int64))
+    tq = torch.gather(wins, -1, idx_q.to(torch.int64))
+    return pack_bits((tp < tq) & valid[..., None])
 
 
 def brief_describe_plain(stack, octave, xy_lvl, cos_a, sin_a, valid):
     """Plain H4: raw windows, blur, rotated pattern, compare and pack."""
     wins = blur_windows(patch_windows_stack(stack, octave, xy_lvl, RAW_WIN))
     idx_p, idx_q = brief_indices(cos_a, sin_a)
-    return brief_sample_plain(wins.flatten(1), idx_p, idx_q, valid)
+    return brief_sample_plain(wins.flatten(-2), idx_p, idx_q, valid)
 
 
 def brief_describe(stack, octave, xy_lvl, cos_a, sin_a, valid):
@@ -117,25 +122,33 @@ def brief_describe(stack, octave, xy_lvl, cos_a, sin_a, valid):
 
     One block per keypoint reads its raw window from the stack into shared
     memory, blurs it there and samples the 256 pairs (see ``csrc/orb.cu``):
-    one launch, bound by the windows' bytes (4.1 MB at K = 512)."""
+    one launch, bound by the windows' bytes (4.1 MB at K = 512).
+
+    A batch, (B, nl, H, W) stacks with (B, K) keypoint rows (and (B, K, 2)
+    xy_lvl), gives (B, K, 32) from one launch of B * K blocks."""
     dev = device_of(stack, octave, xy_lvl, cos_a, sin_a, valid)
     if dev.type == "cpu":
         return brief_describe_plain(stack, octave, xy_lvl, cos_a, sin_a,
                                     valid)
-    nl, H, W = stack.shape
-    K = octave.shape[0]
-    check_cuda_input(stack, torch.float32, (nl, H, W), "stack")
-    check_cuda_input(octave, torch.int64, (K,), "octave")
-    check_cuda_input(xy_lvl, torch.int64, (K, 2), "xy_lvl")
-    check_cuda_input(cos_a, torch.float32, (K,), "cos_a")
-    check_cuda_input(sin_a, torch.float32, (K,), "sin_a")
-    check_cuda_input(valid, torch.bool, (K,), "valid")
+    if stack.ndim not in (3, 4):
+        raise ValueError(f"stack: {stack.ndim} axes, expected (nl, H, W) or "
+                         f"(B, nl, H, W)")
+    lead = tuple(stack.shape[:-3])
+    nl, H, W = stack.shape[-3:]
+    K = octave.shape[-1]
+    check_cuda_input(stack, torch.float32, lead + (nl, H, W), "stack")
+    check_cuda_input(octave, torch.int64, lead + (K,), "octave")
+    check_cuda_input(xy_lvl, torch.int64, lead + (K, 2), "xy_lvl")
+    check_cuda_input(cos_a, torch.float32, lead + (K,), "cos_a")
+    check_cuda_input(sin_a, torch.float32, lead + (K,), "sin_a")
+    check_cuda_input(valid, torch.bool, lead + (K,), "valid")
     size = 2 * RAW_WIN + 1
     if H < size or W < size:
         raise ValueError(f"stack: levels of {H}x{W}, smaller than the "
                          f"{size}x{size} window")
-    out = torch.empty((K, 32), dtype=torch.uint8, device=dev)
-    if K == 0:
+    out = torch.empty(lead + (K, 32), dtype=torch.uint8, device=dev)
+    frames = lead[0] if lead else 1
+    if K == 0 or frames == 0:
         return out
     lib = _build.library()
     pattern = brief_pattern(dev)
@@ -143,7 +156,8 @@ def brief_describe(stack, octave, xy_lvl, cos_a, sin_a, valid):
     err = lib.ovo_brief_describe(
         stack.data_ptr(), nl, H, W, octave.data_ptr(), xy_lvl.data_ptr(),
         cos_a.data_ptr(), sin_a.data_ptr(), valid.data_ptr(),
-        pattern.data_ptr(), taps, out.data_ptr(), K, stream_handle(dev))
+        pattern.data_ptr(), taps, out.data_ptr(), K, frames,
+        stream_handle(dev))
     brief_describe.launches += 1
     _build.check_launch(err, "brief_describe")
     return out

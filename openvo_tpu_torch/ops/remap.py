@@ -78,11 +78,12 @@ def make_remap(map_x, map_y):
     w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
 
     def remap(src):
-        if tuple(src.shape) != (H, W):
+        """(H, W) sources, or (B, H, W): every frame by the same maps."""
+        if tuple(src.shape[-2:]) != (H, W) or src.ndim > 3:
             raise ValueError(f"remap: source shape {tuple(src.shape)}, "
                              f"maps {(H, W)}")
-        flat = src.to(torch.float32).reshape(-1)
-        p = [torch.where(valid, flat[idx], 0.0) for valid, idx in taps]
+        flat = src.to(torch.float32).flatten(-2)
+        p = [torch.where(valid, flat[..., idx], 0.0) for valid, idx in taps]
         out = fma(p[0], w[0], p[1] * w[1])
         out = fma(p[2], w[2], out)
         return fma(p[3], w[3], out)

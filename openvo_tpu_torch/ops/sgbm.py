@@ -51,13 +51,14 @@ def int16_sentinel(block_size: int, cap: int) -> int | None:
 
 
 def prefilter_xsobel(img, cap: int):
-    """Horizontal Sobel clipped to [-cap, cap] and shifted to [0, 2*cap]."""
-    x = F.pad(img.to(torch.float32)[None, None], (1, 1, 1, 1),
-              mode="replicate")[0, 0]
-    H, W = img.shape
+    """Horizontal Sobel clipped to [-cap, cap] and shifted to [0, 2*cap],
+    of an (H, W) image or a (B, H, W) batch."""
+    H, W = img.shape[-2:]
+    x = F.pad(img.to(torch.float32).reshape(-1, 1, H, W), (1, 1, 1, 1),
+              mode="replicate").reshape(img.shape[:-2] + (H + 2, W + 2))
 
     def sh(dy, dx):
-        return x[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+        return x[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
 
     dx = ((sh(-1, 1) + 2 * sh(0, 1) + sh(1, 1))
           - (sh(-1, -1) + 2 * sh(0, -1) + sh(1, -1)))
@@ -156,7 +157,10 @@ def vertical(C, p1: int, p2: int, num_paths: int, acc=None):
 
 def sgbm_disparity16(left, right, params: SGBMParams):
     """Full SGBM pipeline -> (H, W) int16 disparity x16 on the images'
-    device; invalid = (minDisparity - 1) * 16."""
+    device; invalid = (minDisparity - 1) * 16. A (B, H, W) batch runs each
+    kernel once for the batch (the speckle filter, with its host syncs,
+    frame by frame) and gives (B, H, W), each frame's disparity bit for
+    bit."""
     if left.device != right.device:
         raise ValueError(f"device mismatch: {left.device} vs {right.device}")
     cap = max(params.pre_filter_cap, 15) | 1
@@ -173,7 +177,10 @@ def sgbm_disparity16(left, right, params: SGBMParams):
                                   params.disp12_max_diff, svu)
     if params.speckle_window_size > 0 and params.speckle_range > 0:
         invalid = (params.min_disparity - 1) * 16
-        keep = speckle_filter(out, out != invalid, params)
+        valid = out != invalid
+        keep = (speckle_filter(out, valid, params) if out.ndim == 2 else
+                torch.stack([speckle_filter(d, v, params)
+                             for d, v in zip(out, valid)]))
         out = torch.where(keep, out, invalid)
     return out
 

@@ -43,6 +43,14 @@ tensor launches the kernel or raises):
 
 The float32 cost volume and box sum (:func:`cost_volume_f32`) are plain
 PyTorch on every device, as the JAX package leaves that stage to XLA.
+
+Every wrapper also takes a batch of frames, a leading axis on each input
+((B, H, W) images, (B, H, W, D) volumes), and launches each kernel once
+for the batch, as ``jax.vmap`` gives a Pallas kernel a batch grid axis; a
+frame changes only a base offset, so a batched launch gives B single-frame
+launches' bits. The plain versions take a batch too: the row walks (H3,
+H5) fold it into their rows, the others (H1's box sum, H2's columns)
+run frame by frame.
 """
 
 from __future__ import annotations
@@ -57,6 +65,17 @@ _BIG = 1 << 28      # "infinite" L at the disparity range's ends (x2 grid)
 _BIG_KEY = 1 << 30  # out-of-range right-view cost (x2 grid)
 BIG_F = 1e9         # the JAX package's float32 carry and fill (sgbm.BIG)
 XSHIFTS = (0, 1, -1)  # the vertical directions, in the JAX package's order
+
+
+def _over_frames(fn, *tensors):
+    """``fn`` applied to each frame of ``tensors`` (None passes through),
+    its outputs (tensors or tuples of tensors) stacked on a new leading
+    axis: a kernel's plain version on a batch, frame by frame."""
+    outs = [fn(*(None if t is None else t[i] for t in tensors))
+            for i in range(tensors[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
 
 
 def fresh_start(c2):
@@ -162,7 +181,12 @@ def cost_volume_f32(lp, rp, min_disp: int, num_disp: int, block_size: int,
     without an int16 sentinel: the BT cost without doubling or truncation,
     4*cap where a sample falls outside the image, then :func:`block_sum` in
     float32 (``openvo_tpu/ops/sgbm.py:156-171``). Plain PyTorch on every
-    device, as the JAX package leaves this stage to XLA."""
+    device, as the JAX package leaves this stage to XLA; a (B, H, W) batch
+    runs frame by frame (off the int16 paths, so not batched yet)."""
+    if lp.ndim == 3:
+        return _over_frames(
+            lambda a, b: cost_volume_f32(a, b, min_disp, num_disp,
+                                         block_size, cap, bf16, band), lp, rp)
     cost = _bt_cost(lp, rp, min_disp, num_disp, bf16)
     cost = torch.where(torch.isnan(cost), float(4 * cap), cost)
     return block_sum(cost, block_size, band)
@@ -251,7 +275,12 @@ def cost_hsweep_plain(lp, rp, min_disp, num_disp, block_size, sentinel, p1,
                       p2, bf16, band=None):
     """Plain H1: (C (rows, W, D) int16, s1 (rows, W, D) int32 forward
     horizontal L), penalties on the x2 grid; ``band`` as
-    :func:`band_rows`."""
+    :func:`band_rows`. (B, H, W) images give (B, rows, W, D) volumes."""
+    if lp.ndim == 3:
+        return _over_frames(
+            lambda a, b: cost_hsweep_plain(a, b, min_disp, num_disp,
+                                           block_size, sentinel, p1, p2,
+                                           bf16, band), lp, rp)
     C = block_sum(bt_cost_volume2(lp, rp, min_disp, num_disp, sentinel,
                                   bf16), block_size, band).to(torch.int16)
     s1 = sgm_scan(C.transpose(0, 1), 0, p1, p2).transpose(0, 1)
@@ -270,7 +299,12 @@ def vsweep_plain(C, p1, p2, diagonals: bool, down: bool = True,
 
     ``init_carry`` (ndirs, W, D) seeds the first row walked of each
     direction; ``return_carry`` also returns the (ndirs, W, D) L of the last
-    row walked. Both need one direction of travel."""
+    row walked. Both need one direction of travel. A (B, H, W, D) C runs
+    frame by frame, with (B, ndirs, W, D) carries."""
+    if C.ndim == 4:
+        return _over_frames(
+            lambda c, i: vsweep_plain(c, p1, p2, diagonals, down, up, i,
+                                      return_carry), C, init_carry)
     xshifts = XSHIFTS if diagonals else (0,)
     ways = [False] * down + [True] * up
     _check_ways(C, ways, init_carry is not None or return_carry)
@@ -286,9 +320,17 @@ def vsweep_plain(C, p1, p2, diagonals: bool, down: bool = True,
     return (total, torch.stack(carry)) if return_carry else total
 
 
+def _rows_of(C):
+    """C's rows as one (rows, W, D) volume: a batch's frames one after
+    another (each row is a scan line of its own)."""
+    return C.reshape((-1,) + tuple(C.shape[-2:]))
+
+
 def hsweep_plain(C, p1, p2):
-    """Plain H5: L of the left-to-right scan of an (H, W, D) float32 cost."""
-    return scan_f32(C.transpose(0, 1), 0, p1, p2).transpose(0, 1).contiguous()
+    """Plain H5: L of the left-to-right scan of an (H, W, D) (or
+    (B, H, W, D)) float32 cost."""
+    L = scan_f32(_rows_of(C).transpose(0, 1), 0, p1, p2).transpose(0, 1)
+    return L.reshape(C.shape).contiguous()
 
 
 def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12,
@@ -300,7 +342,13 @@ def hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness, disp12,
     Over int16 C the sums are int32 on the x2 grid, and ``sv`` may be None
     where s1 already holds the vertical sum (H2 added into it); over
     float32 C they are float32 in the JAX package's order,
-    ``((s1 + L) + sv) + svu``."""
+    ``((s1 + L) + sv) + svu``. (B, H, W, D) volumes give (B, H, W): every
+    step is row-local, so the frames' rows are walked as one volume's."""
+    if C.ndim == 4:
+        rows = [None if t is None else _rows_of(t) for t in (s1, sv, svu)]
+        return hsweep_wta_lr_plain(
+            _rows_of(C), rows[0], rows[1], p1, p2, min_disp, uniqueness,
+            disp12, rows[2]).view(C.shape[:-1])
     H, W, D = C.shape
     dev = C.device
     f32 = C.dtype == torch.float32
@@ -390,23 +438,31 @@ def cost_hsweep(lp, rp, min_disp: int, num_disp: int, block_size: int,
     their cost, so it costs no extra pass; its walk takes as long as the
     whole image's. D not a multiple of 8, or above 256, takes a walk with
     scalar loads at 32 disparities a lane (correct, several times
-    slower); every D of :class:`SGBMParams` up to 256 takes the ring."""
+    slower); every D of :class:`SGBMParams` up to 256 takes the ring.
+
+    (B, H, W) images (each with the same ``band``) give (B, rows, W, D)
+    volumes from one launch of each kernel: ``bt_box`` takes the frame
+    from its grid's z (a box sum never crosses a frame's edge), ``hwalk``
+    walks the B * rows rows."""
     dev = device_of(lp, rp)
     if dev.type == "cpu":
         return cost_hsweep_plain(lp, rp, min_disp, num_disp, block_size,
                                  sentinel, p1, p2, bf16, band)
-    H, W = lp.shape
-    check_cuda_input(lp, torch.float32, (H, W), "lp")
-    check_cuda_input(rp, torch.float32, (H, W), "rp")
+    lead, (H, W) = _lead(lp, 2, "lp")
+    check_cuda_input(lp, torch.float32, lead + (H, W), "lp")
+    check_cuda_input(rp, torch.float32, lead + (H, W), "rp")
     _check_disparities(num_disp)
     row0, rows, lo, hi = band_rows(H, band)
     lib = _build.library()
-    C = torch.empty((rows, W, num_disp), dtype=torch.int16, device=dev)
-    s1 = torch.empty((rows, W, num_disp), dtype=torch.int32, device=dev)
+    C = torch.empty(lead + (rows, W, num_disp), dtype=torch.int16,
+                    device=dev)
+    s1 = torch.empty(lead + (rows, W, num_disp), dtype=torch.int32,
+                     device=dev)
     err = lib.ovo_cost_hsweep(lp.data_ptr(), rp.data_ptr(), C.data_ptr(),
                               s1.data_ptr(), H, W, num_disp, min_disp,
                               block_size // 2, sentinel, p1, p2, int(bf16),
-                              row0, rows, lo, hi, stream_handle(dev))
+                              row0, rows, lo, hi, _count(lead),
+                              stream_handle(dev))
     cost_hsweep.launches += 1
     _build.check_launch(err, "cost_hsweep")
     return C, s1
@@ -451,7 +507,11 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     needs no zeroed volume), which keeps the JAX package's float32 sum
     order. Bound on the H100 by the adds (the top-down trio at KITTI size
     takes about 0.47 ms, its walk with plain stores 0.26) and, over float32
-    C, by the three launches' reads and writes of the sum."""
+    C, by the three launches' reads and writes of the sum.
+
+    A (B, H, W, D) C (with (B, ndirs, W, D) carries and a (B, H, W, D)
+    ``acc``) walks every line of every frame in each launch: a line's
+    frame moves only its base offsets."""
     dev = device_of(*(t for t in (C, init_carry, acc) if t is not None))
     _check_ways(C, [False] * down + [True] * up,
                 init_carry is not None or return_carry)
@@ -466,34 +526,37 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
         sv, carry = out if return_carry else (out, None)
         acc += sv
         return (acc, carry) if return_carry else acc
-    H, W, D = C.shape
-    _check_cost(C, (H, W, D))
+    lead, (H, W, D) = _lead(C, 3, "C")
+    _check_cost(C, lead + (H, W, D))
     _check_disparities(D)
     nd = len(XSHIFTS) if diagonals else 1
     acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
     if init_carry is not None:
-        check_cuda_input(init_carry, acc_t, (nd, W, D), "init_carry")
+        check_cuda_input(init_carry, acc_t, lead + (nd, W, D), "init_carry")
     if acc is not None:
-        check_cuda_input(acc, acc_t, (H, W, D), "acc")
+        check_cuda_input(acc, acc_t, lead + (H, W, D), "acc")
     lib = _build.library()
     f32 = C.dtype == torch.float32
     if acc is not None:
         sv = acc
     elif f32:    # the first launch sets it
-        sv = torch.empty((H, W, D), dtype=acc_t, device=dev)
+        sv = torch.empty(lead + (H, W, D), dtype=acc_t, device=dev)
     else:        # the reductions add into it
-        sv = torch.zeros((H, W, D), dtype=acc_t, device=dev)
-    carry = (torch.empty((nd, W, D), dtype=acc_t, device=dev)
+        sv = torch.zeros(lead + (H, W, D), dtype=acc_t, device=dev)
+    carry = (torch.empty(lead + (nd, W, D), dtype=acc_t, device=dev)
              if return_carry else None)
+
+    def carry_ptr(t, j):   # direction j's carry of the first frame
+        return None if t is None else t.select(-3, j).data_ptr()
+
     # (first direction, number of directions) of each launch: every
     # direction in one over int16 C, one launch each over float32 C
     for j0, n in [(j, 1) for j in range(nd)] if f32 else [(0, nd)]:
         err = lib.ovo_vsweep(
             C.data_ptr(), int(f32), sv.data_ptr(), H, W, D, p1, p2, j0, n,
             int(down), int(up), int(f32 and j0 == 0),
-            None if init_carry is None else init_carry[j0].data_ptr(),
-            None if carry is None else carry[j0].data_ptr(),
-            stream_handle(dev))
+            carry_ptr(init_carry, j0), carry_ptr(carry, j0), _count(lead),
+            nd * W * D, stream_handle(dev))
         vsweep.launches += 1
         _build.check_launch(err, "vsweep")
     return (sv, carry) if return_carry else sv
@@ -513,17 +576,18 @@ def hsweep(C, p1: int, p2: int):
     as the JAX carry, so its first L is ``(c + 1e9) - 1e9``. Bound by the
     walk's dependency chain over W (376 rows give one warp to each SM
     quarter they reach: about 0.18 ms at KITTI size on the H100, 1.2x the
-    0.14 ms its 8 bytes per volume element take)."""
+    0.14 ms its 8 bytes per volume element take). A (B, H, W, D) C is
+    B * H rows of one launch."""
     dev = device_of(C)
     if dev.type == "cpu":
         return hsweep_plain(C, p1, p2)
-    H, W, D = C.shape
-    check_cuda_input(C, torch.float32, (H, W, D), "C")
+    lead, (H, W, D) = _lead(C, 3, "C")
+    check_cuda_input(C, torch.float32, lead + (H, W, D), "C")
     _check_disparities(D)
     lib = _build.library()
-    out = torch.empty((H, W, D), dtype=torch.float32, device=dev)
-    err = lib.ovo_hsweep(C.data_ptr(), out.data_ptr(), H, W, D, p1, p2,
-                         stream_handle(dev))
+    out = torch.empty(C.shape, dtype=torch.float32, device=dev)
+    err = lib.ovo_hsweep(C.data_ptr(), out.data_ptr(), _count(lead) * H, W,
+                         D, p1, p2, stream_handle(dev))
     hsweep.launches += 1
     _build.check_launch(err, "hsweep")
     return out
@@ -560,7 +624,8 @@ def hsweep_wta_lr(C, s1, sv, p1: int, p2: int, min_disp: int,
     of the column's reductions, vote and shuffles beside it (a latency: a
     KITTI frame gives one warp to each SM quarter it reaches); it reads 6
     bytes per volume element over int16 C, 12 over float32 C, 4 more with
-    ``svu``."""
+    ``svu``. (B, H, W, D) volumes give (B, H, W) from one launch: the
+    B * H rows are walked as one volume's."""
     named = [(n, t) for n, t in (("s1", s1), ("sv", sv), ("svu", svu))
              if t is not None]
     dev = device_of(C, *(t for _, t in named))
@@ -573,20 +638,21 @@ def hsweep_wta_lr(C, s1, sv, p1: int, p2: int, min_disp: int,
     if dev.type == "cpu":
         return hsweep_wta_lr_plain(C, s1, sv, p1, p2, min_disp, uniqueness,
                                    disp12, svu)
-    H, W, D = C.shape
-    _check_cost(C, (H, W, D))
+    lead, (H, W, D) = _lead(C, 3, "C")
+    _check_cost(C, lead + (H, W, D))
     acc_t = torch.int32 if C.dtype == torch.int16 else torch.float32
     for name, t in named:
-        check_cuda_input(t, acc_t, (H, W, D), name)
+        check_cuda_input(t, acc_t, lead + (H, W, D), name)
     _check_disparities(D)
     lib = _build.library()
-    out = torch.empty((H, W), dtype=torch.int16, device=dev)
+    out = torch.empty(lead + (H, W), dtype=torch.int16, device=dev)
     err = lib.ovo_hsweep_wta_lr(C.data_ptr(), int(C.dtype == torch.float32),
                                 s1.data_ptr(),
                                 None if sv is None else sv.data_ptr(),
                                 None if svu is None else svu.data_ptr(),
-                                out.data_ptr(), H, W, D, p1, p2, min_disp,
-                                uniqueness, disp12, stream_handle(dev))
+                                out.data_ptr(), _count(lead) * H, W, D, p1,
+                                p2, min_disp, uniqueness, disp12,
+                                stream_handle(dev))
     hsweep_wta_lr.launches += 1
     _build.check_launch(err, "hsweep_wta_lr")
     return out
@@ -598,6 +664,20 @@ hsweep.launches = 0
 hsweep_wta_lr.launches = 0
 
 KERNELS = (cost_hsweep, vsweep, hsweep, hsweep_wta_lr)
+
+
+def _lead(t, frame_dims: int, name: str):
+    """(batch shape, frame shape) of ``t``: a frame of ``frame_dims``
+    axes, or a batch of them on one leading axis."""
+    if t.ndim not in (frame_dims, frame_dims + 1):
+        raise ValueError(f"{name}: {t.ndim} axes, expected {frame_dims} or "
+                         f"{frame_dims + 1} (a leading frame axis)")
+    return tuple(t.shape[:-frame_dims]), tuple(t.shape[-frame_dims:])
+
+
+def _count(lead) -> int:
+    """Frames in a batch shape: 1 without a frame axis."""
+    return lead[0] if lead else 1
 
 
 def _check_ways(C, ways, carry: bool) -> None:

@@ -1,0 +1,77 @@
+"""Multi-camera rig batching, PyTorch port of ``openvo_tpu/parallel/rig.py``:
+N independent stereo odometers advanced together, the cameras a leading
+batch axis of every tensor of the step.
+
+JAX maps the whole step over the cameras with ``jax.vmap``. Here the step
+takes the (N, H, W) batch itself: ``extract`` runs each kernel and plain
+stage once for the N cameras, and ``step_feats`` runs each camera's state
+machine on its own (the fallback attempt for every camera when any needs
+it, each taking its own branch; one host sync a step).
+
+All cameras share calibration (the synthetic-rig case), as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from openvo_tpu_torch.config import OdometerConfig
+from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
+                                                     OdomState, init_state,
+                                                     make_step)
+
+
+def make_rig_step(camera, cfg: OdometerConfig, color: bool = False):
+    """Batched step: (states, imgsL (N,H,W), imgsR) -> (states', oks, stats).
+    The odometer's step takes a leading camera axis as it stands."""
+    return make_step(camera, cfg, color)
+
+
+def init_rig_state(camera, cfg: OdometerConfig, n_cameras: int) -> OdomState:
+    """The initial state of ``n_cameras`` odometers on the camera's
+    device: every tensor of the one-camera state with a leading axis."""
+    one = init_state(camera.cropped_shape, cfg.orb.max_keypoints,
+                     camera.device)
+
+    def batch(x):
+        return x.expand((n_cameras,) + x.shape).clone()
+
+    return OdomState(FrameFeatures(*map(batch, one.cur)),
+                     FrameFeatures(*map(batch, one.prev)),
+                     *map(batch, one[2:]))
+
+
+class RigOdometer:
+    """N independent odometers advanced by one batched step on the
+    camera's device (the card unless the camera was built with
+    ``device="cpu"``)."""
+
+    def __init__(self, camera, n_cameras: int,
+                 config: OdometerConfig | None = None):
+        self.camera = camera
+        self.config = config or OdometerConfig()
+        self.n_cameras = n_cameras
+        self.device = camera.device
+        self._state = init_rig_state(camera, self.config, n_cameras)
+        self._step = make_rig_step(camera, self.config)
+        self.last_stats = {}
+
+    def update(self, imgs_left, imgs_right):
+        """imgs_*: (N, H, W). Returns per-camera success flags (N,) bool;
+        ``last_stats`` holds each camera's step statistics."""
+        self._state, oks, stats = self._step(
+            self._state, torch.as_tensor(imgs_left, device=self.device),
+            torch.as_tensor(imgs_right, device=self.device))
+        names = list(stats)
+        vals = torch.stack([oks.to(torch.int32)]
+                           + [stats[k].to(torch.int32) for k in names]).cpu()
+        self.last_stats = {k: vals[1 + i].numpy() for i, k in
+                           enumerate(names)}
+        return vals[0].numpy().astype(bool)
+
+    def current_poses(self):
+        """(N, 4, 4) float64 camera-in-world poses, inv(c_T_w)."""
+        return np.linalg.inv(self._state.c_T_w.cpu().numpy().astype(
+            np.float64))

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from openvo_tpu_torch.geometry.se3 import rt_to_T
 from openvo_tpu_torch.ops.image import fma
 
 
@@ -42,28 +43,33 @@ def svd(a, full_matrices=True):
 
 
 def kabsch(src, dst, mask):
-    """Best-fit rigid (4, 4) float32 transform mapping ``src`` -> ``dst``
-    over the rows where ``mask`` holds. Invalid rows may hold anything
-    (inf, NaN): they are zeroed before the reduction; NaNs in valid rows
-    poison the fit on purpose."""
-    w = mask.to(torch.float32)[:, None]
-    n = torch.clamp_min(w.sum(), 1.0)
-    src_c = torch.where(w > 0, src, 0.0)
-    dst_c = torch.where(w > 0, dst, 0.0)
-    mu_s = src_c.sum(0) / n
-    mu_d = dst_c.sum(0) / n
-    X = (src_c - mu_s) * w
-    Y = (dst_c - mu_d) * w
-    H = X.T @ Y
+    """Best-fit rigid (4, 4) float32 transform mapping ``src`` (N, 3) ->
+    ``dst`` over the rows where ``mask`` holds. Invalid rows may hold
+    anything (inf, NaN): they are zeroed before the reduction; NaNs in
+    valid rows poison the fit on purpose. A batch, (B, N, 3) with a
+    (B, N) mask, gives (B, 4, 4) from one batched 3x3 SVD.
+
+    The fit runs in float64 and rounds once to float32 at the end: the
+    products of float32 values are exact and the sums round near 1e-16, so
+    a batched call gives each member its own call's float32 bits whatever
+    order the batched sums, products and SVD take."""
+    w = mask.to(torch.float64)[..., None]
+    n = torch.clamp_min(w.sum(-2), 1.0)
+    src_c = torch.where(w > 0, src.to(torch.float64), 0.0)
+    dst_c = torch.where(w > 0, dst.to(torch.float64), 0.0)
+    mu_s = src_c.sum(-2) / n
+    mu_d = dst_c.sum(-2) / n
+    X = (src_c - mu_s[..., None, :]) * w
+    Y = (dst_c - mu_d[..., None, :]) * w
+    H = X.transpose(-1, -2) @ Y
     U, _, Vt = svd(H)   # NaN in H: NaN in R and t, as LAPACK under JAX
-    d = torch.sign(torch.linalg.det(Vt.T @ U.T))
-    D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
-    R = Vt.T @ D @ U.T
-    t = mu_d - R @ mu_s
-    T = torch.eye(4, dtype=torch.float32, device=src.device)
-    T[:3, :3] = R
-    T[:3, 3] = t
-    return torch.where(mask.sum() < 3, float("nan"), T)
+    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    d = torch.sign(torch.linalg.det(V @ Ut))
+    one = torch.ones_like(d)
+    R = V @ torch.diag_embed(torch.stack([one, one, d], -1)) @ Ut
+    t = mu_d - (R @ mu_s[..., None])[..., 0]
+    few = (mask.sum(-1) < 3)[..., None, None]
+    return torch.where(few, float("nan"), rt_to_T(R, t).to(torch.float32))
 
 
 def residuals_relative(T, src, dst, mask):

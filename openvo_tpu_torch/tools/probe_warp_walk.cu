@@ -492,7 +492,7 @@ void time_h2_port(int lines, const void* C, void* sv,
       auto kernel = vsweep_kernel<P, 32, kScalar>;
       kernel<<<(nlines + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps>>>(
           (const typename P::C*)C, (L*)sv, H, W, D, p1, p2, dir0, ndirs, down,
-          per_way, nlines, assign, nullptr, nullptr);
+          per_way, nlines, assign, nullptr, nullptr, 1, 0);
     });
   };
   const std::string name =
@@ -606,7 +606,7 @@ int main(int argc, char** argv) {
                     (D + 31) / 32);
     std::printf("bt_box (bf16), tile 16x%d:   %.4f ms\n", tx, time_ms([&] {
                   bt_box_kernel<true><<<grid, kBoxThreads, bsm>>>(
-                      lp, rp, C, W, D, 0, R, 504, 0, H, 0, H - 1, tx);
+                      lp, rp, C, W, D, 0, R, 504, 0, H, 0, H - 1, tx, H);
                 }));
     cudaMemcpy(C, c.data(), sizeof(int16_t) * n, cudaMemcpyHostToDevice);
 

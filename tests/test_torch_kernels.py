@@ -544,3 +544,199 @@ def test_mono_odometer_on_the_card_equals_cpu(cuda):
             np.linalg.norm(mg[:3, 3]) * np.linalg.norm(mw[:3, 3]), 1e-12)
         assert rot < 5e-3 and (i == 0 or np.arccos(min(cd, 1.0)) < 0.1), i
         prev = (g[2], w[2])
+
+
+# ---------------------------------------------------------------------------
+# a batch of frames: one launch, each frame's bits
+# ---------------------------------------------------------------------------
+
+FRAMES = 3
+
+
+def batch_pair(dev, H, W, cap=63):
+    """FRAMES prefiltered pairs, (FRAMES, H, W) each: two integer pairs of
+    other textures and one fractional."""
+    pairs = [prefiltered_pair(dev, H, W, seed=s, integer=s != 1, cap=cap)
+             for s in range(FRAMES)]
+    return tuple(torch.stack(t) for t in zip(*pairs))
+
+
+def launches(kernel, fn):
+    """(fn()'s output, the launches of ``kernel`` it made)."""
+    n0 = kernel.launches
+    out = fn()
+    return out, kernel.launches - n0
+
+
+def assert_batch(out, frames, plain):
+    """``out`` (a tensor or tuple of tensors with a frame axis) equals the
+    stacked single-frame outputs ``frames`` and the plain version's."""
+    out, plain = as_tuple(out), as_tuple(plain)
+    for i, one in enumerate(frames):
+        for a, b in zip(out, as_tuple(one), strict=True):
+            assert torch.equal(a[i], b), i
+    for a, b in zip(out, plain, strict=True):
+        assert torch.equal(a, b)
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("H,W,D,band", [
+    (40, 120, 64, None), (48, 200, 128, None), (40, 100, 33, None),
+    (40, 120, 48, (3, False, False)), (40, 120, 64, (3, True, False))])
+def test_batched_cost_hsweep_equals_frames(cuda, H, W, D, band):
+    lp, rp = batch_pair(cuda, H, W)
+    args = (0, D, 5, sgbm.int16_sentinel(5, 63), 400, 1600, True, band)
+    out, n = launches(sgbm_cuda.cost_hsweep,
+                      lambda: sgbm_cuda.cost_hsweep(lp, rp, *args))
+    assert n == 1
+    assert_batch(out, [sgbm_cuda.cost_hsweep(lp[i], rp[i], *args)
+                       for i in range(FRAMES)],
+                 sgbm_cuda.cost_hsweep_plain(lp, rp, *args))
+
+
+def batch_cost(dev, dtype, H, W, D):
+    """(C (FRAMES, H, W, D), p1, p2) of FRAMES pairs."""
+    lp, rp = batch_pair(dev, H, W)
+    if dtype == torch.int16:
+        return sgbm_cuda.cost_hsweep(lp, rp, 0, D, 5, 504, 400, 1600,
+                                     True)[0], 400, 1600
+    return (sgbm_cuda.cost_volume_f32(lp, rp, 0, D, 13, 63, True), 8 * 169,
+            32 * 169)
+
+
+# (C's dtype, diagonals, down, up): every variant a path runs (float32 C
+# takes one direction of travel a call)
+BATCHED_VSWEEP = [(torch.int16, True, True, False),
+                  (torch.int16, True, False, True),
+                  (torch.int16, True, True, True),
+                  (torch.int16, False, True, True),
+                  (torch.float32, True, True, False),
+                  (torch.float32, True, False, True),
+                  (torch.float32, False, True, False)]
+
+
+@pytest.mark.parametrize("D", [64, 48, 33])
+@pytest.mark.parametrize("dtype,diagonals,down,up", BATCHED_VSWEEP)
+def test_batched_vsweep_equals_frames(cuda, D, dtype, diagonals, down, up):
+    C, p1, p2 = batch_cost(cuda, dtype, 40, 112, D)
+    kw = dict(down=down, up=up)
+    frames = [sgbm_cuda.vsweep(C[i], p1, p2, diagonals, **kw)
+              for i in range(FRAMES)]
+    plain = sgbm_cuda.vsweep_plain(C, p1, p2, diagonals, **kw)
+    out, n = launches(sgbm_cuda.vsweep,
+                      lambda: sgbm_cuda.vsweep(C, p1, p2, diagonals, **kw))
+    assert n == (1 if dtype == torch.int16 else (3 if diagonals else 1))
+    assert_batch(out, frames, plain)
+    if dtype == torch.int16:   # as the paths run it: into H1's s1
+        base = torch.randint(0, 1000, C.shape, dtype=torch.int32,
+                             device=cuda)
+        acc = sgbm_cuda.vsweep(C, p1, p2, diagonals, **kw, acc=base.clone())
+        assert torch.equal(acc, base + plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32],
+                         ids=["int16", "float32"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_batched_vsweep_carry_equals_frames(cuda, dtype, reverse):
+    """The carry in and out of a batch: (FRAMES, 3, W, D), each frame's."""
+    C, p1, p2 = batch_cost(cuda, dtype, 40, 112, 48)
+    ways = dict(down=not reverse, up=reverse)
+    first, second = ((C[:, 23:], C[:, :23]) if reverse
+                     else (C[:, :23], C[:, 23:]))
+    first, second = first.contiguous(), second.contiguous()
+    a, carry = sgbm_cuda.vsweep(first, p1, p2, True, **ways,
+                                return_carry=True)
+    b, carry2 = sgbm_cuda.vsweep(second, p1, p2, True, **ways,
+                                 init_carry=carry, return_carry=True)
+    assert carry.shape == (FRAMES, 3, 112, 48)
+    for i in range(FRAMES):
+        ai, ci = sgbm_cuda.vsweep(first[i], p1, p2, True, **ways,
+                                  return_carry=True)
+        bi, ci2 = sgbm_cuda.vsweep(second[i], p1, p2, True, **ways,
+                                   init_carry=ci, return_carry=True)
+        for x, y in ((a[i], ai), (carry[i], ci), (b[i], bi),
+                     (carry2[i], ci2)):
+            assert torch.equal(x, y), i
+    whole = sgbm_cuda.vsweep_plain(C, p1, p2, True, **ways)
+    joined = torch.cat([b, a], 1) if reverse else torch.cat([a, b], 1)
+    assert torch.equal(joined, whole)
+
+
+@pytest.mark.parametrize("D", [64, 48, 33, 128])
+def test_batched_hsweep_and_wta_equal_frames(cuda, D):
+    """H5 and H3 (over int16 C with s1 holding the vertical sum, over
+    float32 C with and without the bottom-up partial) on a batch."""
+    C, p1, p2 = batch_cost(cuda, torch.int16, 40, 112, D)
+    wta = (0, 10, 1)
+    s1 = sgbm_cuda.cost_hsweep(*batch_pair(cuda, 40, 112), 0, D, 5, 504,
+                               400, 1600, True)[1]
+    s1 = sgbm_cuda.vsweep(C, p1, p2, True, acc=s1)
+    out, n = launches(sgbm_cuda.hsweep_wta_lr, lambda: sgbm_cuda.hsweep_wta_lr(
+        C, s1, None, p1, p2, *wta))
+    assert n == 1
+    assert_batch(out, [sgbm_cuda.hsweep_wta_lr(C[i], s1[i], None, p1, p2,
+                                               *wta) for i in range(FRAMES)],
+                 sgbm_cuda.hsweep_wta_lr_plain(C, s1, None, p1, p2, *wta))
+    Cf, q1, q2 = batch_cost(cuda, torch.float32, 40, 112, D)
+    s1f, n = launches(sgbm_cuda.hsweep, lambda: sgbm_cuda.hsweep(Cf, q1, q2))
+    assert n == 1
+    assert_batch(s1f, [sgbm_cuda.hsweep(Cf[i], q1, q2)
+                       for i in range(FRAMES)],
+                 sgbm_cuda.hsweep_plain(Cf, q1, q2))
+    sv = sgbm_cuda.vsweep(Cf, q1, q2, True)
+    svu = sgbm_cuda.vsweep(Cf, q1, q2, True, down=False, up=True)
+    for u in (None, svu):
+        assert_batch(
+            sgbm_cuda.hsweep_wta_lr(Cf, s1f, sv, q1, q2, *wta, u),
+            [sgbm_cuda.hsweep_wta_lr(Cf[i], s1f[i], sv[i], q1, q2, *wta,
+                                     None if u is None else u[i])
+             for i in range(FRAMES)],
+            sgbm_cuda.hsweep_wta_lr_plain(Cf, s1f, sv, q1, q2, *wta, u))
+
+
+@pytest.mark.parametrize("K", [1, 40, 512])
+def test_batched_brief_describe_equals_frames(cuda, K):
+    """Frames with other stacks and other numbers of valid keypoints (all,
+    a few, none), keypoints at every clamped edge."""
+    frames = [brief_inputs(cuda, K, integer=s != 1, seed=s)
+              for s in range(FRAMES)]
+    args = [torch.stack(t) for t in zip(*frames)]
+    args[5][1, K // 8:] = False
+    args[5][2] = False
+    frames = [tuple(a[i] for a in args) for i in range(FRAMES)]
+    out, n = launches(orb_cuda.brief_describe,
+                      lambda: orb_cuda.brief_describe(*args))
+    assert n == 1 and out.shape == (FRAMES, K, 32)
+    assert_batch(out, [orb_cuda.brief_describe(*f) for f in frames],
+                 orb_cuda.brief_describe_plain(*args))
+    assert not out[2].any()
+
+
+def test_batched_sgbm_and_extract_equal_frames(cuda):
+    """The SGBM and the odometer's extract on a batch of 3 frames of the
+    corridor, on the card: each frame's disparity, keypoints and
+    descriptors as the single-frame calls give them."""
+    from openvo_tpu_torch import OdometerConfig, StereoCamera
+    from openvo_tpu_torch.io.synthetic import render_stereo_sequence
+    from openvo_tpu_torch.models.stereo_odometer import make_pipeline_fns
+
+    seq = render_stereo_sequence(n_frames=FRAMES, img_size=(320, 240),
+                                 f=280.0, baseline=0.5, seed=0, step=0.3)
+    cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
+                       {"R": seq["R"], "T": seq["T"]},
+                       SGBMParams(num_disparities=64, block_size=5, p1=200,
+                                  p2=800, disp12_max_diff=1,
+                                  pre_filter_cap=63, uniqueness_ratio=10),
+                       (320, 240), device="cuda")
+    extract = make_pipeline_fns(cam, OdometerConfig(), False)["extract"]
+    lefts, rights = (torch.from_numpy(np.clip(seq[k], 0, 255).astype(
+        np.uint8)).to(cuda) for k in ("left", "right"))
+    batched = extract(lefts, rights)
+    for i in range(FRAMES):
+        one = extract(lefts[i], rights[i])
+        for name in ("disp", "kp_xy", "desc", "kp_valid"):
+            assert torch.equal(getattr(batched, name)[i],
+                               getattr(one, name)), (name, i)
