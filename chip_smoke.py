@@ -19,10 +19,13 @@ Phases, in order; any failure exits non-zero before the final line:
    beside theirs (in the log only, not in the JSON line); H4 from frame
    0's pyramid and on a random stack with keypoints at every clamped
    edge; then H1, H2 (the top-down trio into s1), H3 and H4 launched once
-   over a batch of frames 0-15, each also held to its 16 single-frame
-   launches, timed a frame; also hold the speckle filter on the card
-   against the same function on the CPU, and time block13's plain float32
-   cost volume;
+   over a batch of frames 0-15, and H5, the float32 H2 trio and H3 over
+   block13's float32 C of the same frames, each also held to its 16
+   single-frame launches, timed a frame; also hold the speckle filter on
+   the card against the same function on the CPU, on frame 0 and on
+   frames 0-15 as one batch (whose host syncs must be its slowest
+   frame's), and time block13's plain float32 cost volume alone and over
+   the batch;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
    SGBM configurations, with the rigid clique and outlier filters on, and
@@ -30,11 +33,16 @@ Phases, in order; any failure exits non-zero before the final line:
    disabled, and check tracking, ATE (`filters` and `cv2rank`: against
    the JAX package's runs, FILTERS_JAX and tools/jax_mono_reference.npz)
    and every kernel's launches per frame;
-   then `off-tp`: ``parallel/stream.make_stream_fn`` with chunks of 16
-   (each extracted batched: H1-H4 once a chunk) and `rig8`:
+   then the streams (STREAMS): ``parallel/stream.make_stream_fn`` with
+   chunks of 16, each extracted batched, at off-lat's SGBM (`off-tp`: H1-H4
+   once a chunk), on-lat's (`on-tp`: the speckle filter's loop once a
+   chunk too) and block13's (`block13-tp`: H5, H3 and the float32 H2's
+   three launches once a chunk), and the rigs (RIGS):
    ``parallel/rig.RigOdometer`` with 8 cameras, camera 7 fed a blank pair
-   at frame 20; both held to off-lat frame by frame (ok, skip cause,
-   c_T_w within 1e-5), with launches and host syncs a frame;
+   at frame 20, with off-lat's settings (`rig8`) and `filters`' (`rig8-
+   filters`: the rigid clique and outlier pass over the 8 cameras at
+   once); each held to its single-frame path frame by frame (ok, skip
+   cause, c_T_w within 1e-5), with launches and host syncs a frame;
 4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
@@ -163,7 +171,15 @@ SHARD_RANKS = 4
 SHARD_FRAMES = 16        # frames 0-15 on shard4, 4 a rank
 POSE_TOL = 1e-5          # c_T_w against off-lat's (tests/test_parallel.py:270)
 # the paths that launch the batched kernel variants
-BATCHED_PATHS = ("off-tp", "rig8", "shard4")
+BATCHED_PATHS = ("off-tp", "on-tp", "block13-tp", "rig8", "rig8-filters",
+                 "shard4")
+# the streamed paths: name -> the single-frame path of PATHS it streams and
+# is held to frame by frame
+STREAMS = {"off-tp": "off-lat", "on-tp": "on-lat", "block13-tp": "block13"}
+# the rigs: name -> the single-frame path whose odometer settings each
+# camera runs and is held to (rig8-filters: `filters`' rigid clique and
+# outlier pass, the cameras' filters batched)
+RIGS = {"rig8": "off-lat", "rig8-filters": "filters"}
 SHIFT = 0.37             # px: frame 0 resampled so every pixel is fractional
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -561,10 +577,12 @@ def brief_case(torch, variant, path, calls):
 
 
 def batched_cases(torch, seq, cam, cfg):
-    """Phase 2's batched variants, as the off-tp, rig8 and shard4 paths
-    launch them: H1, H2 (the top-down trio into s1), H3 and H4 once over
-    frames 0-15 (BATCH) at KITTI shapes, each against its kernel's
-    single-frame launch on each frame and its plain version on the batch."""
+    """Phase 2's batched variants, as the batched paths launch them: H1, H2
+    (the top-down trio into s1), H3 and H4 once over frames 0-15 (BATCH)
+    at KITTI shapes (off-tp, on-tp, rig8, rig8-filters, shard4), and H5,
+    the float32 H2 trio and H3 over block13's float32 C of the same frames
+    (block13-tp); each against its kernel's single-frame launch on each
+    frame and its plain version on the batch."""
     from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda as sc
 
     dev = cam.device
@@ -595,6 +613,15 @@ def batched_cases(torch, seq, cam, cfg):
                                       h4[5][i]) for i in frames) + sum(
         t.numel() * t.element_size() for t in h4[1:])
 
+    # block13's float32 path on the same frames, as block13-tp runs it
+    q = path_params("block13")
+    q1, q2 = q.effective_p1, q.effective_p2
+    Cf = sc.cost_volume_f32(lp, rp, q.min_disparity, q.num_disparities,
+                            q.block_size, cap, True)
+    s1f = sc.hsweep(Cf, q1, q2)
+    svf = sc.vsweep(Cf, q1, q2, True)
+    wta13 = (q1, q2, q.min_disparity, q.uniqueness_ratio, q.disp12_max_diff)
+
     return [
         Case("cost_hsweep", f"int16 C, {variant}", "off-tp",
              lambda: sc.cost_hsweep(lp, rp, *h1),
@@ -623,6 +650,23 @@ def batched_cases(torch, seq, cam, cfg):
              ((45 * 39 + 39 * 39) * 13 + 256 * 12) / 32, ORB_SRC, h4_bytes,
              frames=BATCH,
              single=lambda: [orb_cuda.brief_describe(*(t[i] for t in h4))
+                             for i in frames]),
+        Case("hsweep", f"forward, float32 C (block13), {variant}",
+             "block13-tp", lambda: sc.hsweep(Cf, q1, q2),
+             lambda: sc.hsweep_plain(Cf, q1, q2), K6, (Cf,), 10,
+             frames=BATCH,
+             single=lambda: [sc.hsweep(Cf[i], q1, q2) for i in frames]),
+        Case("vsweep", f"down trio, float32 C (block13), {variant}",
+             "block13-tp", lambda: sc.vsweep(Cf, q1, q2, True),
+             lambda: sc.vsweep_plain(Cf, q1, q2, True), K2, (Cf,), 30,
+             frames=BATCH,
+             single=lambda: [sc.vsweep(Cf[i], q1, q2, True)
+                             for i in frames]),
+        Case("hsweep_wta_lr", f"float32 C (block13), {variant}",
+             "block13-tp", lambda: sc.hsweep_wta_lr(Cf, s1f, svf, *wta13),
+             lambda: sc.hsweep_wta_lr_plain(Cf, s1f, svf, *wta13), K7_K4,
+             (Cf, s1f, svf), 20 * q.num_disparities, WTA_SRC, frames=BATCH,
+             single=lambda: [sc.hsweep_wta_lr(Cf[i], s1f[i], svf[i], *wta13)
                              for i in frames]),
     ]
 
@@ -704,10 +748,11 @@ def check_kernels(torch, seq, cam, cfg):
 
 
 def check_plain_stages(torch, seq, cam):
-    """The plain PyTorch stages of the paths, on frame 0: the speckle
-    filter on the card against the same function on the CPU (on-lat's
-    disparity before the filter), and the time of block13's float32 cost
-    volume and box sum."""
+    """The plain PyTorch stages of the paths, on frame 0 and on frames 0-15
+    as one batch: the speckle filter on the card against the same function
+    on the CPU (on-lat's disparity before the filter; a batch's host syncs
+    against its frames' own), and the time and peak memory of block13's
+    float32 cost volume and box sum."""
     from openvo_tpu_torch.ops import sgbm, sgbm_cuda
     from openvo_tpu_torch.ops.remap import remap_bilinear
 
@@ -744,16 +789,59 @@ def check_plain_stages(torch, seq, cam):
     cost_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     log(f"[cost_volume_f32] block13's float32 cost volume and box sum: "
         f"{cost_ms:.4f} ms on the card, {cost_mib:.1f} MiB at its peak")
+
+    # the same stages over frames 0-15 as one batch, as on-tp and
+    # block13-tp run them
+    lefts, rights = (torch.stack([
+        remap_bilinear(torch.as_tensor(seq[side][i], device=cam.device)
+                       .to(torch.float32), *maps) for i in range(BATCH)])
+        for side, maps in (("left", cam.map_left), ("right", cam.map_right)))
+    d16b = sgbm.sgbm_disparity16(lefts, rights, unfiltered)
+    validb = d16b != (p.min_disparity - 1) * 16
+    rounds = []
+    for i in range(BATCH):
+        sgbm.speckle_filter.syncs = 0
+        sgbm.speckle_filter(d16b[i], validb[i], p)
+        rounds.append(sgbm.speckle_filter.syncs)
+    sgbm.speckle_filter.syncs = 0
+    keepb = sgbm.speckle_filter(d16b, validb, p)
+    syncs_b = sgbm.speckle_filter.syncs
+    if not torch.equal(keepb.cpu(),
+                       sgbm.speckle_filter(d16b.cpu(), validb.cpu(), p)):
+        raise AssertionError("the batched speckle mask on the card differs "
+                             "from the CPU's")
+    if syncs_b != max(rounds):
+        raise AssertionError(f"the batched speckle filter synced {syncs_b} "
+                             f"times, its frames {rounds}")
+    ms_b = time_ms(torch, lambda: sgbm.speckle_filter(d16b, validb, p),
+                   5) / BATCH
+    log(f"[speckle] frames 0-{BATCH - 1} as one batch: mask equal to the "
+        f"CPU's; {syncs_b} host syncs (its frames alone: {rounds}); "
+        f"{ms_b:.4f} ms a frame on the card")
+    lps, rps = sgbm.prefilter_xsobel(lefts, cap), sgbm.prefilter_xsobel(
+        rights, cap)
+    del d16b, validb, keepb
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cost_ms_b = time_ms(torch, lambda: sgbm_cuda.cost_volume_f32(
+        lps, rps, *cost_args[2:]), 2) / BATCH
+    cost_mib_b = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    log(f"[cost_volume_f32] over frames 0-{BATCH - 1} as one batch: "
+        f"{cost_ms_b:.4f} ms a frame on the card, {cost_mib_b:.1f} MiB at "
+        f"its peak")
     return [{"name": "speckle_filter", "variant": "plain PyTorch",
              "route": "torch", "source": "openvo_tpu_torch/ops/sgbm.py",
              "replaces": "openvo_tpu/ops/sgbm.py:498 (XLA, no Pallas "
                          "kernel)", "max_abs_err": 0.0, "ms": ms,
-             "host_syncs": syncs},
+             "host_syncs": syncs, "batch_ms_a_frame": ms_b,
+             "batch_host_syncs": syncs_b},
             {"name": "cost_volume_f32", "variant": "float32, block 13, plain "
              "PyTorch", "route": "torch",
              "source": "openvo_tpu_torch/ops/sgbm_cuda.py",
              "replaces": "openvo_tpu/ops/sgbm.py:555-558 (XLA)",
-             "ms": cost_ms, "peak_mib": cost_mib}]
+             "ms": cost_ms, "peak_mib": cost_mib,
+             "batch_ms_a_frame": cost_ms_b, "batch_peak_mib": cost_mib_b}]
 
 
 def time_k4_library(torch, dev, smi):
@@ -1287,54 +1375,61 @@ def count_launches(torch, fn):
     return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
 
 
-def batched_path_kernels(launches, name, want):
-    """Fail unless each of H1-H4 launched ``want`` times on a batched path
-    (H1, ``cost_hsweep``, is its two kernels bt_box and hwalk) and H5 not
-    at all."""
-    expected = {"cost_hsweep": want, "vsweep": want, "hsweep_wta_lr": want,
-                "brief_describe": want, "hsweep": 0}
+def batched_path_kernels(launches, name, want, base="off-lat"):
+    """Fail unless each kernel launched ``want`` times what a frame of the
+    single-frame path ``base`` launches, on a batched path: H1-H4 ``want``
+    times and H5 not at all at off-lat's parameters (H1, ``cost_hsweep``,
+    is its two kernels bt_box and hwalk); H5, H3 and H4 ``want`` times, the
+    float32 H2 three times that and H1 not at all at block13's."""
+    expected = {k: n * want
+                for k, n in expected_launches(path_params(base)).items()}
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expected}")
 
 
-def off_lat_camera(calib):
-    """The off-lat camera of the corridor's calibration (K, dist, R, T of
-    the rendered sequence, or of a rank's inputs)."""
+def path_camera(calib, base="off-lat"):
+    """The camera of the single-frame path ``base`` (off-lat unless given)
+    on the corridor's calibration (K, dist, R, T of the rendered sequence,
+    or of a rank's inputs)."""
     from openvo_tpu_torch import StereoCamera
 
     return StereoCamera(calib["K"], calib["dist"], calib["K"], calib["dist"],
                         {"R": calib["R"], "T": calib["T"]},
-                        path_params("off-lat"), IMG_SIZE, device=DEVICE)
+                        path_params(base), IMG_SIZE, device=DEVICE)
 
 
-def held_to_off_lat(name, ok, causes, ctws, ref, frames=None):
-    """A path's per-frame ok, skip cause and c_T_w against off-lat's."""
+def held_to_path(name, ok, causes, ctws, ref, base="off-lat", frames=None):
+    """A path's per-frame ok, skip cause and c_T_w against the single-frame
+    path ``base``'s record ``ref``."""
     frames = range(N_FRAMES) if frames is None else frames
     bad = [i for i in frames if ok[i] != ref["ok"][i]
            or causes[i] != ref["causes"][i]]
     gap = max(float(np.abs(ctws[i] - ref["c_T_w"][i]).max()) for i in frames)
-    log(f"[{name}] against off-lat: frames differing in ok or skip cause "
+    log(f"[{name}] against {base}: frames differing in ok or skip cause "
         f"{bad}; c_T_w up to {gap} apart (limit {POSE_TOL})")
     if bad or not gap <= POSE_TOL:
-        raise AssertionError(f"{name}: differs from off-lat at frames {bad}, "
+        raise AssertionError(f"{name}: differs from {base} at frames {bad}, "
                              f"c_T_w gap {gap}")
 
 
-def run_stream(torch, seq, smi, ref):
-    """off-tp: ``make_stream_fn`` with chunk BATCH over the 64 frames (each
-    chunk extracted batched, H1-H4 launched once a chunk), the plain
-    versions disabled, held to off-lat's run frame by frame. Returns launch
+def run_stream(torch, seq, smi, name, ref):
+    """A streamed path of STREAMS (off-tp, on-tp, block13-tp):
+    ``make_stream_fn`` with chunk BATCH over the 64 frames, each chunk
+    extracted batched (every kernel of the single-frame path, and the
+    speckle filter's loop, once a chunk), the plain versions disabled, held
+    to its single-frame path's run ``ref`` frame by frame. Returns launch
     counts per kernel name."""
     from openvo_tpu_torch import OdometerConfig
     from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
     from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
                                                          init_state,
                                                          make_pipeline_fns)
-    from openvo_tpu_torch.ops import orb, orb_cuda, sgbm_cuda
+    from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda
     from openvo_tpu_torch.parallel.stream import make_stream_fn
 
-    cam = off_lat_camera(seq)
+    single = STREAMS[name]
+    cam = path_camera(seq, single)
     cfg = OdometerConfig()
     kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
     stream = make_stream_fn(cam, cfg, chunk=BATCH)
@@ -1360,11 +1455,13 @@ def run_stream(torch, seq, smi, ref):
         torch.cuda.reset_peak_memory_stats()
         for k in kernels:
             k.launches = 0
+        sgbm.speckle_filter.syncs = 0
         t0 = time.perf_counter()
         _, (ok, ctw) = stream(fresh(), lefts, rights)
         ok, ctw = ok.cpu().numpy(), ctw.cpu().numpy()
         secs = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in kernels}
+        speckle_syncs = sgbm.speckle_filter.syncs
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         # launches and host syncs a frame, over one chunk run again
         per_frame = count_launches(torch, chunk0) / BATCH
@@ -1385,10 +1482,10 @@ def run_stream(torch, seq, smi, ref):
         differ = {}
         for i in range(BATCH):
             one = fns["extract"](lefts[i], rights[i])
-            for name in one._fields:
-                if not torch.equal(getattr(batched, name)[i],
-                                   getattr(one, name)):
-                    differ.setdefault(name, []).append(i)
+            for field in one._fields:
+                if not torch.equal(getattr(batched, field)[i],
+                                   getattr(one, field)):
+                    differ.setdefault(field, []).append(i)
         del batched, one
         # the plain stages' launches a frame, one frame against a chunk
         _, disp, img = cam.compute_3d_fn(False, False)(lefts[:BATCH],
@@ -1408,48 +1505,56 @@ def run_stream(torch, seq, smi, ref):
             setattr(m, n, fn)
     tracked = int(ok.sum())
     n_syncs = sum(syncs.values()) / BATCH
-    log(f"[off-tp] chunk {BATCH}: tracked {tracked}/{N_FRAMES} (skipped: "
+    chunks = N_FRAMES // BATCH
+    log(f"[{name}] chunk {BATCH}: tracked {tracked}/{N_FRAMES} (skipped: "
         f"{[(i, causes[i]) for i in range(N_FRAMES) if not ok[i]]}); "
         f"{N_FRAMES / secs} fps, {secs * 1e3 / N_FRAMES} ms a frame over "
         f"the {N_FRAMES} frames (host clock, one sync at the end); "
         f"{per_frame} kernel launches and {n_syncs} host syncs a frame "
-        f"(one chunk under torch.profiler and sync debug mode); device "
-        f"memory allocated {base:.1f} MiB at the start, peak {peak:.1f} MiB; "
-        f"{smi}")
-    log(f"[off-tp] kernel launches: {launches}; synchronizing calls in one "
+        f"(one chunk under torch.profiler and sync debug mode); speckle "
+        f"host syncs {speckle_syncs / chunks} a chunk; device memory "
+        f"allocated {base:.1f} MiB at the start, peak {peak:.1f} MiB; {smi}")
+    log(f"[{name}] kernel launches: {launches}; synchronizing calls in one "
         f"chunk, by the line that made them: {syncs}")
     for stage, (one, batched) in stages.items():
-        log(f"[off-tp] {stage}: {one} launches for one frame, {batched} a "
+        log(f"[{name}] {stage}: {one} launches for one frame, {batched} a "
             f"frame in a chunk of {BATCH}")
-    log(f"[off-tp] the batched extract of frames 0-{BATCH - 1} against "
+    log(f"[{name}] the batched extract of frames 0-{BATCH - 1} against "
         f"single-frame calls, fields differing by frame: {differ}")
     if {"disp", "kp_xy", "desc", "kp_valid"} & set(differ):
-        raise AssertionError(f"off-tp: the batched extract differs from the "
+        raise AssertionError(f"{name}: the batched extract differs from the "
                              f"single-frame one: {differ}")
     if not (np.array_equal(ok, ok2) and np.abs(ctw - np.stack(ctw2)).max()
             <= POSE_TOL):
-        raise AssertionError("off-tp: the steps run again differ from the "
-                             "stream")
-    held_to_off_lat("off-tp", ok, causes, ctw, ref)
-    if tracked < 63 or ok[40] or causes[40] != "bigdist":
+        raise AssertionError(f"{name}: the steps run again differ from the "
+                             f"stream")
+    held_to_path(name, ok, causes, ctw, ref, single)
+    if name == "off-tp" and (tracked < 63 or ok[40]
+                             or causes[40] != "bigdist"):
         raise AssertionError(f"off-tp: {tracked} tracked, frame 40 "
                              f"{causes[40]!r}")
-    batched_path_kernels(launches, "off-tp", N_FRAMES // BATCH)
+    batched_path_kernels(launches, name, chunks, single)
     return launches
 
 
-def run_rig8(torch, seq, smi, ref):
-    """rig8: ``RigOdometer`` with RIG_CAMERAS cameras over the 64 frames,
-    every camera fed the frame's pair but camera RIG_BLANK[0], fed a blank
-    pair at frame RIG_BLANK[1]; the plain versions disabled. Cameras 0-6
-    are held to off-lat frame by frame; the blank camera must skip that
-    frame as ``keypoints``, track the next against its retained frame, and
-    track all but 2 frames. Returns launch counts per kernel name."""
+def run_rig8(torch, seq, smi, name, ref):
+    """A rig of RIGS (rig8, rig8-filters): ``RigOdometer`` with RIG_CAMERAS
+    cameras over the 64 frames with its single-frame path's odometer
+    settings, every camera fed the frame's pair but camera RIG_BLANK[0],
+    fed a blank pair at frame RIG_BLANK[1]; the plain versions disabled.
+    Cameras 0-6 are held to the single-frame path's run ``ref`` frame by
+    frame; the blank camera must skip that frame as ``keypoints``, track
+    the next against its retained frame, and track all but one frame fewer
+    than ``ref``. Returns launch counts per kernel name."""
+    from openvo_tpu_torch import OdometerConfig
     from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
     from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
     from openvo_tpu_torch.parallel.rig import RigOdometer
+    from openvo_tpu_torch.pose import rigid_clique
 
-    cam = off_lat_camera(seq)
+    single = RIGS[name]
+    cam = path_camera(seq)
+    cfg = OdometerConfig(**odometer_kwargs(single))
     kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
     blank_cam, blank_frame = RIG_BLANK
     steps = []
@@ -1465,7 +1570,7 @@ def run_rig8(torch, seq, smi, ref):
     saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
     for m, n in saved:
         setattr(m, n, tripwire)
-    rig = RigOdometer(cam, RIG_CAMERAS)
+    rig = RigOdometer(cam, RIG_CAMERAS, cfg)
     oks, causes, poses, lat = [], [], [], []
     gc.collect()
     torch.cuda.synchronize()
@@ -1473,6 +1578,7 @@ def run_rig8(torch, seq, smi, ref):
     try:
         for k in kernels:
             k.launches = 0
+        rigid_clique.rigid_body_filter.syncs = 0
         for i in range(N_FRAMES):
             t0 = time.perf_counter()
             oks.append(rig.update(*steps[i]))   # ends in a sync
@@ -1481,6 +1587,7 @@ def run_rig8(torch, seq, smi, ref):
                            for c in rig.last_stats["skip_code"]])
             poses.append(rig.current_poses())
         launches = {k.__name__: k.launches for k in kernels}
+        clique_syncs = rigid_clique.rigid_body_filter.syncs
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
@@ -1488,7 +1595,7 @@ def run_rig8(torch, seq, smi, ref):
     oks, poses = np.stack(oks), np.stack(poses)   # (frames, cameras, ...)
     secs = sum(lat)
     around = slice(blank_frame, blank_frame + 2)
-    log(f"[rig8] {RIG_CAMERAS} cameras x {N_FRAMES} frames: "
+    log(f"[{name}] {RIG_CAMERAS} cameras x {N_FRAMES} frames: "
         f"{RIG_CAMERAS * N_FRAMES / secs} camera-frames a second in all, "
         f"update median {float(np.median(lat[2:])) * 1e3} ms a step "
         f"(frames 2-{N_FRAMES - 1}), first {lat[0] * 1e3} ms; tracked per "
@@ -1497,21 +1604,22 @@ def run_rig8(torch, seq, smi, ref):
         f"{oks[around, blank_cam].tolist()}, causes "
         f"{[c[blank_cam] for c in causes[around]]}; "
         f"peak device memory {peak:.1f} MiB; {smi}")
-    log(f"[rig8] kernel launches: {launches}")
+    log(f"[{name}] kernel launches: {launches}; rigid clique host checks "
+        f"{clique_syncs} ({clique_syncs / N_FRAMES} a step)")
     for c in range(RIG_CAMERAS):
         if c == blank_cam:
             continue
-        held_to_off_lat(f"rig8 camera {c}", oks[:, c],
-                        [x[c] for x in causes],
-                        np.linalg.inv(poses[:, c]).astype(np.float32), ref)
+        held_to_path(f"{name} camera {c}", oks[:, c], [x[c] for x in causes],
+                     np.linalg.inv(poses[:, c]).astype(np.float32), ref,
+                     single)
     b = oks[:, blank_cam]
     if (b[blank_frame] or causes[blank_frame][blank_cam] != "keypoints"
-            or not b[blank_frame + 1] or b.sum() < N_FRAMES - 2
+            or not b[blank_frame + 1] or b.sum() < sum(ref["ok"]) - 1
             or not np.isfinite(poses).all()):
-        raise AssertionError(f"rig8: camera {blank_cam} tracked {b.sum()}, "
-                             f"frames {blank_frame}-{blank_frame + 1} "
+        raise AssertionError(f"{name}: camera {blank_cam} tracked {b.sum()},"
+                             f" frames {blank_frame}-{blank_frame + 1} "
                              f"{b[blank_frame:blank_frame + 2]}")
-    batched_path_kernels(launches, "rig8", N_FRAMES)
+    batched_path_kernels(launches, name, N_FRAMES)
     return launches
 
 
@@ -1533,7 +1641,7 @@ def _shard_rank(rank, tmp, out_q, device):
                                 timeout=datetime.timedelta(seconds=300))
         data = np.load(f"{tmp}/inputs.npz")
         left, right = data["left"], data["right"]
-        fn = make_sharded_trajectory_fn(off_lat_camera(data),
+        fn = make_sharded_trajectory_fn(path_camera(data),
                                         OdometerConfig())
         kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
         for m, n in plain_tripwires():
@@ -1578,7 +1686,7 @@ def run_shard4(torch, seq, smi):
                                                     make_relative_pose_fn)
 
     left, right = seq["left"][:SHARD_FRAMES], seq["right"][:SHARD_FRAMES]
-    T_rel, ok_ref = make_relative_pose_fn(off_lat_camera(seq),
+    T_rel, ok_ref = make_relative_pose_fn(path_camera(seq),
                                           OdometerConfig())(left, right)
     traj_ref = compose_trajectory(T_rel).cpu().numpy()
     ok_ref = ok_ref.cpu().numpy()
@@ -1676,12 +1784,14 @@ def main() -> int:
     launches, records = {}, {}
     for name in PATHS:
         launches[name], records[name] = run_path(torch, seq, name, smi)
-    launches["off-tp"] = run_stream(torch, seq, smi, records["off-lat"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches["rig8"] = run_rig8(torch, seq, smi, records["off-lat"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    for name, single in STREAMS.items():
+        launches[name] = run_stream(torch, seq, smi, name, records[single])
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, single in RIGS.items():
+        launches[name] = run_rig8(torch, seq, smi, name, records[single])
+        gc.collect()
+        torch.cuda.empty_cache()
     for name in ("mono", "mono-own"):
         launches[name] = run_mono(torch, seq, name, smi)
     gc.collect()

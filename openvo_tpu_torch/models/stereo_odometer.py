@@ -18,7 +18,8 @@ One difference in form: JAX runs the fallback attempt under ``lax.cond``.
 Here the step reads ``use2`` on the host and runs the attempt only when it
 holds: one device-to-host sync per frame, which update() pays anyway to
 return ``ok``. With the rigidity filter on, its greedy loop adds a few
-host checks per attempt (``pose/rigid_clique.py``).
+host checks per attempt (``pose/rigid_clique.py``), for the whole batch
+where the step takes one.
 
 Every stage takes a batch as well, a leading axis on each tensor, where
 JAX maps the stage with ``jax.vmap``: ``extract`` over (B, H, W) frames
@@ -128,15 +129,6 @@ def state_from_jax_leaves(leaves, device="cuda") -> OdomState:
                      *t[2 * n:])
 
 
-def _per_item(fn, *args):
-    """``fn`` over the leading axis of its tensor arguments (a batch of
-    point clouds), stacked: the filters, whose greedy loop and masked
-    medians take one cloud at a time."""
-    if args[0].ndim == 2:
-        return fn(*args)
-    return torch.stack([fn(*a) for a in zip(*args)])
-
-
 def _compose(a, b):
     """``a @ b`` of float32 4x4 transforms, in float64 and rounded once: a
     batch gives each member the bits of its own product."""
@@ -158,19 +150,15 @@ def make_point_cloud_transform(cfg: OdometerConfig):
 
     def point_cloud_transform(pts_a, pts_b, mask, skipped, skip_code):
         if cfg.rigidity_threshold > 0:
-            clique = _per_item(
-                lambda a, b, m: rigid_body_filter(a, b, m,
-                                                  cfg.rigidity_threshold),
-                pts_a, pts_b, mask)
+            clique = rigid_body_filter(pts_a, pts_b, mask,
+                                       cfg.rigidity_threshold)
             mask = mask & (clique > 0)
         n1 = mask.to(torch.int32).sum(-1)
         rigidity_cause = n1 < 10
         skip_code = torch.where(rigidity_cause, SKIP_RIGIDITY, skip_code)
         if cfg.outlier_threshold > 0:
-            refined = _per_item(
-                lambda a, b, m: outlier_filter(a, b, m,
-                                               cfg.outlier_threshold),
-                pts_a, pts_b, mask)
+            refined = outlier_filter(pts_a, pts_b, mask,
+                                     cfg.outlier_threshold)
             mask = torch.where((n1 >= 10)[..., None], refined, mask)
         too_few = mask.to(torch.int32).sum(-1) < cfg.min_matches
         skip_code = torch.where(too_few & ~rigidity_cause, SKIP_OUTLIER,

@@ -25,7 +25,8 @@ images (a distorting camera's remap). Per frame:
   on the x1 grid in the JAX package's order of operations, so fractional
   images give JAX's bits here too.
 
-The speckle filter is plain PyTorch (:func:`speckle_filter`).
+The speckle filter is plain PyTorch (:func:`speckle_filter`). Every
+stage takes a (B, H, W) batch of frames as well and runs it in one pass.
 ``NotImplementedError`` is raised, on every device, only where the packed
 int32 argmin key of H3 over int16 costs could overflow.
 """
@@ -79,31 +80,39 @@ def speckle_filter(disp16, valid, params: SGBMParams):
     semantics, the JAX package's ``_speckle_filter``): 4-connected
     components of valid pixels whose x16 disparities differ by at most
     16*speckleRange are invalidated when they hold <= speckleWindowSize
-    pixels; invalid pixels are singletons.
+    pixels; invalid pixels are singletons. Takes (H, W) or a (B, H, W)
+    batch, as the JAX package's batched core ``_speckle_filter_batched``.
 
     Any exact labelling gives the JAX package's components, whose min-scan
     labelling runs to convergence. Here: hooking (every edge between two
     labels sets the larger label's root to the smaller label) and
     log2(H*W) pointer jumps, repeated until no edge joins two labels, then
-    ``torch.bincount`` of the labels for the sizes. Each round costs one
-    host sync (the convergence test), counted in ``speckle_filter.syncs``.
-    Labels only decrease, so the loop ends; on raster-ordered blobs one
-    round merges a whole convex component."""
-    H, W = disp16.shape
+    ``torch.bincount`` of the labels for the sizes. Frame b's pixels hold
+    the flat indices [b*H*W, (b+1)*H*W) and no edge crosses a frame, so
+    one loop labels the whole batch and each frame as its own call does.
+    Each round costs one host sync (the convergence test, for the whole
+    batch), counted in ``speckle_filter.syncs``: a batch pays its slowest
+    frame's rounds once. Labels only decrease, so the loop ends; on
+    raster-ordered blobs one round merges a whole convex component."""
+    H, W = disp16.shape[-2:]
     n = H * W
+    total = disp16.numel()
     dev = disp16.device
     d = disp16.to(torch.int32)
     max_diff = 16 * params.speckle_range
-    idx = torch.arange(n, device=dev).view(H, W)
-    conn_x = (valid[:, 1:] & valid[:, :-1]
-              & ((d[:, 1:] - d[:, :-1]).abs() <= max_diff))
-    conn_y = (valid[1:] & valid[:-1] & ((d[1:] - d[:-1]).abs() <= max_diff))
+    idx = torch.arange(total, device=dev).view(disp16.shape)
+    conn_x = (valid[..., 1:] & valid[..., :-1]
+              & ((d[..., 1:] - d[..., :-1]).abs() <= max_diff))
+    conn_y = (valid[..., 1:, :] & valid[..., :-1, :]
+              & ((d[..., 1:, :] - d[..., :-1, :]).abs() <= max_diff))
     # every pixel's edge to its left and upper neighbour; a missing edge is
     # a self-loop
-    src = torch.cat([idx[:, 1:].reshape(-1), idx[1:].reshape(-1)])
-    dst = torch.cat([torch.where(conn_x, idx[:, :-1], idx[:, 1:]).reshape(-1),
-                     torch.where(conn_y, idx[:-1], idx[1:]).reshape(-1)])
-    labels = torch.arange(n, device=dev)
+    src = torch.cat([idx[..., 1:].reshape(-1), idx[..., 1:, :].reshape(-1)])
+    dst = torch.cat([
+        torch.where(conn_x, idx[..., :-1], idx[..., 1:]).reshape(-1),
+        torch.where(conn_y, idx[..., :-1, :], idx[..., 1:, :]).reshape(-1)])
+    labels = torch.arange(total, device=dev)
+    # a label chain never leaves its frame, so n bounds its length
     jumps = max(1, (n - 1).bit_length())
     while True:
         lu, lv = labels[src], labels[dst]
@@ -114,8 +123,8 @@ def speckle_filter(disp16, valid, params: SGBMParams):
                                        torch.minimum(lu, lv), "amin")
         for _ in range(jumps):
             labels = labels[labels]
-    size = torch.bincount(labels, minlength=n)
-    keep = (size[labels] > params.speckle_window_size).view(H, W)
+    size = torch.bincount(labels, minlength=total)
+    keep = (size[labels] > params.speckle_window_size).view(disp16.shape)
     return valid & keep
 
 
@@ -158,9 +167,8 @@ def vertical(C, p1: int, p2: int, num_paths: int, acc=None):
 def sgbm_disparity16(left, right, params: SGBMParams):
     """Full SGBM pipeline -> (H, W) int16 disparity x16 on the images'
     device; invalid = (minDisparity - 1) * 16. A (B, H, W) batch runs each
-    kernel once for the batch (the speckle filter, with its host syncs,
-    frame by frame) and gives (B, H, W), each frame's disparity bit for
-    bit."""
+    kernel, the plain stages and the speckle filter's loop once for the
+    batch and gives (B, H, W), each frame's disparity bit for bit."""
     if left.device != right.device:
         raise ValueError(f"device mismatch: {left.device} vs {right.device}")
     cap = max(params.pre_filter_cap, 15) | 1
@@ -178,10 +186,7 @@ def sgbm_disparity16(left, right, params: SGBMParams):
     if params.speckle_window_size > 0 and params.speckle_range > 0:
         invalid = (params.min_disparity - 1) * 16
         valid = out != invalid
-        keep = (speckle_filter(out, valid, params) if out.ndim == 2 else
-                torch.stack([speckle_filter(d, v, params)
-                             for d, v in zip(out, valid)]))
-        out = torch.where(keep, out, invalid)
+        out = torch.where(speckle_filter(out, valid, params), out, invalid)
     return out
 
 

@@ -42,7 +42,8 @@ tensor launches the kernel or raises):
   over int16 or float32 C.
 
 The float32 cost volume and box sum (:func:`cost_volume_f32`) are plain
-PyTorch on every device, as the JAX package leaves that stage to XLA.
+PyTorch on every device, as the JAX package leaves that stage to XLA; a
+batch of frames runs through them in one pass.
 
 Every wrapper also takes a batch of frames, a leading axis on each input
 ((B, H, W) images, (B, H, W, D) volumes), and launches each kernel once
@@ -90,12 +91,14 @@ def fresh_start(c2):
 
 
 def _bt_cost(lp, rp, min_disp: int, num_disp: int, bf16: bool):
-    """(H, W, D) float32 Birchfield-Tomasi cost, NaN where the right
-    image's column, or a neighbour's, falls outside the image. Neighbours at
-    x +/- 1 wrap around the row (``jnp.roll``), as in the JAX package. With
-    ``bf16`` the images and every add and subtract are rounded to
-    bfloat16, as XLA does; otherwise the arithmetic is float32."""
-    H, W = lp.shape
+    """(..., H, W, D) float32 Birchfield-Tomasi cost of (..., H, W) images,
+    NaN where the right image's column, or a neighbour's, falls outside the
+    image. Neighbours at x +/- 1 wrap around the row (``jnp.roll``), as in
+    the JAX package. With ``bf16`` the images and every add and subtract
+    are rounded to bfloat16, as XLA does; otherwise the arithmetic is
+    float32. Every operation is elementwise or gathers within a row, so a
+    batch gives each frame its own call's bits."""
+    W = lp.shape[-1]
     dev = lp.device
     wd = torch.bfloat16 if bf16 else torch.float32
     lp = lp.to(wd)
@@ -105,17 +108,17 @@ def _bt_cost(lp, rp, min_disp: int, num_disp: int, bf16: bool):
     src = x[:, None] - min_disp - d[None, :]
     ok = (src >= 0) & (x[:, None] - min_disp <= W - 1)
     nan = torch.tensor(float("nan"), dtype=wd, device=dev)
-    r_sh = torch.where(ok[None], rp[:, src.clamp(0, W - 1)], nan)
+    r_sh = torch.where(ok, rp[..., src.clamp(0, W - 1)], nan)
 
-    def envelopes(a):
-        am = 0.5 * (a + torch.roll(a, 1, dims=1))
-        ap = 0.5 * (a + torch.roll(a, -1, dims=1))
+    def envelopes(a, x_dim):
+        am = 0.5 * (a + torch.roll(a, 1, dims=x_dim))
+        ap = 0.5 * (a + torch.roll(a, -1, dims=x_dim))
         lo = torch.minimum(torch.minimum(am, ap), a)
         hi = torch.maximum(torch.maximum(am, ap), a)
         return lo, hi
 
-    l_lo, l_hi = envelopes(lp)
-    r_lo, r_hi = envelopes(r_sh)
+    l_lo, l_hi = envelopes(lp, -1)
+    r_lo, r_hi = envelopes(r_sh, -2)
     lp3 = lp[..., None]
     zero = torch.zeros((), dtype=wd, device=dev)
     c_l = torch.maximum(zero, torch.maximum(lp3 - r_hi, r_lo - lp3))
@@ -155,23 +158,24 @@ def band_rows(n_rows: int, band=None):
 
 
 def block_sum(vol, block_size: int, band=None):
-    """block_size x block_size box sum of an (H, W, D) volume with
+    """block_size x block_size box sum of an (..., H, W, D) volume with
     edge-replicated borders (see :func:`band_rows` for ``band``), in the
     JAX package's order: rows i = 0..bs-1 added one at a time, then columns
     the same way. Exact for integers; the JAX package's rounding for
-    float32."""
-    row0, rows, lo, hi = band_rows(vol.shape[0], band)
+    float32. The adds are elementwise, so a batch of frames gives each
+    its own call's bits."""
+    row0, rows, lo, hi = band_rows(vol.shape[-3], band)
     r = block_size // 2
-    W = vol.shape[1]
+    W = vol.shape[-2]
     dev = vol.device
     ys = torch.arange(row0, row0 + rows, device=dev)
-    acc = vol[(ys - r).clamp(lo, hi)]
+    acc = vol[..., (ys - r).clamp(lo, hi), :, :]
     for i in range(1, block_size):
-        acc = acc + vol[(ys + i - r).clamp(lo, hi)]
+        acc += vol[..., (ys + i - r).clamp(lo, hi), :, :]
     xs = torch.arange(W, device=dev)
-    out = acc[:, (xs - r).clamp(0, W - 1)]
+    out = acc[..., (xs - r).clamp(0, W - 1), :]
     for i in range(1, block_size):
-        out = out + acc[:, (xs + i - r).clamp(0, W - 1)]
+        out += acc[..., (xs + i - r).clamp(0, W - 1), :]
     return out
 
 
@@ -181,12 +185,8 @@ def cost_volume_f32(lp, rp, min_disp: int, num_disp: int, block_size: int,
     without an int16 sentinel: the BT cost without doubling or truncation,
     4*cap where a sample falls outside the image, then :func:`block_sum` in
     float32 (``openvo_tpu/ops/sgbm.py:156-171``). Plain PyTorch on every
-    device, as the JAX package leaves this stage to XLA; a (B, H, W) batch
-    runs frame by frame (off the int16 paths, so not batched yet)."""
-    if lp.ndim == 3:
-        return _over_frames(
-            lambda a, b: cost_volume_f32(a, b, min_disp, num_disp,
-                                         block_size, cap, bf16, band), lp, rp)
+    device, as the JAX package leaves this stage to XLA. A (B, H, W) batch
+    gives (B, H, W, D) in one pass, each frame its own call's bits."""
     cost = _bt_cost(lp, rp, min_disp, num_disp, bf16)
     cost = torch.where(torch.isnan(cost), float(4 * cap), cost)
     return block_sum(cost, block_size, band)

@@ -6,7 +6,10 @@ JAX maps the whole step over the cameras with ``jax.vmap``. Here the step
 takes the (N, H, W) batch itself: ``extract`` runs each kernel and plain
 stage once for the N cameras, and ``step_feats`` runs each camera's state
 machine on its own (the fallback attempt for every camera when any needs
-it, each taking its own branch; one host sync a step).
+it, each taking its own branch; one host sync a step). The pose filters,
+when on, take the N cameras' point clouds at once: the rigid clique's
+greedy loop steps every camera together, with its host checks once a
+batch of steps for all of them.
 
 All cameras share calibration (the synthetic-rig case), as in the JAX
 package.

@@ -6,10 +6,13 @@ frame, Kabsch, gates, pose chain) steps frame by frame over the extracted
 features.
 
 JAX maps ``extract`` with ``jax.vmap``, which gives each Pallas kernel a
-batch grid axis. Here ``extract`` takes the (B, H, W) chunk itself: each
-SGBM kernel (H1, H2, H3) and the descriptor kernel H4 launches once for the
-chunk, and so do the plain PyTorch stages around them, so a chunk pays their
-launches once instead of once a frame (``models/stereo_odometer.py``).
+batch grid axis. Here ``extract`` takes the (B, H, W) chunk itself, at
+every SGBM configuration: each SGBM kernel (H1, H2, H3 on the int16 path;
+H5, H2, H3 over block13's float32 volume) and the descriptor kernel H4
+launches once for the chunk, and so do the plain PyTorch stages around
+them (the float32 cost volume, the speckle filter's labelling loop), so a
+chunk pays their launches and host syncs once instead of once a frame
+(``models/stereo_odometer.py``).
 
 The trajectory is the frame-at-a-time odometer's: the batched ``extract``
 gives each frame the single-frame call's disparity, keypoints and

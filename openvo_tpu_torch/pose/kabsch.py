@@ -74,9 +74,17 @@ def kabsch(src, dst, mask):
 
 def residuals_relative(T, src, dst, mask):
     """The outlier pass's residual ||h_dst - T h_src|| / ||h_dst|| over
-    homogeneous 4-vectors; inf where ``mask`` is False."""
-    ones = torch.ones((src.shape[0], 1), dtype=src.dtype, device=src.device)
-    hs = torch.cat([src, ones], dim=1)
-    hd = torch.cat([dst, ones], dim=1)
-    err = row_norm(hd - hs @ T.T) / row_norm(hd)
+    homogeneous 4-vectors; inf where ``mask`` is False. (B, N, 3) points
+    with (B, 4, 4) transforms give (B, N). ``T h_src`` is XLA:CPU's dot,
+    bit for bit: the four products added in ascending order without
+    fusing, elementwise, so a batch gives each member its own call's
+    bits."""
+    ones = torch.ones(src.shape[:-1] + (1,), dtype=src.dtype,
+                      device=src.device)
+    hs = torch.cat([src, ones], dim=-1)
+    hd = torch.cat([dst, ones], dim=-1)
+    pred = hs[..., 0, None] * T[..., None, :, 0]
+    for k in range(1, 4):
+        pred = pred + hs[..., k, None] * T[..., None, :, k]
+    err = row_norm(hd - pred) / row_norm(hd)
     return torch.where(mask, err, float("inf"))

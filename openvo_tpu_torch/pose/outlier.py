@@ -11,22 +11,26 @@ from openvo_tpu_torch.pose.kabsch import kabsch, residuals_relative
 
 
 def masked_median(values, mask):
-    """``np.median`` over the rows of 1-D ``values`` where ``mask`` holds:
-    the mean of the two middle values for an even count, NaN if any of
-    them is NaN (an inlier threshold of NaN then keeps no point)."""
-    v = torch.sort(torch.where(mask, values, float("inf"))).values
-    n = mask.to(torch.int64).sum()
+    """``np.median`` over the entries of ``values`` where ``mask`` holds,
+    along the last axis (a batch of rows gives one median a row): the mean
+    of the two middle values for an even count, NaN if any of them is NaN
+    (an inlier threshold of NaN then keeps no point)."""
+    v = torch.sort(torch.where(mask, values, float("inf")), -1).values
+    n = mask.to(torch.int64).sum(-1, keepdim=True)
     lo = torch.clamp_min((n - 1) // 2, 0)
     hi = torch.clamp_min(n // 2, 0)
-    med = 0.5 * (v[lo] + v[hi])
-    has_nan = (torch.isnan(values) & mask).any()
+    med = 0.5 * (torch.take_along_dim(v, lo, -1)
+                 + torch.take_along_dim(v, hi, -1))[..., 0]
+    has_nan = (torch.isnan(values) & mask).any(-1)
     return torch.where(has_nan, float("nan"), med)
 
 
 def outlier_filter(src, dst, mask, outlier_threshold):
     """One round of fit and relative-residual gating over the rows where
     ``mask`` holds; returns the refined mask (a subset of ``mask``). The
-    fit uses every such row; the gate is a strict ``<``."""
+    fit uses every such row; the gate is a strict ``<``. (B, N, 3) clouds
+    with a (B, N) mask give (B, N), each member its own call's mask."""
     T = kabsch(src, dst, mask)
     err = residuals_relative(T, src, dst, mask)
-    return mask & (err < outlier_threshold + masked_median(err, mask))
+    thresh = outlier_threshold + masked_median(err, mask)
+    return mask & (err < thresh[..., None])

@@ -206,9 +206,9 @@ def test_residuals_and_transform_points_match_jax():
     want = np.asarray(jax.jit(jkabsch.residuals_relative)(
         jnp.asarray(T), jnp.asarray(src), jnp.asarray(dst),
         jnp.asarray(mask)))
-    # h_dst - T h_src cancels: the 4-term products, summed in another order
-    # than XLA's, differ by an ulp of the coordinates (4.8e-7 at 5 m),
-    # divided by ||h_dst|| >= 1
+    # T h_src is XLA's bit for bit, but XLA's norm of the 4-vectors sums
+    # their squares in an order of its own: an ulp of the coordinates
+    # (4.8e-7 at 5 m), divided by ||h_dst|| >= 1
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     assert np.isinf(got[~mask]).all() and (got[mask] < 1e-2).all()
 
