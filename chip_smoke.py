@@ -57,7 +57,12 @@ Phases, in order; any failure exits non-zero before the final line:
 6. `shard4`: the frame-sharded trajectory (parallel/sharding.py) on 4
    ranks sharing the card over frames 0-15, 4 a rank, against the
    one-process relative poses composed on the card; every rank launches
-   each of H1-H4 once.
+   each of H1-H4 once;
+7. the port's benchmark, ``python3 -m openvo_tpu_torch.tools.bench
+   --repeats 2`` (bench.py's four passes, off-lat, off-tp, on-lat and
+   rig, each in a subprocess, on the corridor cached by this run): every
+   pass prints a result, off-lat and on-lat track >= 63 of the 64 frames
+   with an ATE <= 1.25 m, off-tp and rig skip the frames off-lat skips.
 
 Phase 2 also times K4's one-call PyTorch equivalent, ``torch.gather``
 of best_r at x - best. The second-to-last lines are a JSON object with one
@@ -82,22 +87,16 @@ import time
 
 import numpy as np
 
-IMG_SIZE = (1242, 376)   # KITTI odometry gray resolution
-F, B = 718.0, 0.54       # KITTI-like focal length / baseline
-N_FRAMES = 64
-SEQ = dict(seed=0, step=0.5, yaw_rate=0.004, corridor_length=80.0,
-           corridor_half_width=7.0)
-SGBM = {                 # bench.py:49-53, the off-lat pass
-    "minDisparity": 0, "numDisparities": 128, "blockSize": 5,
-    "P1": 200, "P2": 800, "disp12MaxDiff": 1, "preFilterCap": 63,
-    "uniquenessRatio": 10, "speckleWindowSize": 0, "speckleRange": 0,
-}
+from openvo_tpu_torch.tools.bench import (B, F, IMG_SIZE, N_FRAMES,  # noqa
+                                          PASSES, SEQ, SGBM, SPECKLE,
+                                          get_sequence, render_pair,
+                                          render_sequence, sgbm_params)
+
 # The paths of phase 3: name -> (changes to SGBM's SGBMParams, the least
 # frames tracked and the largest ATE in m, None where no bar is set).
 PATHS = {
     "off-lat": ({}, 63, 1.25),
-    "on-lat": (dict(speckle_window_size=100, speckle_range=2), 63,
-               1.25),  # bench.py:56
+    "on-lat": (SPECKLE, 63, 1.25),  # bench.py:56
     "hh8": (dict(num_paths=8), None, None),
     "hv4": (dict(num_paths=4), None, None),
     # no int16 sentinel at preFilterCap 63: the float32 path
@@ -181,11 +180,22 @@ STREAMS = {"off-tp": "off-lat", "on-tp": "on-lat", "block13-tp": "block13"}
 # outlier pass, the cameras' filters batched)
 RIGS = {"rig8": "off-lat", "rig8-filters": "filters"}
 SHIFT = 0.37             # px: frame 0 resampled so every pixel is fractional
+# phase 7, the port's benchmark: its repeats, its budget (s) and the bars
+# of its latency passes (PERF.md section 2)
+BENCH_REPEATS = 2
+BENCH_BUDGET = 480
+BENCH_TRACKED = 63
+BENCH_ATE = 1.25
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SGBM_SRC = "openvo_tpu_torch/csrc/sgbm.cu"
 WTA_SRC = "openvo_tpu_torch/csrc/sgbm_wta.cu"   # H3
 ORB_SRC = "openvo_tpu_torch/csrc/orb.cu"
+RESIZE_SRC = "openvo_tpu_torch/csrc/resize.cu"   # H6
+# H6's JAX counterpart: jax.image.resize under jit, left to XLA (no Pallas
+# kernel); the library call timed beside it is torch's antialiased
+# bilinear F.interpolate, level by level
+RESIZE_JAX = "openvo_tpu/ops/image.py:82-85 (jax.image.resize, XLA)"
 K5 = "openvo_tpu/ops/orb_pallas.py:60"
 PALLAS_SGBM = "openvo_tpu/ops/sgbm_pallas.py"
 K1 = f"{PALLAS_SGBM}:305"
@@ -228,43 +238,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def _render_pair(args):
-    """Left/right images of frame i, exactly as render_stereo_sequence."""
-    from openvo_tpu_torch.io.synthetic import render_view
-
-    K, T_wc, planes, tex, img_size, baseline = args
-    right_offset = np.eye(4)
-    right_offset[0, 3] = baseline
-    left, _ = render_view(K, T_wc, planes, tex, img_size)
-    right, _ = render_view(K, T_wc @ right_offset, planes, tex, img_size)
-    return left, right
-
-
-def render_sequence(workers=8):
-    """The bench's 64-frame corridor (render_stereo_sequence with bench.py's
-    parameters), one frame at a time on ``workers`` processes."""
-    from openvo_tpu_torch.io import synthetic as syn
-
-    rng = np.random.default_rng(SEQ["seed"])
-    tex = syn.make_texture(rng)
-    planes = syn.corridor_planes(SEQ["corridor_length"],
-                                 SEQ["corridor_half_width"])
-    K, dist, R, T = syn.make_rig(IMG_SIZE, F, B)
-    poses = syn.camera_trajectory(N_FRAMES, SEQ["step"], SEQ["yaw_rate"])
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(workers, multiprocessing.cpu_count())) as pool:
-        pairs = pool.map(_render_pair,
-                         [(K, pose, planes, tex, IMG_SIZE, B)
-                          for pose in poses])
-    u8 = [np.clip(np.stack(v), 0, 255).astype(np.uint8) for v in zip(*pairs)]
-    return {"left": u8[0], "right": u8[1], "T_wc": poses, "K": K,
-            "dist": dist, "R": R, "T": T}
-
-
 def path_params(name):
-    from openvo_tpu_torch.models.stereo_camera import _sgbm_params_from_dict
-
-    return dataclasses.replace(_sgbm_params_from_dict(SGBM), **PATHS[name][0])
+    return sgbm_params(PATHS[name][0])
 
 
 def time_ms(torch, fn, reps):
@@ -314,6 +289,9 @@ class Case:
     frames: int = 1
     single: object = None
     single_run: object = None
+    # one PyTorch call (or one a level) that computes the same function,
+    # timed as library_ms; None where there is none
+    library: object = None
 
 
 def bound(case, outs):
@@ -512,6 +490,7 @@ def kernel_cases(torch, seq, cam, cfg):
                    "at 32 disparities a lane", 33, 64),
         chain_case("D=1024 on 64 rows: 32 disparities a lane", 1024, 64),
         brief_case(torch, "K=512 on frame 0's pyramid", "off-lat", [h4]),
+        resize_case(torch, "frame 0, 7 levels", "off-lat", img, cfg.orb),
         brief_case(torch, "random stack: window starts clamped at every "
                    "edge, levels out of range, invalid rows; K=1440, 1 and 0",
                    None, h4_edges),
@@ -574,6 +553,41 @@ def brief_case(torch, variant, path, calls):
                 K5, tuple(t for a in calls for t in a),
                 ((45 * 39 + 39 * 39) * 13 + 256 * 12) / 32, ORB_SRC,
                 in_bytes)
+
+
+def resize_case(torch, variant, path, img, params):
+    """H6 on the pyramid of ``img`` (H, W) or a batch (B, H, W), as ORB's
+    detect calls it: the input read once and the (.., nl, H, W) stack
+    written once; two operations (a multiply-add) for each of a level's
+    output pixels' column taps times its row taps plus one."""
+    import torch.nn.functional as F
+
+    from openvo_tpu_torch.ops import orb, orb_cuda
+    from openvo_tpu_torch.ops.image import resize_taps
+
+    imgf = img.to(torch.float32).contiguous()
+    H, W = imgf.shape[-2:]
+    frames = imgf.shape[0] if imgf.ndim == 3 else 1
+    dims = tuple(orb._level_dims(H, W, params))
+    fmas = sum(int(resize_taps(W, w)[1].sum())
+               * int((resize_taps(H, h)[1] + 1).sum()) for h, w in dims[1:])
+    stack_elems = frames * len(dims) * H * W
+    levels = imgf.reshape(-1, 1, H, W)
+
+    def library():
+        return [F.interpolate(levels, size=hw, mode="bilinear",
+                              align_corners=False, antialias=True)
+                for hw in dims[1:]]
+
+    single = None
+    if frames > 1:
+        single = lambda: [orb_cuda.resize_levels(imgf[i], dims)  # noqa
+                          for i in range(frames)]
+    return Case("resize_levels", variant, path,
+                lambda: orb_cuda.resize_levels(imgf, dims),
+                lambda: orb_cuda.resize_levels_plain(imgf, dims), RESIZE_JAX,
+                (imgf,), 2 * fmas * frames / stack_elems, RESIZE_SRC,
+                frames=frames, single=single, library=library)
 
 
 def batched_cases(torch, seq, cam, cfg):
@@ -651,6 +665,7 @@ def batched_cases(torch, seq, cam, cfg):
              frames=BATCH,
              single=lambda: [orb_cuda.brief_describe(*(t[i] for t in h4))
                              for i in frames]),
+        resize_case(torch, f"7 levels, {variant}", "off-tp", img, cfg.orb),
         Case("hsweep", f"forward, float32 C (block13), {variant}",
              "block13-tp", lambda: sc.hsweep(Cf, q1, q2),
              lambda: sc.hsweep_plain(Cf, q1, q2), K6, (Cf,), 10,
@@ -715,7 +730,9 @@ def check_kernels(torch, seq, cam, cfg):
                         "bound_ms": bound_ms / c.frames, "bound_by": bound_by,
                         # no one PyTorch call computes an SGM scan, a fused
                         # cost + box + scan, or BRIEF's sampling and packing
-                        "library_ms": None})
+                        "library_ms": None if c.library is None else min(
+                            time_ms(torch, c.library, 20),
+                            time_ms(torch, c.library, 20)) / c.frames})
         if c.frames > 1:
             results[-1]["frames"] = c.frames
     # times: plain, kernel, kernel, plain, each by CUDA events
@@ -830,6 +847,7 @@ def check_plain_stages(torch, seq, cam):
     log(f"[cost_volume_f32] over frames 0-{BATCH - 1} as one batch: "
         f"{cost_ms_b:.4f} ms a frame on the card, {cost_mib_b:.1f} MiB at "
         f"its peak")
+    resize_against_cpu(torch, seq, cam)
     return [{"name": "speckle_filter", "variant": "plain PyTorch",
              "route": "torch", "source": "openvo_tpu_torch/ops/sgbm.py",
              "replaces": "openvo_tpu/ops/sgbm.py:498 (XLA, no Pallas "
@@ -842,6 +860,23 @@ def check_plain_stages(torch, seq, cam):
              "replaces": "openvo_tpu/ops/sgbm.py:555-558 (XLA)",
              "ms": cost_ms, "peak_mib": cost_mib,
              "batch_ms_a_frame": cost_ms_b, "batch_peak_mib": cost_mib_b}]
+
+
+def resize_against_cpu(torch, seq, cam):
+    """ORB's pyramid of frame 0 by H6 on the card against its plain
+    version on the CPU: bit-equal (one fixed order of multiply-adds)."""
+    from openvo_tpu_torch.config import ORBParams
+    from openvo_tpu_torch.ops import orb, orb_cuda
+
+    img = torch.as_tensor(seq["left"][0], device=cam.device).to(
+        torch.float32)
+    dims = tuple(orb._level_dims(*img.shape, ORBParams()))
+    err = max_abs_err(orb_cuda.resize_levels(img, dims).cpu(),
+                      orb_cuda.resize_levels_plain(img.cpu(), dims))
+    log(f"[resize] frame 0's pyramid by H6 on the card against the plain "
+        f"version on the CPU: max |diff| {err}")
+    if err != 0.0:
+        raise AssertionError("H6 on the card differs from the CPU's levels")
 
 
 def time_k4_library(torch, dev, smi):
@@ -886,7 +921,7 @@ def expected_launches(params):
     ways = 1 if params.num_paths == 5 else 2
     return {"cost_hsweep": 0 if f32 else 1, "hsweep": int(f32),
             "vsweep": dirs * ways if f32 else 1, "hsweep_wta_lr": 1,
-            "brief_describe": 1}
+            "brief_describe": 1, "resize_levels": 1}
 
 
 def plain_tripwires():
@@ -896,7 +931,8 @@ def plain_tripwires():
 
     return {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
             (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
-            (orb_cuda, "brief_describe_plain")}
+            (orb_cuda, "brief_describe_plain"),
+            (orb_cuda, "resize_levels_plain")}
 
 
 def tripwire(*_a, **_k):
@@ -1136,10 +1172,11 @@ def run_mono(torch, seq, name, smi, profiled=4):
              and k != svd_line()]
     if stray:
         raise AssertionError(f"{name}: host syncs in RANSAC at {stray}")
-    if launches["brief_describe"] != N_FRAMES or any(
+    if launches["brief_describe"] != N_FRAMES or launches[
+            "resize_levels"] != N_FRAMES or any(
             launches[k.__name__] for k in sgbm_cuda.KERNELS):
-        raise AssertionError(f"{name}: launches {launches}, expected H4 once "
-                             f"a frame and no SGBM kernel")
+        raise AssertionError(f"{name}: launches {launches}, expected H4 and "
+                             f"H6 once a frame and no SGBM kernel")
     if replay:
         ref_poses = np.linalg.inv(ref["mono_c_T_w"].astype(np.float64))
         rot, ang = motion_gaps(poses, ref_poses)
@@ -1745,6 +1782,52 @@ def run_shard4(torch, seq, smi):
             for k in reports[0]["launches"]}
 
 
+def run_bench():
+    """Phase 7: the port's benchmark, ``python3 -m
+    openvo_tpu_torch.tools.bench --repeats BENCH_REPEATS``, its lines logged
+    here. Fails unless it exits 0, every pass printed a result, the last
+    line is the cumulative one, off-lat and on-lat track BENCH_TRACKED
+    frames with an ATE within BENCH_ATE m, and off-tp and rig skip the same
+    frames as off-lat, every repeat and (rig) every camera alike."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "openvo_tpu_torch.tools.bench", "--repeats",
+           str(BENCH_REPEATS), "--budget", str(BENCH_BUDGET)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_BUDGET + 120)
+    for line in proc.stderr.splitlines() + proc.stdout.splitlines():
+        log(f"[bench] {line}")
+    log(f"[bench] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lines = proc.stdout.splitlines()
+    results = {}
+    for line in lines:
+        if line.startswith("PASS_RESULT "):
+            r = json.loads(line[len("PASS_RESULT "):])
+            results[r["tag"]] = r
+    if proc.returncode or set(results) != set(PASSES):
+        raise AssertionError(f"bench: exit {proc.returncode}, results for "
+                             f"{sorted(results)}")
+    last = json.loads(lines[-1])
+    if last.get("metric") != "stereo_vo_throughput_kitti_res":
+        raise AssertionError(f"bench: the last line is not the cumulative "
+                             f"one: {lines[-1]}")
+    for tag in ("off-lat", "on-lat"):
+        r = results[tag]
+        if r["tracked"] < BENCH_TRACKED or not r["ate"] <= BENCH_ATE:
+            raise AssertionError(f"bench {tag}: tracked {r['tracked']}, ATE "
+                                 f"{r['ate']} m")
+    for tag, r in results.items():
+        if (r["skipped"] != results["off-lat"]["skipped"] and tag in (
+                "off-tp", "rig")) or not r["repeats_agree"] or not r.get(
+                "cameras_agree", True):
+            raise AssertionError(f"bench {tag}: skipped {r['skipped']} "
+                                 f"(off-lat {results['off-lat']['skipped']})"
+                                 f", repeats agree {r['repeats_agree']}")
+
+
 def main() -> int:
     import torch
 
@@ -1769,7 +1852,7 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     t0 = time.perf_counter()
-    seq = render_sequence()
+    seq = get_sequence()   # rendered once, and cached for the bench's passes
     log(f"[render] {N_FRAMES} frames at {IMG_SIZE} in "
         f"{time.perf_counter() - t0:.1f} s")
     cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
@@ -1798,6 +1881,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["tiled4"] = run_tiled4(torch, seq, cam)
     launches["shard4"] = run_shard4(torch, seq, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_bench()
     kernels = [r for r in results if r["path"] is not None]
     for r in results:
         r["launches"] = launches[r["path"]][r["name"]] if r["path"] else 0

@@ -55,6 +55,10 @@ SIGNATURES = {
     # stack, nl, H, W, octave, xy, cos, sin, valid, pattern, taps (host),
     # out, K (a frame), frames, stream
     "ovo_brief_describe": (_P, _I, _I, _I) + (_P,) * 8 + (_I, _I, _P),
+    # img, H, W, r0, rn, rw, c0, cn, cw, taps, sizes (host), nl, stack,
+    # frames, stream
+    "ovo_resize_levels": (_P, _I, _I) + (_P,) * 6 + (_I, _P, _I, _P, _I,
+                                                      _P),
 }
 
 

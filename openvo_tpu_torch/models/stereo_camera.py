@@ -26,7 +26,7 @@ from openvo_tpu_torch.ops._dispatch import target_device
 # bgr_to_gray lives in ops/image.py, as in the JAX package; importing it
 # from this module keeps working
 from openvo_tpu_torch.ops.image import bgr_to_gray
-from openvo_tpu_torch.ops.remap import make_remap, remap_bilinear
+from openvo_tpu_torch.ops.remap import make_remap, remap_bilinear, remap_u8
 from openvo_tpu_torch.ops.sgbm import sgbm_disparity
 
 
@@ -115,10 +115,9 @@ class StereoCamera:
         fused multiply-adds of its jitted path (``compute_3d`` keeps those,
         through ``make_remap``)."""
         img = torch.as_tensor(img, device=self.device)
-        out = remap_bilinear(img, *maps)
         if img.dtype == torch.uint8:
-            return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
-        return out
+            return remap_u8(img, *maps)
+        return remap_bilinear(img, *maps)
 
     def undistort_rectify_left(self, img):
         """Rectify one left frame; uint8 in gives uint8 out, as cv2.remap."""

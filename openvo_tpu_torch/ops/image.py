@@ -1,5 +1,5 @@
-"""Image primitives: grayscale, Sobel, box filter, antialiased bilinear
-resize.
+"""Image primitives: grayscale, Sobel, box filter, Gaussian blur,
+antialiased bilinear resize.
 
 PyTorch port of ``openvo_tpu/ops/image.py``. Each function keeps the JAX
 version's arithmetic order (shifted-add sums in the same sequence) so that
@@ -92,54 +92,155 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
+    """Separable Gaussian blur of (..., H, W) images with REFLECT_101
+    borders (OpenCV's ORB blurs with these defaults before BRIEF sampling),
+    float32: shifted products added from 0 in the kernel's order,
+    horizontal then vertical, each product and sum rounded on its own, as
+    the JAX package's ``gaussian_blur`` runs eagerly."""
+    k = torch.from_numpy(gaussian_kernel_1d(ksize, sigma)).to(img.device)
+    r = ksize // 2
+    x = _pad2d(img.to(torch.float32), r, r, "reflect")
+    H, W = img.shape[-2:]
+    h = sum(k[i] * x[..., :, i:i + W] for i in range(ksize))
+    return sum(k[i] * h[..., i:i + H, :] for i in range(ksize))
+
+
+# XLA:CPU computes jax.image.resize's weights at run time, in two loop
+# fusions over (in_size, out_size): one feeds the column sums, the other
+# divides by them. Each loops over the out_size columns 8 wide. Where its
+# vector loop runs, the sample position is one fused multiply-add and
+# ``1 - |x|`` is not; in the columns after it (the vectorized epilogue and
+# scalar remainder), and everywhere when LLVM unrolls the loop whole and
+# folds the sample positions to constants, it is the other way round. The
+# sum's loop takes 32 columns an iteration and is unrolled below 352
+# columns, the division's 8 and below 88 (read off XLA's optimized LLVM IR
+# and objects, x86-64 with FMA, jax 0.9).
+_SUM_LOOP = (352, 32)
+_NORM_LOOP = (88, 8)
+
+
+def _fma64(a, b, c):
+    """float32 ``a * b + c`` rounded once (as :func:`fma`, on numpy)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _tree_sum(w):
+    """Sum over axis 0 as XLA:CPU reduces it: windows of 32 rows, the input
+    padded evenly at both ends to a multiple of 32, each window added in
+    order from 0; again over the partials while more than 32 are left;
+    then the partials in order."""
+    f32 = np.float32
+    while w.shape[0] > 32:
+        n = w.shape[0]
+        lo = (-(-n // 32) * 32 - n) // 2
+        parts = []
+        for start in range(-lo, n, 32):
+            acc = np.zeros(w.shape[1:], f32)
+            for r in range(max(start, 0), min(start + 32, n)):
+                acc = acc + w[r]
+            parts.append(acc)
+        w = np.stack(parts)
+    acc = np.zeros(w.shape[1:], f32)
+    for r in range(w.shape[0]):
+        acc = acc + w[r]
+    return acc
+
+
 @functools.lru_cache(maxsize=64)
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     """(in_size, out_size) float32 triangle-kernel weights of an antialiased
-    linear resize, built the way ``jax.image.scale_and_translate`` builds
-    them: when downscaling the kernel is widened by the inverse scale (the
+    linear resize, bit-equal to those ``jax.image.resize`` uses inside jit
+    on XLA:CPU (``jax.image.scale_and_translate``'s recipe): when
+    downscaling the kernel is widened by the inverse scale (the
     antialiasing that ``F.interpolate`` does not do), each output column is
-    normalised by its weight sum, and samples outside the input get 0."""
+    normalised by its weight sum, and samples outside the input get 0.
+    The rounding follows XLA's two fusions (``_SUM_LOOP``, ``_NORM_LOOP``)
+    and its reduction (:func:`_tree_sum`)."""
     f32 = np.float32
     inv_scale = f32(1.0 / (out_size / in_size))
-    kernel_scale = np.maximum(inv_scale, f32(1.0))
-    sample_f = ((np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale
-                - f32(0.0) * inv_scale - f32(0.5))
-    x = (np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None])
-         * (f32(1.0) / kernel_scale))
-    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
-    total = np.zeros((1, out_size), f32)
-    for i in range(in_size):
-        total = total + w[i:i + 1]
+    inv_kernel = f32(1.0) / np.maximum(inv_scale, f32(1.0))
+    centre = np.arange(out_size, dtype=f32) + f32(0.5)
+    rows = np.arange(in_size, dtype=f32)[:, None]
+
+    def weights(loop_min, step):
+        looped = np.arange(out_size) < (
+            out_size // step * step if out_size >= loop_min else 0)
+        sample = np.where(looped, _fma64(centre, inv_scale, f32(-0.5)),
+                          centre * inv_scale + f32(-0.5))
+        x = np.abs(sample[None, :] - rows)
+        w = np.where(looped[None, :], f32(1.0) - x * inv_kernel,
+                     _fma64(-x, inv_kernel, f32(1.0)))
+        return sample, np.maximum(w, f32(0.0))
+
+    total = _tree_sum(weights(*_SUM_LOOP)[1])
+    sample, w = weights(*_NORM_LOOP)
     eps = 1000.0 * float(np.finfo(np.float32).eps)
     w = np.where(np.abs(total) > eps, w / np.where(total != 0, total, f32(1)),
                  f32(0))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return np.where(inside[None, :], w, f32(0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def resize_taps(in_size: int, out_size: int):
+    """The band of :func:`resize_weights` (in_size, out_size): per output
+    its first input index and its count of taps (int32 (out_size,) each)
+    and the taps' weights in input order, float32 (out_size, T), zero past
+    each count, T the most taps of any output (at least 1). The triangle
+    kernel's support is contiguous, so the band holds every nonzero
+    weight."""
+    w = resize_weights(in_size, out_size)
+    nz = w != 0
+    count = nz.sum(0)
+    first = np.where(count > 0, nz.argmax(0), 0)
+    last = np.where(count > 0, in_size - 1 - nz[::-1].argmax(0), first - 1)
+    n = last - first + 1
+    taps = max(int(n.max()), 1)
+    t = np.arange(taps)
+    idx = np.minimum(first[:, None] + t, in_size - 1)
+    band = np.where(t < n[:, None], w[idx, np.arange(out_size)[:, None]],
+                    np.float32(0))
+    return (first.astype(np.int32), n.astype(np.int32),
+            band.astype(np.float32))
+
+
+def band_chain(x, first, count, taps, dim: int):
+    """The contraction of ``x`` (..., H, W) along ``dim`` (-2: rows, -1:
+    columns) with one band of weights per output, as one chain of
+    multiply-adds per output in input order from 0, each rounded once
+    (:func:`fma`): ``first``, ``count`` (n_out,) int and ``taps`` (n_out,
+    T) float32 tensors on x's device (:func:`resize_taps`)."""
+    size = x.shape[dim]
+    if dim == -2:
+        out = x.new_zeros(x.shape[:-2] + (first.shape[0], x.shape[-1]))
+    else:
+        out = x.new_zeros(x.shape[:-1] + (first.shape[0],))
+    for t in range(taps.shape[1]):
+        src = x.index_select(dim, (first.to(torch.int64) + t).clamp(
+            max=size - 1))
+        w, on = taps[:, t], t < count
+        if dim == -2:
+            w, on = w[:, None], on[:, None]
+        out = torch.where(on, fma(w, src, out), out)
+    return out
 
 
 def resize_bilinear(img, out_h: int, out_w: int):
     """Antialiased bilinear resize with half-pixel centres, as
     ``jax.image.resize(img, (out_h, out_w), "linear")``: two float32
-    contractions with the triangle-kernel weight matrices, rows first.
-
-    (B, H, W) images take the same two contractions frame by frame (the
-    weights uploaded once): a batched matmul may pick another kernel and
-    round otherwise, and one ulp reorders Harris near-ties."""
+    contractions with the triangle-kernel weights, rows first, each an
+    ascending chain of multiply-adds per output (:func:`band_chain`). The
+    weights are XLA's bit for bit and so is the rows' product (XLA:CPU's
+    order); the columns' is XLA's Eigen kernel, whose order moves with the
+    shape, so levels differ from JAX's in float32 ulps. A fixed order: a
+    batch of images, (B, H, W), gives each frame's bits, and the card's
+    kernel H6 (``ops/orb_cuda.resize_levels``) the same bits again."""
     img = img.to(torch.float32)
     H, W = img.shape[-2:]
-    wh = ww = None
-    if out_h != H:
-        wh = torch.from_numpy(resize_weights(H, out_h)).to(img.device).T
-    if out_w != W:
-        ww = torch.from_numpy(resize_weights(W, out_w)).to(img.device)
-
-    def one(out):
-        if wh is not None:
-            out = wh @ out
-        if ww is not None:
-            out = out @ ww
-        return out
-
-    if img.ndim == 2:
-        return one(img)
-    return torch.stack([one(f) for f in img])
+    for n_in, n_out, dim in ((H, out_h, -2), (W, out_w, -1)):
+        if n_out != n_in:
+            first, count, taps = (torch.from_numpy(a).to(img.device)
+                                  for a in resize_taps(n_in, n_out))
+            img = band_chain(img, first, count, taps, dim)
+    return img

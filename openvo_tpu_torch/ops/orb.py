@@ -27,8 +27,7 @@ import torch.nn.functional as F
 from openvo_tpu_torch.config import ORBParams
 from openvo_tpu_torch.ops import orb_cuda
 from openvo_tpu_torch.ops._dispatch import device_constant
-from openvo_tpu_torch.ops.image import (box_filter, fma, resize_bilinear,
-                                        sobel_xy)
+from openvo_tpu_torch.ops.image import box_filter, fma, sobel_xy
 from openvo_tpu_torch.ops.orb_cuda import RAW_WIN, patch_windows_stack
 
 HALF_PATCH = 15  # intensity-centroid circle radius (OpenCV halfPatchSize)
@@ -208,10 +207,10 @@ def detect(img, mask, params: ORBParams):
     response (K,) Harris response, valid (K,) bool.
 
     A batch, (B, H, W) images (and masks), gives every output a leading
-    frame axis, each frame's bit for bit: the per-pixel stages, the
-    per-level top-k and the compaction run once for the batch (sorts along
-    the last axis, stable); only the resize's contractions go frame by
-    frame (:func:`resize_bilinear`).
+    frame axis, each frame's bit for bit: the pyramid (H6,
+    ``orb_cuda.resize_levels``, in its fixed order), the per-pixel stages,
+    the per-level top-k and the compaction run once for the batch (sorts
+    along the last axis, stable).
     """
     H, W = img.shape[-2:]
     lead = tuple(img.shape[:-2])
@@ -229,20 +228,16 @@ def detect(img, mask, params: ORBParams):
              for lv in range(nl)]
     P = max(k_eff)
 
-    # --- pyramid stack (and mask stack) ---
-    stack = torch.zeros(lead + (nl, H, W), dtype=torch.float32, device=dev)
-    stack[..., 0, :, :] = imgf
+    # --- pyramid stack (H6) and mask stack ---
+    stack = orb_cuda.resize_levels(imgf.contiguous(), dims)
     mstack = None
     if mask is not None:
         m0 = mask > 0
         mstack = torch.zeros(lead + (nl, H, W), dtype=torch.bool, device=dev)
         mstack[..., 0, :, :] = m0
-    for level in range(1, nl):
-        h_l, w_l = dims[level]
-        hh, ww = min(h_l, H), min(w_l, W)
-        stack[..., level, :hh, :ww] = resize_bilinear(
-            imgf, h_l, w_l)[..., :hh, :ww]
-        if mask is not None:
+        for level in range(1, nl):
+            h_l, w_l = dims[level]
+            hh, ww = min(h_l, H), min(w_l, W)
             yy, xx = _mask_level_index(H, W, h_l, w_l)
             m_l = m0.index_select(-2, torch.from_numpy(yy).to(dev))
             m_l = m_l.index_select(-1, torch.from_numpy(xx).to(dev))

@@ -1,5 +1,7 @@
-"""Steered-BRIEF descriptor kernel H4 (``csrc/orb.cu``) and its plain
-version: from a keypoint's pyramid level to its packed descriptor.
+"""ORB's kernels and their plain versions: the steered-BRIEF descriptor
+kernel H4 (``csrc/orb.cu``), from a keypoint's pyramid level to its packed
+descriptor, and the pyramid kernel H6 (``csrc/resize.cu``), every level's
+resize from level 0 in one launch.
 
 The plain version is the JAX package's descriptor stage
 (``openvo_tpu/ops/orb.py:529-555``) in pieces: :func:`patch_windows_stack`
@@ -13,7 +15,9 @@ Each takes a batch of frames on a leading axis as well.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from openvo_tpu_torch import _build
@@ -21,7 +25,8 @@ from openvo_tpu_torch.ops._dispatch import (check_cuda_input,
                                             device_constant, device_of,
                                             stream_handle)
 from openvo_tpu_torch.ops.hamming import pack_bits
-from openvo_tpu_torch.ops.image import fma, gaussian_kernel_1d
+from openvo_tpu_torch.ops.image import (fma, gaussian_kernel_1d,
+                                        resize_bilinear, resize_taps)
 
 BRIEF_WIN = 19   # rotated +/-13 pattern points stay < 19 px from the centre
 BLUR_TAPS = tuple(float(v) for v in gaussian_kernel_1d(7, 2.0))
@@ -165,4 +170,81 @@ def brief_describe(stack, octave, xy_lvl, cos_a, sin_a, valid):
 
 brief_describe.launches = 0
 
-KERNELS = (brief_describe,)
+
+def resize_levels_plain(img, dims):
+    """ORB's pyramid stack (..., nl, H, W) from level-0 images (..., H, W):
+    level 0 the image, level l its :func:`resize_bilinear` to ``dims[l]``
+    (h, w), cut to H x W, zero beyond the level."""
+    H, W = img.shape[-2:]
+    img = img.to(torch.float32)
+    stack = img.new_zeros(img.shape[:-2] + (len(dims), H, W))
+    stack[..., 0, :, :] = img
+    for level, (h, w) in enumerate(dims[1:], 1):
+        hh, ww = min(h, H), min(w, W)
+        stack[..., level, :hh, :ww] = resize_bilinear(img, h, w)[
+            ..., :hh, :ww]
+    return stack
+
+
+@functools.lru_cache(maxsize=16)
+def level_tables(H: int, W: int, dims: tuple, device):
+    """H6's tap tables on ``device``, built and uploaded once per frame
+    size and level sizes: every level after the first, its rows' and then
+    its columns' :func:`resize_taps`, concatenated and padded to one tap
+    count, and the levels' sizes (host, int32)."""
+    rows = [resize_taps(H, h) for h, _ in dims[1:]]
+    cols = [resize_taps(W, w) for _, w in dims[1:]]
+    taps = max(t[2].shape[1] for t in rows + cols)
+
+    def cat(parts):
+        first = np.concatenate([p[0] for p in parts])
+        count = np.concatenate([p[1] for p in parts])
+        w = np.concatenate([np.pad(p[2], ((0, 0), (0, taps - p[2].shape[1])))
+                            for p in parts])
+        return tuple(torch.from_numpy(a).to(device) for a in (first, count,
+                                                              w))
+
+    sizes = (ctypes.c_int * (2 * len(dims) - 2))(
+        *[v for hw in dims[1:] for v in hw])
+    return cat(rows), cat(cols), taps, sizes
+
+
+def resize_levels(img, dims):
+    """H6, replacing the two contractions a level of ``jax.image.resize``
+    inside JAX's ORB (``openvo_tpu/ops/image.py:82-85``, XLA): the pyramid
+    stack (nl, H, W) float32 of a (H, W) float32 image, level l its
+    antialiased linear resize to ``dims[l]`` = (h, w), cut to H x W and
+    zero beyond; each output pixel is :func:`resize_levels_plain`'s two
+    chains of multiply-adds in its order, so the bits are the plain
+    version's. One launch for every level (see ``csrc/resize.cu``).
+
+    A batch, (B, H, W) images, gives (B, nl, H, W) from the same launch."""
+    dev = img.device
+    if dev.type == "cpu":
+        return resize_levels_plain(img, dims)
+    if img.ndim not in (2, 3):
+        raise ValueError(f"img: {img.ndim} axes, expected (H, W) or "
+                         f"(B, H, W)")
+    lead = tuple(img.shape[:-2])
+    H, W = img.shape[-2:]
+    check_cuda_input(img, torch.float32, lead + (H, W), "img")
+    dims = tuple((int(h), int(w)) for h, w in dims)
+    stack = torch.zeros(lead + (len(dims), H, W), dtype=torch.float32,
+                        device=dev)
+    stack[..., 0, :, :] = img
+    frames = lead[0] if lead else 1
+    if len(dims) < 2 or frames == 0:
+        return stack
+    (r0, rn, rw), (c0, cn, cw), taps, sizes = level_tables(H, W, dims, dev)
+    err = _build.library().ovo_resize_levels(
+        img.data_ptr(), H, W, r0.data_ptr(), rn.data_ptr(), rw.data_ptr(),
+        c0.data_ptr(), cn.data_ptr(), cw.data_ptr(), taps, sizes,
+        len(dims), stack.data_ptr(), frames, stream_handle(dev))
+    resize_levels.launches += 1
+    _build.check_launch(err, "resize_levels")
+    return stack
+
+
+resize_levels.launches = 0
+
+KERNELS = (brief_describe, resize_levels)

@@ -1,16 +1,26 @@
 """Undistort/rectify remap with bilinear interpolation, PyTorch port of
 ``openvo_tpu/ops/remap.py``: :func:`remap_bilinear` is its gather form as
 JAX runs it eagerly, op by op (the camera's ``undistort_rectify_left`` and
-``_right``); :func:`make_remap` is what the JAX camera's compiled program
-computes, whose maps are constants of it (both the gather and the bounded
-roll+select forms give those bits).
+``_right``), :func:`remap_u8` the same rounded back to uint8, and
+:func:`make_remap` what the JAX camera's compiled program computes, whose
+maps are constants of it (both the gather and the bounded roll+select
+forms give those bits).
 
 Border behaviour matches ``cv2.remap``'s BORDER_CONSTANT(0): a neighbour
 outside the source contributes 0 with its bilinear weight.
+
+The JAX module's other names, and their counterparts here:
+
+- ``remap_bilinear_bounded`` (roll + select, for the TPU's vector unit):
+  :func:`make_remap`, a gather that gives the same bits under jit;
+- ``make_remap``'s choice between the two forms and its limits
+  ``MAX_BOUNDED_DX``, ``_DY``, ``_AREA``: none, :func:`make_remap` has
+  one form.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from openvo_tpu_torch.ops.image import fma
@@ -52,6 +62,28 @@ def remap_bilinear(src, map_x, map_y):
     out = (p00 * (1 - wx) * (1 - wy) + p01 * wx * (1 - wy)
            + p10 * (1 - wx) * wy + p11 * wx * wy)
     return out[..., 0] if squeeze else out
+
+
+def remap_u8(src, map_x, map_y):
+    """:func:`remap_bilinear`, rounded half to even and clipped back to
+    uint8 (``cv2.remap`` on uint8 input rounds to nearest)."""
+    out = remap_bilinear(src, map_x, map_y)
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+def displacement_bounds(map_x, map_y):
+    """Integer bounds (dx_min, dx_max, dy_min, dy_max) of how far a remap
+    field's source samples stray from the identity (floor(map) - pixel
+    index; non-finite entries count as 0). A setup-time helper on the
+    host: the maps are calibration constants."""
+    mx, my = (m.detach().cpu().numpy() if torch.is_tensor(m)
+              else np.asarray(m) for m in (map_x, map_y))
+    h, w = mx.shape
+    dx = np.floor(mx) - np.arange(w, dtype=np.float32)[None, :]
+    dy = np.floor(my) - np.arange(h, dtype=np.float32)[:, None]
+    dx = np.where(np.isfinite(dx), dx, 0)
+    dy = np.where(np.isfinite(dy), dy, 0)
+    return (int(dx.min()), int(dx.max()), int(dy.min()), int(dy.max()))
 
 
 def make_remap(map_x, map_y):

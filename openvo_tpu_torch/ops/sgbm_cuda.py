@@ -52,6 +52,20 @@ frame changes only a base offset, so a batched launch gives B single-frame
 launches' bits. The plain versions take a batch too: the row walks (H3,
 H5) fold it into their rows, the others (H1's box sum, H2's columns)
 run frame by frame.
+
+The JAX stages of ``openvo_tpu/ops/sgbm.py`` that have no function of the
+same name here, and their counterparts:
+
+- ``bt_cost_volume`` (``:77``): :func:`_bt_cost` (the Birchfield-Tomasi
+  cost), :func:`bt_cost_volume2` (on the int16 x2 grid) and
+  :func:`cost_volume_f32` (float32, with the box sum);
+- ``block_sum`` (``:160``): :func:`block_sum` (and a row band), inside H1
+  on the int16 paths;
+- ``aggregate`` (``:232``, the scans and their sum): H1
+  :func:`cost_hsweep` and H5 :func:`hsweep` (left to right), H2
+  :func:`vsweep` (vertical and diagonal), H3 :func:`hsweep_wta_lr` (right
+  to left, with the WTA); their plain versions :func:`sgm_scan`,
+  :func:`scan_f32`, :func:`vsweep_plain`, :func:`hsweep_plain`.
 """
 
 from __future__ import annotations

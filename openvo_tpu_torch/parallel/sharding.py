@@ -16,6 +16,10 @@ skip/fallback semantics.
   into the trajectory by a log-depth scan over 4x4 matmuls
   (:func:`compose_trajectory`).
 
+JAX's ``make_mesh`` (``sharding.py:37``) has no counterpart: the ranks of
+a ``torch.distributed`` group (:func:`make_sharded_trajectory_fn`'s
+``group``, the default group if None) take the place of the mesh's devices.
+
 Messages go through ``parallel/tiling._Transport``: where the backend is
 gloo and the tensors lie on a card, each is staged through host memory, so
 ranks can share one card (NCCL refuses two ranks on one GPU).

@@ -1,6 +1,9 @@
 """Row-tiled SGBM across the ranks of a ``torch.distributed`` group: PyTorch
 port of ``openvo_tpu/parallel/tiling.py``. The process group takes the place
-of the JAX device mesh and ``dist.get_rank(group)`` that of ``axis_index``.
+of the JAX device mesh and ``dist.get_rank(group)`` that of ``axis_index``:
+JAX's ``make_row_mesh`` (``tiling.py:52``) has no counterpart, because a
+caller passes :func:`make_tiled_sgbm_fn` a group (the default group if
+None), set up by ``torch.distributed.init_process_group`` or ``new_group``.
 
 Decomposition (exact, not an approximation), as in the JAX package:
 

@@ -194,6 +194,17 @@ def ransac_essential_5pt(x1, x2, mask, u=None, iters: int = 64,
     small margin of the best, then ``refit_rounds`` guarded least-squares
     refits over the inliers. Returns (E, inlier mask, n_inliers)."""
     idx = sample_indices(uniforms(u, (iters, 5), x1.device), mask)
+    Es, valid = five_point_candidates(x1[idx], x2[idx])   # (iters, 10, ...)
+    return select_essential(Es, valid, x1, x2, mask, inlier_threshold,
+                            top_candidates, refit_rounds)
+
+
+def select_essential(Es, valid, x1, x2, mask, inlier_threshold: float,
+                     top_candidates: int = 8, refit_rounds: int = 2):
+    """:func:`ransac_essential_5pt`'s choice among candidate E's (..., 3,
+    3) with validity (...): the ``top_candidates`` lowest MSAC sums, the
+    most cheirality support among those within the margin of the best,
+    then the guarded refits. Returns (E, inlier mask, n_inliers)."""
 
     def msac_of(E):
         err = sampson_error(E, x1, x2)
@@ -204,7 +215,6 @@ def ransac_essential_5pt(x1, x2, mask, u=None, iters: int = 64,
         _, _, good = recover_pose(E, x1, x2, inl)
         return good.to(torch.int32).sum(-1)
 
-    Es, valid = five_point_candidates(x1[idx], x2[idx])   # (iters, 10, ...)
     msacs = torch.where(valid, msac_of(Es), float("inf"))
     flat_E = Es.reshape(-1, 3, 3)
     k = min(top_candidates, flat_E.shape[0])

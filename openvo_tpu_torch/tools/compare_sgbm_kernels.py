@@ -44,7 +44,7 @@ planes = syn.corridor_planes(cs.SEQ["corridor_length"],
                              cs.SEQ["corridor_half_width"])
 K, dist, R, T = syn.make_rig(cs.IMG_SIZE, cs.F, cs.B)
 pose = syn.camera_trajectory(1, cs.SEQ["step"], cs.SEQ["yaw_rate"])[0]
-left, right = cs._render_pair((K, pose, planes, tex, cs.IMG_SIZE, cs.B))
+left, right = cs.render_pair((K, pose, planes, tex, cs.IMG_SIZE, cs.B))
 seq = {"left": np.clip(left, 0, 255).astype(np.uint8)[None],
        "right": np.clip(right, 0, 255).astype(np.uint8)[None]}
 cam = StereoCamera(K, dist, K, dist, {"R": R, "T": T}, cs.SGBM, cs.IMG_SIZE,

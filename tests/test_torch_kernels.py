@@ -740,3 +740,32 @@ def test_batched_sgbm_and_extract_equal_frames(cuda):
         for name in ("disp", "kp_xy", "desc", "kp_valid"):
             assert torch.equal(getattr(batched, name)[i],
                                getattr(one, name)), (name, i)
+
+
+@pytest.mark.parametrize("H,W,integer", [(376, 1242, True), (240, 320, False),
+                                         (120, 160, True), (50, 60, False)])
+def test_resize_levels_equals_plain(cuda, H, W, integer):
+    """H6, ORB's pyramid in one launch, equals its plain version bit for
+    bit: KITTI and 320x240 frames, a small one, and one whose upper levels
+    are held at ORB's least size and so larger than the frame (cut to
+    it); one launch, as a batch of 3 frames, each equal to its own call."""
+    from openvo_tpu_torch.config import ORBParams
+    from openvo_tpu_torch.ops import orb
+
+    rng = np.random.default_rng(H)
+    imgs = rng.uniform(0, 255, (3, H, W)).astype(np.float32)
+    if integer:
+        imgs = np.round(imgs)
+    imgs = torch.from_numpy(imgs).to(cuda)
+    dims = tuple(orb._level_dims(H, W, ORBParams()))
+    n0 = orb_cuda.resize_levels.launches
+    out = orb_cuda.resize_levels(imgs[0], dims)
+    assert orb_cuda.resize_levels.launches == n0 + 1
+    assert out.shape == (len(dims), H, W) and out.dtype == torch.float32
+    assert torch.equal(out, orb_cuda.resize_levels_plain(imgs[0], dims))
+    assert torch.equal(out.cpu(),
+                       orb_cuda.resize_levels_plain(imgs[0].cpu(), dims))
+    batch = orb_cuda.resize_levels(imgs, dims)
+    assert orb_cuda.resize_levels.launches == n0 + 2
+    for i in range(3):
+        assert torch.equal(batch[i], orb_cuda.resize_levels(imgs[i], dims))

@@ -178,6 +178,10 @@ def test_port_never_imports_jax():
             "import openvo_tpu_torch.models.stereo_odometer\n"
             "import openvo_tpu_torch.parallel.tiling\n"
             "import openvo_tpu_torch.ops.sgbm_cuda, openvo_tpu_torch.ops.orb_cuda\n"
+            "import openvo_tpu_torch.ops.remap, openvo_tpu_torch.ops.image\n"
+            "import openvo_tpu_torch.models.mono_odometer\n"
+            "import openvo_tpu_torch.parallel.rig, openvo_tpu_torch.parallel.stream\n"
+            "import openvo_tpu_torch.tools.bench, openvo_tpu_torch.entry\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'openvo_tpu' or m.startswith('openvo_tpu.')]\n"
             "assert not bad, bad\n")
@@ -187,7 +191,8 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-@pytest.mark.parametrize("fn", ["cost_hsweep", "brief_describe"])
+@pytest.mark.parametrize("fn", ["cost_hsweep", "brief_describe",
+                                "resize_levels"])
 def test_kernel_wrappers_have_launch_counters(fn):
     from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
 

@@ -3,15 +3,13 @@ around it) against the JAX package's CPU path.
 
 Level-0 keypoints and all descriptors are bit-equal. One float source is
 not reproduced: the pyramid's levels 1-7. JAX builds them with
-``jax.image.resize`` inside jit, and XLA:CPU computes the triangle-kernel
-weights at run time in kernels of its own: their sums split into
-reduce-windows of 32 rows, their columns vectorized 8 at a time with a
-scalar remainder that fuses ``1 - |x|`` into an FMA and a vector body that
-does not. No float32 recipe tried reproduces those weights (see
-``test_resize_weights_equal_jax``, which pins how many differ), and the two
-contractions then round in XLA's order. So those levels' pixels move by a
-few float32 ulps, which can only reorder near-tie Harris responses inside
-a level >= 1. Measured on the two frames below: 0 of 459 keypoints differ
+``jax.image.resize`` inside jit. The port's resize weights equal XLA:CPU's
+at every level (``test_resize_weights_equal_jax``), but the second of the
+two contractions, XLA's Eigen product over the columns, adds in an order
+the port does not reproduce (``test_resize_level_pixels_against_jax``
+pins how many level pixels differ). So those levels' pixels move by a few
+float32 ulps, which can only reorder near-tie Harris responses inside a
+level >= 1. Measured on the two frames below: 0 of 459 keypoints differ
 as (x, y, octave, descriptor) sets; in frame 0, 8 of 459 rows (1.7%) swap
 places within level 2. Angles differ by ATen vs XLA atan2 rounding (a few
 ulps), which moved no GET_VALUE index here.
@@ -108,10 +106,9 @@ def test_fast_and_nms_bit_equal(frames):
 
 @pytest.mark.parametrize("out_hw", [(200, 267), (139, 185), (67, 89)])
 def test_resize_bilinear_antialiased_like_jax(frames, out_hw):
-    """Same antialiased triangle kernel as jax.image.resize. The weights
-    differ from XLA's in some ulps (``test_resize_weights_equal_jax``) and
-    the contractions sum in another order: a few float32 ulps at pixel
-    scale 255."""
+    """Same antialiased triangle kernel as jax.image.resize, with the same
+    weights (``test_resize_weights_equal_jax``); the column contraction
+    sums in another order: a few float32 ulps at pixel scale 255."""
     img = frames[0][0].astype(np.float32)
     ref = np.asarray(jax.jit(lambda a: jimage.resize_bilinear(a, *out_hw))(
         jnp.asarray(img)))
@@ -124,45 +121,70 @@ def test_resize_bilinear_antialiased_like_jax(frames, out_hw):
     assert np.abs(plain - ref).max() > 1.0
 
 
-# Weights of jax.image.resize under jit that the port's resize_weights does
-# not reproduce, per pyramid level (ORB's 1.2 scale, 8 levels) of a KITTI
-# frame's 376 rows and 1242 columns and of a 320x240 frame, on XLA:CPU
-# (jax 0.9.0). No float32 recipe tried matched them all: fusing the sample
-# positions' or the kernel's multiply-add, a reciprocal multiply for either
-# division, and the weight sums in XLA's reduce-windows of 32 rows
-# (sequential, reversed, or in 2-32 partial sums) each left some columns
-# off. JAX's eager weights differ from its jitted ones more (e.g. 204 of
-# 750 at 376 -> 313, where the port's differ in 80).
-RESIZE_WEIGHTS_DIFFERING = {
-    376: [80, 193, 123, 317, 211, 211, 137],
-    1242: [16, 45, 19, 70, 102, 66, 452],
-    240: [193, 66, 102, 16, 15, 20, 240],
-    320: [110, 71, 10, 62, 49, 95, 115],
-}
-
-
-@pytest.mark.parametrize("n_in", list(RESIZE_WEIGHTS_DIFFERING))
-def test_resize_weights_equal_jax(n_in):
-    """The port's resize weights against those jax.image.resize uses inside
-    jit (read off by resizing the identity: each output is one weight
-    times 1 plus zeros, exact) at every pyramid level: pinned to the
-    number of weights that still differ."""
+def pyramid_sizes(n):
+    """ORB's level sizes (1.2 scale, 8 levels) of a frame side n."""
     params = ORBParams()
-    differing = []
-    for lv in range(1, params.nlevels):
-        n_out = max(int(round(n_in / params.scale_factor ** lv)),
-                    2 * params.edge_threshold + 3)
+    return [max(int(round(n / params.scale_factor ** lv)),
+                2 * params.edge_threshold + 3)
+            for lv in range(1, params.nlevels)]
+
+
+@pytest.mark.parametrize("n_in", [376, 1242, 240, 320])
+def test_resize_weights_equal_jax(n_in):
+    """The port's resize weights equal those jax.image.resize uses inside
+    jit (read off by resizing the identity: each output is one weight
+    times 1 plus zeros, exact) at every pyramid level of a KITTI frame's
+    376 rows and 1242 columns and of a 320x240 frame: XLA's two fusions'
+    multiply-adds and its reduce-windows of 32, as ``resize_weights``
+    reproduces them."""
+    for n_out in pyramid_sizes(n_in):
         eye = jnp.eye(n_in, dtype=jnp.float32)
         want = np.asarray(jax.jit(
             lambda a: jimage.resize_bilinear(a, n_in, n_out))(eye))
         got = image.resize_weights(n_in, n_out)
         assert got.shape == want.shape
-        # the same support; a weight near the kernel's edge, where a sample
-        # position's ulp moves it most, off by at most 4.4e-5
-        np.testing.assert_array_equal(got != 0, want != 0)
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
-        differing.append(int((got != want).sum()))
-    assert differing == RESIZE_WEIGHTS_DIFFERING[n_in]
+        np.testing.assert_array_equal(got, want)
+
+
+# Pixels of levels 1-7 of the 320x240 test frame 0 that differ from JAX's
+# jitted resize with the weights equal: XLA:CPU's Eigen product over the
+# columns adds in an order the port's chain of multiply-adds does not (the
+# rows' product, an ascending chain, it does). With the earlier weights
+# the counts were 30083, 14923, 4727, 7387, 5459, 4065, 3562. On a KITTI
+# frame the counts also move with the host's thread count (Eigen's
+# blocking), so only this frame is pinned.
+RESIZE_LEVEL_PIXELS_DIFFERING = [12184, 10657, 0, 6238, 4862, 3503, 2680]
+
+
+def test_resize_level_pixels_against_jax(frames):
+    img = frames[0][0].astype(np.float32)
+    differing = []
+    for h, w in zip(pyramid_sizes(240), pyramid_sizes(320)):
+        ref = np.asarray(jax.jit(lambda a: jimage.resize_bilinear(a, h, w))(
+            jnp.asarray(img)))
+        out = image.resize_bilinear(torch.from_numpy(img), h, w).numpy()
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+        differing.append(int((out != ref).sum()))
+    assert differing == RESIZE_LEVEL_PIXELS_DIFFERING
+
+
+def test_resize_levels_plain_is_the_pyramid(frames):
+    """The pyramid's plain version (H6's on the CPU): level 0 the frame,
+    level l ``resize_bilinear`` to ORB's size, zero past it; a batch of
+    two frames gives each frame's own bits (one fixed order)."""
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames]).astype(
+        np.float32))
+    dims = tuple(orb._level_dims(240, 320, ORBParams()))
+    batch = orb_cuda.resize_levels(imgs, dims)
+    assert batch.shape == (2, len(dims), 240, 320)
+    for i in range(2):
+        one = orb_cuda.resize_levels(imgs[i], dims)
+        assert torch.equal(batch[i], one)
+        assert torch.equal(one[0], imgs[i])
+        for lv, (h, w) in enumerate(dims[1:], 1):
+            assert torch.equal(one[lv, :h, :w],
+                               image.resize_bilinear(imgs[i], h, w))
+            assert not one[lv, h:].any() and not one[lv, :, w:].any()
 
 
 def test_topk_ties_go_to_lower_index():
