@@ -43,6 +43,18 @@ Phases, in order; any failure exits non-zero before the final line:
    filters`: the rigid clique and outlier pass over the 8 cameras at
    once); each held to its single-frame path frame by frame (ok, skip
    cause, c_T_w within 1e-5), with launches and host syncs a frame;
+   each path of CAPTURED runs this phase eagerly (``_graph.
+   disable_capture()``), its launch counts from that run, then again as
+   users run it, each step one replayed CUDA graph (``openvo_tpu_torch/
+   _graph.py``): ok, skip causes and c_T_w must equal the eager run's bit
+   for bit, a captured frame of frames 2-63 must make exactly one host
+   sync (the copy of its results; a stream call none), and the eager and
+   captured medians, the warm-up plus capture seconds, the graph's pool
+   and, under torch.profiler, the kernels and kernel time of a few more
+   captured calls are logged; two off-lat odometers on one camera, run in
+   turns, share its captured step and each equal the eager run; every
+   other path must choose the eager run itself (its step reads the host)
+   and logs its mode;
 4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
@@ -76,6 +88,7 @@ and the card's name and power limit from nvidia-smi; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -107,6 +120,11 @@ PATHS = {
     # ORB's cv2.ORB ranking: held to the JAX package's run instead
     "cv2rank": ({}, None, None),
 }
+# The paths whose steps replay a CUDA graph: each runs eagerly first (its
+# launch counts), then captured, held to the eager run bit for bit.
+CAPTURED = ("off-lat", "hh8", "hv4", "block13", "cv2rank", "off-tp",
+            "block13-tp", "rig8")
+SHARED_FRAMES = 8        # off-lat's frames run by two odometers in turns
 # The `filters` path: off-lat with both of the odometer's filters on, at the
 # thresholds of the JAX package's own tests (tests/test_odometer.py:228,
 # :300).
@@ -983,20 +1001,21 @@ def run_path(torch, seq, name, smi):
     base = torch.cuda.memory_allocated() / 2 ** 20
     torch.cuda.reset_peak_memory_stats()
     try:
-        sgbm.speckle_filter.syncs = 0
-        rigid_clique.rigid_body_filter.syncs = 0
-        for k in kernels:
-            k.launches = 0
-        for i in range(N_FRAMES):
-            t0 = time.perf_counter()
-            oks.append(odo.update(seq["left"][i], seq["right"][i]))
-            lat.append(time.perf_counter() - t0)   # update() ends in a sync
-            causes.append(odo.skip_cause)
-            ctws.append(odo.c_T_w)   # current_pose() is its inverse
-            poses.append(np.linalg.inv(ctws[-1].astype(np.float64)))
-        launches = {k.__name__: k.launches for k in kernels}
-        syncs = sgbm.speckle_filter.syncs
-        clique_syncs = rigid_clique.rigid_body_filter.syncs
+        with eager_for(name):
+            sgbm.speckle_filter.syncs = 0
+            rigid_clique.rigid_body_filter.syncs = 0
+            for k in kernels:
+                k.launches = 0
+            for i in range(N_FRAMES):
+                t0 = time.perf_counter()
+                oks.append(odo.update(seq["left"][i], seq["right"][i]))
+                lat.append(time.perf_counter() - t0)   # ends in a sync
+                causes.append(odo.skip_cause)
+                ctws.append(odo.c_T_w)   # current_pose() is its inverse
+                poses.append(np.linalg.inv(ctws[-1].astype(np.float64)))
+            launches = {k.__name__: k.launches for k in kernels}
+            syncs = sgbm.speckle_filter.syncs
+            clique_syncs = rigid_clique.rigid_body_filter.syncs
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
@@ -1016,7 +1035,8 @@ def run_path(torch, seq, name, smi):
         f"at the start, peak {peak:.1f} MiB; {smi}")
     log(f"[{name}] kernel launches: {launches}; speckle host syncs "
         f"{syncs} ({syncs / N_FRAMES} a frame); rigid clique host syncs "
-        f"{clique_syncs} ({clique_syncs / N_FRAMES} a frame)")
+        f"{clique_syncs} ({clique_syncs / N_FRAMES} a frame); "
+        f"{mode_line(name, odo.captured)}")
     if not np.isfinite(poses).all():
         raise AssertionError(f"{name}: non-finite pose")
     if name == "filters":
@@ -1041,7 +1061,167 @@ def run_path(torch, seq, name, smi):
                                  f"in {N_FRAMES} frames, expected "
                                  f"{per_frame} a frame")
     return launches, {"ok": oks, "causes": causes, "c_T_w": np.stack(ctws),
-                      "poses": poses}
+                      "poses": poses, "lat": lat}
+
+
+def eager_for(name):
+    """The eager run of a path of CAPTURED (``_graph.disable_capture``);
+    every other path runs as users run it."""
+    from openvo_tpu_torch import _graph
+
+    return (_graph.disable_capture() if name in CAPTURED
+            else contextlib.nullcontext())
+
+
+def mode_line(name, captured):
+    """The run's mode, logged for every path: a path of CAPTURED runs
+    eagerly here and captured in its own run; every other path must choose
+    the eager run itself."""
+    if captured is not False:
+        raise AssertionError(f"{name}: ran captured={captured} where the "
+                             f"eager run was due")
+    return ("mode: eager (capture disabled; the captured run follows)"
+            if name in CAPTURED else
+            "mode: eager (its step reads the host: not captured)")
+
+
+def count_syncs(torch, fn):
+    """(fn(), its synchronizing calls, fn's own host-clock seconds), the
+    calls counted with CUDA's sync debug mode."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            secs = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught), secs
+
+
+def held_bit_equal(name, ok, causes, ctws, ref):
+    """The captured run of ``name`` against its eager run ``ref``: ok, skip
+    cause and c_T_w equal at every frame it ran, bit for bit."""
+    ctws = np.asarray(ctws)
+    bad = [i for i in range(len(ok)) if ok[i] != ref["ok"][i]
+           or causes[i] != ref["causes"][i]
+           or not np.array_equal(ctws[i], ref["c_T_w"][i], equal_nan=True)]
+    log(f"[{name} captured] against the eager run: frames differing in ok, "
+        f"skip cause or c_T_w bits {bad}")
+    if bad:
+        raise AssertionError(f"{name}: the captured run differs from the "
+                             f"eager one at frames {bad}")
+
+
+def log_captured(name, step, eager_ms, captured_ms, syncs, unit, smi):
+    log(f"[{name} captured] median {unit} eager {eager_ms} ms, captured "
+        f"{captured_ms} ms; warm-up + capture {step.capture_s} s, graph "
+        f"pool {step.pool_mib} MiB; host syncs {syncs}; {smi}")
+
+
+def replay_profile(torch, name, fn, calls=4, unit="a frame", per_call=1):
+    """Log the device's work in a captured call, fn() (one graph replay and
+    the copy of its results), over ``calls`` calls under torch.profiler:
+    CUDA kernels and their device ms ``unit`` (a call covers
+    ``per_call`` frames), and that time over the calls' host-clock time,
+    the card's busy share."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, device_us, by_name = 0, 0.0, {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))):
+            kernels += 1
+            device_us += e.device_time_total
+            key = e.name[:70]
+            count, us = by_name.get(key, (0, 0.0))
+            by_name[key] = (count + 1, us + e.device_time_total)
+    n = calls * per_call
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"[{name} captured] under torch.profiler ({calls} calls): "
+        f"{kernels / n} kernels and {device_us / 1e3 / n} ms of kernel time "
+        f"{unit}, {wall * 1e3 / n} ms of host clock {unit}; the card busy "
+        f"{device_us / 1e6 / wall if wall else 0.0} of it (kernels summed, "
+        f"0 kernels: the profiler saw no replayed kernel); the most kernel "
+        f"time {unit}, (kernels, ms) by name: "
+        f"{[(k, c / n, us / 1e3 / n) for k, (c, us) in top]}")
+
+
+def run_captured(torch, seq, name, smi, ref):
+    """A single-frame path of CAPTURED as users run it: each update one
+    replayed CUDA graph, the plain versions disabled; held to its eager run
+    ``ref`` bit for bit, each of frames 2-63 one host sync (the copy of
+    the update's results)."""
+    from openvo_tpu_torch import StereoCamera, StereoOdometer
+
+    cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
+                       {"R": seq["R"], "T": seq["T"]}, path_params(name),
+                       IMG_SIZE, device=DEVICE)
+    odo = StereoOdometer(cam, **odometer_kwargs(name))
+    saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
+    for m, n in saved:
+        setattr(m, n, tripwire)
+    oks, causes, ctws, lat, syncs = [], [], [], [], []
+    try:
+        for i in range(N_FRAMES):
+            ok, n, secs = count_syncs(torch, lambda: odo.update(
+                seq["left"][i], seq["right"][i]))
+            if not odo.captured:
+                raise AssertionError(f"{name}: frame {i} ran eagerly")
+            oks.append(ok)
+            lat.append(secs)
+            syncs.append(n)
+            causes.append(odo.skip_cause)
+            ctws.append(odo.c_T_w)
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    replay_profile(torch, name, lambda: odo.update(seq["left"][-1],
+                                                   seq["right"][-1]))
+    step = cam._step_cache[(odo.config, False)]
+    log_captured(name, step, float(np.median(ref["lat"][2:])) * 1e3,
+                 float(np.median(lat[2:])) * 1e3,
+                 f"{sum(syncs[2:]) / (N_FRAMES - 2)} a frame of frames 2-"
+                 f"{N_FRAMES - 1} (frame 0, capturing: {syncs[0]})",
+                 "update latency", smi)
+    held_bit_equal(name, oks, causes, ctws, ref)
+    if set(syncs[2:]) != {1}:
+        raise AssertionError(f"{name}: captured frames' host syncs "
+                             f"{syncs[2:]}, expected 1 a frame")
+    if name == "off-lat":
+        two_on_one_camera(torch, cam, seq, ref)
+
+
+def two_on_one_camera(torch, cam, seq, ref, frames=SHARED_FRAMES):
+    """Two odometers on one camera share its captured step, as JAX's
+    share the jitted one: updated in turns, each must give the eager
+    run's first ``frames`` frames bit for bit (the step's buffers hold one
+    odometer's state at a time; the other keeps a copy)."""
+    from openvo_tpu_torch import StereoOdometer
+
+    odos = [StereoOdometer(cam), StereoOdometer(cam)]
+    got = [([], [], []) for _ in odos]
+    for i in range(frames):
+        for odo, (oks, causes, ctws) in zip(odos, got):
+            oks.append(odo.update(seq["left"][i], seq["right"][i]))
+            causes.append(odo.skip_cause)
+            ctws.append(odo.c_T_w)
+    if len(cam._step_cache) != 1 or not all(o.captured for o in odos):
+        raise AssertionError("off-lat: two odometers of one camera did not "
+                             "share one captured step")
+    for k, (oks, causes, ctws) in enumerate(got):
+        held_bit_equal(f"off-lat odometer {k} of 2 on one camera", oks,
+                       causes, ctws, ref)
 
 
 def check_against_jax(name, tracked, ate, causes, want, ate_tol,
@@ -1485,58 +1665,62 @@ def run_stream(torch, seq, smi, name, ref):
     for m, n in saved:
         setattr(m, n, tripwire)
     try:
-        chunk0()   # first-call costs outside the timed run
-        gc.collect()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated() / 2 ** 20
-        torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
-            k.launches = 0
-        sgbm.speckle_filter.syncs = 0
-        t0 = time.perf_counter()
-        _, (ok, ctw) = stream(fresh(), lefts, rights)
-        ok, ctw = ok.cpu().numpy(), ctw.cpu().numpy()
-        secs = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in kernels}
-        speckle_syncs = sgbm.speckle_filter.syncs
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        # launches and host syncs a frame, over one chunk run again
-        per_frame = count_launches(torch, chunk0) / BATCH
-        syncs = sync_sources(torch, chunk0)
-        # each frame's skip code: the stream's steps again, with their stats
-        state, causes, ok2, ctw2 = fresh(), [], [], []
-        for c0 in range(0, N_FRAMES, BATCH):
-            feats = fns["extract"](lefts[c0:c0 + BATCH],
-                                   rights[c0:c0 + BATCH])
+        with eager_for(name):
+            chunk0()   # first-call costs outside the timed run
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() / 2 ** 20
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            sgbm.speckle_filter.syncs = 0
+            t0 = time.perf_counter()
+            _, (ok, ctw) = stream(fresh(), lefts, rights)
+            ok, ctw = ok.cpu().numpy(), ctw.cpu().numpy()
+            secs = time.perf_counter() - t0
+            mode = mode_line(name, stream.captured)
+            launches = {k.__name__: k.launches for k in kernels}
+            speckle_syncs = sgbm.speckle_filter.syncs
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            # launches and host syncs a frame, over one chunk run again
+            per_frame = count_launches(torch, chunk0) / BATCH
+            syncs = sync_sources(torch, chunk0)
+            # each frame's skip code: the stream's steps again, with stats
+            state, causes, ok2, ctw2 = fresh(), [], [], []
+            for c0 in range(0, N_FRAMES, BATCH):
+                feats = fns["extract"](lefts[c0:c0 + BATCH],
+                                       rights[c0:c0 + BATCH])
+                for i in range(BATCH):
+                    state, ok_i, stats = fns["step_feats"](
+                        state, FrameFeatures(*(x[i] for x in feats)))
+                    causes.append(
+                        SKIP_CAUSE_STRINGS[int(stats["skip_code"])])
+                    ok2.append(bool(ok_i))
+                    ctw2.append(state.c_T_w.cpu().numpy())
+            # the batched extract against the single-frame one, by frame
+            batched = fns["extract"](lefts[:BATCH], rights[:BATCH])
+            differ = {}
             for i in range(BATCH):
-                state, ok_i, stats = fns["step_feats"](
-                    state, FrameFeatures(*(x[i] for x in feats)))
-                causes.append(SKIP_CAUSE_STRINGS[int(stats["skip_code"])])
-                ok2.append(bool(ok_i))
-                ctw2.append(state.c_T_w.cpu().numpy())
-        # the batched extract against the single-frame one, frame by frame
-        batched = fns["extract"](lefts[:BATCH], rights[:BATCH])
-        differ = {}
-        for i in range(BATCH):
-            one = fns["extract"](lefts[i], rights[i])
-            for field in one._fields:
-                if not torch.equal(getattr(batched, field)[i],
-                                   getattr(one, field)):
-                    differ.setdefault(field, []).append(i)
-        del batched, one
-        # the plain stages' launches a frame, one frame against a chunk
-        _, disp, img = cam.compute_3d_fn(False, False)(lefts[:BATCH],
-                                                       rights[:BATCH])
-        fmask = ((disp >= cfg.min_valid_disparity)
-                 & (disp <= cfg.max_valid_disparity)).to(torch.uint8)
-        stages = {}
-        for stage, call in (
-                ("extract", lambda x: fns["extract"](lefts[x], rights[x])),
-                ("ORB detect", lambda x: orb.detect(img[x], fmask[x],
-                                                    cfg.orb))):
-            stages[stage] = (count_launches(torch, lambda: call(0)),
-                             count_launches(torch, lambda: call(
-                                 slice(0, BATCH))) / BATCH)
+                one = fns["extract"](lefts[i], rights[i])
+                for field in one._fields:
+                    if not torch.equal(getattr(batched, field)[i],
+                                       getattr(one, field)):
+                        differ.setdefault(field, []).append(i)
+            del batched, one
+            # the plain stages' launches a frame, one frame against a chunk
+            _, disp, img = cam.compute_3d_fn(False, False)(lefts[:BATCH],
+                                                           rights[:BATCH])
+            fmask = ((disp >= cfg.min_valid_disparity)
+                     & (disp <= cfg.max_valid_disparity)).to(torch.uint8)
+            stages = {}
+            for stage, call in (
+                    ("extract",
+                     lambda x: fns["extract"](lefts[x], rights[x])),
+                    ("ORB detect", lambda x: orb.detect(img[x], fmask[x],
+                                                        cfg.orb))):
+                stages[stage] = (count_launches(torch, lambda: call(0)),
+                                 count_launches(torch, lambda: call(
+                                     slice(0, BATCH))) / BATCH)
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
@@ -1552,7 +1736,7 @@ def run_stream(torch, seq, smi, name, ref):
         f"host syncs {speckle_syncs / chunks} a chunk; device memory "
         f"allocated {base:.1f} MiB at the start, peak {peak:.1f} MiB; {smi}")
     log(f"[{name}] kernel launches: {launches}; synchronizing calls in one "
-        f"chunk, by the line that made them: {syncs}")
+        f"chunk, by the line that made them: {syncs}; {mode}")
     for stage, (one, batched) in stages.items():
         log(f"[{name}] {stage}: {one} launches for one frame, {batched} a "
             f"frame in a chunk of {BATCH}")
@@ -1571,7 +1755,63 @@ def run_stream(torch, seq, smi, name, ref):
         raise AssertionError(f"off-tp: {tracked} tracked, frame 40 "
                              f"{causes[40]!r}")
     batched_path_kernels(launches, name, chunks, single)
-    return launches
+    return launches, {"ok": ok, "causes": causes, "c_T_w": ctw,
+                      "ms": secs * 1e3 / N_FRAMES}
+
+
+def run_captured_stream(torch, seq, smi, name, ref):
+    """A streamed path of CAPTURED as users run it: ``make_stream_fn`` with
+    chunk BATCH, each chunk one replayed CUDA graph, the plain versions
+    disabled. The first call captures; the second, over the 64 frames, must
+    make no host sync and equal the eager run ``ref`` bit for bit."""
+    from openvo_tpu_torch import OdometerConfig
+    from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
+    from openvo_tpu_torch.models.stereo_odometer import init_state
+    from openvo_tpu_torch.parallel.stream import make_stream_fn
+
+    cam = path_camera(seq, STREAMS[name])
+    cfg = OdometerConfig()
+    stream = make_stream_fn(cam, cfg, chunk=BATCH)
+    lefts = torch.as_tensor(seq["left"], device=cam.device)
+    rights = torch.as_tensor(seq["right"], device=cam.device)
+
+    def fresh():
+        return init_state(cam.cropped_shape, cfg.orb.max_keypoints,
+                          cam.device)
+
+    saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
+    for m, n in saved:
+        setattr(m, n, tripwire)
+    try:
+        stream(fresh(), lefts, rights)   # captures the chunk's graph
+        state = fresh()
+        torch.cuda.synchronize()
+        _, syncs, _ = count_syncs(torch, lambda: stream(state, lefts,
+                                                        rights))
+        state = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()   # timed as the eager run: to its copies
+        _, (ok, ctw) = stream(state, lefts, rights)
+        ok, ctw = ok.cpu().numpy(), ctw.cpu().numpy()
+        secs = time.perf_counter() - t0
+        if not stream.captured:
+            raise AssertionError(f"{name}: the stream ran eagerly")
+        codes = stream.skip_codes.cpu().numpy()
+        chunk = (lefts[:BATCH], rights[:BATCH])
+        replay_profile(torch, name, lambda: stream(state, *chunk)[1][0].cpu(),
+                       calls=2, per_call=BATCH)
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    log_captured(name, stream.graphs[BATCH], ref["ms"],
+                 secs * 1e3 / N_FRAMES, f"{syncs} in a call over "
+                 f"{N_FRAMES} frames", "ms a frame (host clock, a call over"
+                 " the frames and the copies of its results)", smi)
+    held_bit_equal(name, ok, [SKIP_CAUSE_STRINGS[c] for c in codes], ctw,
+                   ref)
+    if syncs:
+        raise AssertionError(f"{name}: the captured stream synced {syncs} "
+                             f"times")
 
 
 def run_rig8(torch, seq, smi, name, ref):
@@ -1594,42 +1834,28 @@ def run_rig8(torch, seq, smi, name, ref):
     cfg = OdometerConfig(**odometer_kwargs(single))
     kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
     blank_cam, blank_frame = RIG_BLANK
-    steps = []
-    for i in range(N_FRAMES):   # the inputs, on the card before the run
-        pair = []
-        for side in ("left", "right"):
-            t = torch.as_tensor(seq[side][i], device=cam.device)
-            t = t.expand((RIG_CAMERAS,) + t.shape).clone()
-            if i == blank_frame:
-                t[blank_cam] = 0
-            pair.append(t)
-        steps.append(pair)
+    steps = rig_inputs(torch, seq, cam)
     saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
     for m, n in saved:
         setattr(m, n, tripwire)
     rig = RigOdometer(cam, RIG_CAMERAS, cfg)
-    oks, causes, poses, lat = [], [], [], []
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        for k in kernels:
-            k.launches = 0
-        rigid_clique.rigid_body_filter.syncs = 0
-        for i in range(N_FRAMES):
-            t0 = time.perf_counter()
-            oks.append(rig.update(*steps[i]))   # ends in a sync
-            lat.append(time.perf_counter() - t0)
-            causes.append([SKIP_CAUSE_STRINGS[int(c)]
-                           for c in rig.last_stats["skip_code"]])
-            poses.append(rig.current_poses())
-        launches = {k.__name__: k.launches for k in kernels}
-        clique_syncs = rigid_clique.rigid_body_filter.syncs
+        with eager_for(name):
+            for k in kernels:
+                k.launches = 0
+            rigid_clique.rigid_body_filter.syncs = 0
+            record = drive_rig(torch, rig, steps, name)
+            launches = {k.__name__: k.launches for k in kernels}
+            clique_syncs = rigid_clique.rigid_body_filter.syncs
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    oks, poses = np.stack(oks), np.stack(poses)   # (frames, cameras, ...)
+    oks, causes, lat = record["ok"], record["causes"], record["lat"]
+    poses = np.linalg.inv(record["c_T_w"].astype(np.float64))
     secs = sum(lat)
     around = slice(blank_frame, blank_frame + 2)
     log(f"[{name}] {RIG_CAMERAS} cameras x {N_FRAMES} frames: "
@@ -1642,13 +1868,13 @@ def run_rig8(torch, seq, smi, name, ref):
         f"{[c[blank_cam] for c in causes[around]]}; "
         f"peak device memory {peak:.1f} MiB; {smi}")
     log(f"[{name}] kernel launches: {launches}; rigid clique host checks "
-        f"{clique_syncs} ({clique_syncs / N_FRAMES} a step)")
+        f"{clique_syncs} ({clique_syncs / N_FRAMES} a step); "
+        f"{mode_line(name, rig.captured)}")
     for c in range(RIG_CAMERAS):
         if c == blank_cam:
             continue
         held_to_path(f"{name} camera {c}", oks[:, c], [x[c] for x in causes],
-                     np.linalg.inv(poses[:, c]).astype(np.float32), ref,
-                     single)
+                     record["c_T_w"][:, c], ref, single)
     b = oks[:, blank_cam]
     if (b[blank_frame] or causes[blank_frame][blank_cam] != "keypoints"
             or not b[blank_frame + 1] or b.sum() < sum(ref["ok"]) - 1
@@ -1657,7 +1883,82 @@ def run_rig8(torch, seq, smi, name, ref):
                              f" frames {blank_frame}-{blank_frame + 1} "
                              f"{b[blank_frame:blank_frame + 2]}")
     batched_path_kernels(launches, name, N_FRAMES)
-    return launches
+    return launches, record
+
+
+def rig_inputs(torch, seq, cam):
+    """Each frame's (left, right) stacks of RIG_CAMERAS images on the card:
+    every camera the frame's pair, camera RIG_BLANK[0] a blank pair at
+    frame RIG_BLANK[1]."""
+    blank_cam, blank_frame = RIG_BLANK
+    steps = []
+    for i in range(N_FRAMES):
+        pair = []
+        for side in ("left", "right"):
+            t = torch.as_tensor(seq[side][i], device=cam.device)
+            t = t.expand((RIG_CAMERAS,) + t.shape).clone()
+            if i == blank_frame:
+                t[blank_cam] = 0
+            pair.append(t)
+        steps.append(pair)
+    return steps
+
+
+def drive_rig(torch, rig, steps, name, captured=False):
+    """The rig over the frames: per frame (frames, cameras) ok, skip
+    causes, c_T_w, the update's host-clock seconds and its host syncs;
+    ``captured``: every update must replay the graph."""
+    from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
+
+    oks, causes, ctws, lat, syncs = [], [], [], [], []
+    for i in range(N_FRAMES):
+        ok, n, secs = count_syncs(torch, lambda: rig.update(*steps[i]))
+        if rig.captured != captured:
+            raise AssertionError(f"{name}: frame {i} ran captured="
+                                 f"{rig.captured}")
+        oks.append(ok)   # update() ends in a sync
+        lat.append(secs)
+        syncs.append(n)
+        causes.append([SKIP_CAUSE_STRINGS[int(c)]
+                       for c in rig.last_stats["skip_code"]])
+        ctws.append(rig.state.c_T_w.cpu().numpy())
+    return {"ok": np.stack(oks), "causes": causes, "c_T_w": np.stack(ctws),
+            "lat": lat, "syncs": syncs}
+
+
+def run_captured_rig(torch, seq, smi, name, ref):
+    """A rig of CAPTURED as users run it: each step one replayed CUDA graph
+    for the RIG_CAMERAS cameras, the plain versions disabled; every camera
+    held to the eager run ``ref`` bit for bit, each of steps 2-63 one host
+    sync."""
+    from openvo_tpu_torch import OdometerConfig
+    from openvo_tpu_torch.parallel.rig import RigOdometer
+
+    cam = path_camera(seq)
+    rig = RigOdometer(cam, RIG_CAMERAS,
+                      OdometerConfig(**odometer_kwargs(RIGS[name])))
+    steps = rig_inputs(torch, seq, cam)
+    saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
+    for m, n in saved:
+        setattr(m, n, tripwire)
+    try:
+        got = drive_rig(torch, rig, steps, name, captured=True)
+        replay_profile(torch, name, lambda: rig.update(*steps[-1]),
+                       unit="a step")
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    syncs = got["syncs"]
+    log_captured(name, rig.graph, float(np.median(ref["lat"][2:])) * 1e3,
+                 float(np.median(got["lat"][2:])) * 1e3,
+                 f"{sum(syncs[2:]) / (N_FRAMES - 2)} a step of steps 2-"
+                 f"{N_FRAMES - 1} (step 0, capturing: {syncs[0]})",
+                 "update latency a step", smi)
+    held_bit_equal(name, [tuple(x) for x in got["ok"]], got["causes"],
+                   got["c_T_w"], {**ref, "ok": [tuple(x) for x in ref["ok"]]})
+    if set(syncs[2:]) != {1}:
+        raise AssertionError(f"{name}: captured steps' host syncs "
+                             f"{syncs[2:]}, expected 1 a step")
 
 
 def _shard_rank(rank, tmp, out_q, device):
@@ -1828,6 +2129,13 @@ def run_bench():
                                  f", repeats agree {r['repeats_agree']}")
 
 
+def free(torch):
+    """Return the device memory of a path's dropped odometer, graph and
+    pool before the next path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1867,14 +2175,23 @@ def main() -> int:
     launches, records = {}, {}
     for name in PATHS:
         launches[name], records[name] = run_path(torch, seq, name, smi)
+        if name in CAPTURED:
+            run_captured(torch, seq, name, smi, records[name])
+            free(torch)
     for name, single in STREAMS.items():
-        launches[name] = run_stream(torch, seq, smi, name, records[single])
-        gc.collect()
-        torch.cuda.empty_cache()
+        launches[name], eager = run_stream(torch, seq, smi, name,
+                                           records[single])
+        free(torch)
+        if name in CAPTURED:
+            run_captured_stream(torch, seq, smi, name, eager)
+            free(torch)
     for name, single in RIGS.items():
-        launches[name] = run_rig8(torch, seq, smi, name, records[single])
-        gc.collect()
-        torch.cuda.empty_cache()
+        launches[name], eager = run_rig8(torch, seq, smi, name,
+                                         records[single])
+        free(torch)
+        if name in CAPTURED:
+            run_captured_rig(torch, seq, smi, name, eager)
+            free(torch)
     for name in ("mono", "mono-own"):
         launches[name] = run_mono(torch, seq, name, smi)
     gc.collect()

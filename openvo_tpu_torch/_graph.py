@@ -1,0 +1,141 @@
+"""CUDA graphs: the port's counterpart of ``jax.jit(fn, donate_argnums=(0,))``.
+
+JAX compiles each step it runs into one program and donates the state to
+it: the odometer's step, cached per (camera, config, color)
+(``openvo_tpu/models/stereo_odometer.py:349-360``), the rig's
+(``openvo_tpu/parallel/rig.py:45-46``) and each chunk of the stream
+(``openvo_tpu/parallel/stream.py:52-72``). Here :func:`capture` wraps such
+a step ``fn(state, *inputs) -> (state', *outs)``. On its first call on the
+card it
+
+- allocates static buffers for the state and the inputs;
+- runs ``fn`` once eagerly on a side stream (the warm-up): every one-time
+  call happens there, not in the capture (the kernel library's build and
+  load, each kernel's first launch and shared-memory attribute, H6's tap
+  tables, each ``ops/_dispatch.device_constant``'s upload);
+- captures one call into a ``torch.cuda.CUDAGraph`` that ends by copying
+  the new state into the static state buffers;
+
+and replays it. Each later call copies its inputs into the static buffers
+(and the state, unless it is the static one the last call returned) and
+replays the graph: one launch for the whole step, no host sync.
+
+Donation: the state a call returns is the static buffers, and its other
+outputs live in the graph's memory pool. Both are valid until the next call
+of the same step, as JAX's donated state is invalid once it is passed on. A
+caller copies what it keeps.
+
+A failed capture raises, and so does an op that syncs with the host while
+it is captured (CUDA refuses it): nothing falls back to the eager run on
+its own. :func:`disable_capture`, the counterpart of ``jax.disable_jit()``,
+runs the steps eagerly on the card, so that a captured run can be held
+against the eager one; on the CPU every step runs eagerly.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
+
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disable_capture():
+    """Run every captured step of the port eagerly inside the block."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+def capture_enabled() -> bool:
+    return _disabled == 0
+
+
+def _signature(inputs):
+    return tuple((tuple(x.shape), x.dtype) for x in inputs)
+
+
+class CapturedStep:
+    """``fn`` captured on its first call on the card and replayed after
+    (see the module docstring). ``capture_s`` (warm-up plus capture, host
+    clock) and ``pool_mib`` (device memory the graph's pool reserved) are
+    set by the first call."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.holder = None     # a weak reference to the odometer whose
+                               # state the static buffers hold
+        self.graph = None
+        self.state = None      # the static state buffers
+        self.inputs = None     # the static input buffers
+        self.outs = None
+        self.capture_s = None
+        self.pool_mib = None
+
+    def __call__(self, state, *inputs):
+        inputs = [torch.as_tensor(x) for x in inputs]
+        if self.graph is None:
+            self._capture(state, inputs)
+        elif _signature(inputs) != _signature(self.inputs):
+            raise ValueError(f"captured for inputs {_signature(self.inputs)}"
+                             f", called with {_signature(inputs)}")
+        elif state is not self.state:
+            for dst, src in zip(tree_leaves(self.state), tree_leaves(state)):
+                dst.copy_(src)
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        return (self.state, *self.outs)
+
+    def _capture(self, state, inputs):
+        leaves = tree_leaves(state)
+        dev = leaves[0].device
+        t0 = time.perf_counter()
+        self.state = tree_map(torch.clone, state)
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in inputs]
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.fn(self.state, *self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new_state, *outs = self.fn(self.state, *self.inputs)
+            static, spec = tree_flatten(self.state)
+            new, new_spec = tree_flatten(new_state)
+            if new_spec != spec:
+                raise TypeError(f"the step returned a state of another "
+                                f"structure: {new_spec} for {spec}")
+            # a leaf that aliases a static buffer is copied before any
+            # buffer is written
+            ptrs = {t.data_ptr() for t in static}
+            new = [s if s.data_ptr() not in ptrs or s is d else s.clone()
+                   for s, d in zip(new, static)]
+            for dst, src in zip(static, new):
+                if src is not dst:
+                    dst.copy_(src)
+        torch.cuda.synchronize(dev)
+        self.outs = outs
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        self.pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+
+
+def capture(fn) -> CapturedStep:
+    """``fn(state, *inputs) -> (state', *outs)`` as a :class:`CapturedStep`:
+    the counterpart of ``jax.jit(fn, donate_argnums=(0,))``. The caller runs
+    ``fn`` itself on the CPU and under :func:`disable_capture`."""
+    return CapturedStep(fn)

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from openvo_tpu_torch.ops._dispatch import device_constant
+
 
 def compose(T_ab, T_bc):
     """Left-compose 4x4 homogeneous transforms (matmul)."""
@@ -19,8 +21,8 @@ def inverse(T):
     t = T[..., :3, 3:]
     Rt = R.transpose(-1, -2)
     top = torch.cat([Rt, -Rt @ t], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype,
-                          device=T.device).expand(T.shape[:-2] + (1, 4))
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), T.device,
+                             T.dtype).expand(T.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

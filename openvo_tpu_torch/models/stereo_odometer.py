@@ -14,21 +14,20 @@ with the JAX package's observable semantics:
   old c_T_w_prev;
 - update() returns True for the first frame without computing a pose.
 
-One difference in form: JAX runs the fallback attempt under ``lax.cond``.
-Here the step reads ``use2`` on the host and runs the attempt only when it
-holds: one device-to-host sync per frame, which update() pays anyway to
-return ``ok``. With the rigidity filter on, its greedy loop adds a few
-host checks per attempt (``pose/rigid_clique.py``), for the whole batch
-where the step takes one.
+JAX runs the fallback attempt under ``lax.cond`` inside one jitted
+program. Here the step computes it every frame and selects with
+``torch.where`` (what ``lax.cond`` does under ``vmap``): the step reads
+nothing on the host, so on the card ``update`` replays it as one CUDA
+graph (``openvo_tpu_torch/_graph.py``, JAX's ``jit`` with donated state),
+and its one sync is the copy of its results. With the speckle filter or
+the rigidity filter on, their loops' convergence checks read the host
+(``ops/sgbm.py``, ``pose/rigid_clique.py``) and the step runs eagerly.
 
 Every stage takes a batch as well, a leading axis on each tensor, where
 JAX maps the stage with ``jax.vmap``: ``extract`` over (B, H, W) frames
 (``parallel/stream.py``, ``parallel/sharding.py``), ``attempt`` over B
 pairs of features, and ``step_feats`` over a batch of states (the cameras
-of ``parallel/rig.py``). Under ``vmap`` JAX's ``lax.cond`` runs both
-branches and selects; the batched step reads ``use2.any()`` once on the
-host, runs the fallback for the whole batch where any member needs it and
-selects by ``use2``: still one sync a step. The state is a
+of ``parallel/rig.py``), each member selecting its own branch. The state is a
 ``NamedTuple`` of tensors with the JAX package's leaf order, so
 :func:`state_from_jax_leaves` continues a sequence started in JAX, and
 save_state/load_state read and write the same npz layout.
@@ -36,10 +35,12 @@ save_state/load_state read and write the same npz layout.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from openvo_tpu_torch.config import (
     SKIP_BIGDIST,
@@ -52,6 +53,7 @@ from openvo_tpu_torch.config import (
     SKIP_RIGIDITY,
     OdometerConfig,
 )
+from openvo_tpu_torch._graph import CapturedStep, capture, capture_enabled
 from openvo_tpu_torch.geometry.se3 import rotation_magnitude
 from openvo_tpu_torch.ops._dispatch import target_device
 from openvo_tpu_torch.ops.hamming import ratio_test_match
@@ -226,31 +228,50 @@ def make_pipeline_fns(camera, cfg: OdometerConfig, color: bool):
     }
 
 
+KEEP = -1   # a skip code no gate sets: "the code attempt 1 left"
+
+
 def make_feats_step(cfg: OdometerConfig, attempt):
     """The state-machine half of the step, on precomputed FrameFeatures:
     (state, feats) -> (state', success, stats). A batch of states and
-    features (the cameras of a rig) steps each member on its own: the
-    fallback runs for the whole batch where any member needs it, and each
-    member takes its own branch's result."""
+    features (the cameras of a rig) steps each member on its own, each
+    taking its own branch's result. No value is read on the host."""
 
     def step_feats(state: OdomState, feats: FrameFeatures):
         n_kps = feats.kp_valid.to(torch.int32).sum(-1)
         few_kps = n_kps < cfg.min_matches
         first = ~state.has_cur
 
-        T1, ok1, code1, nm1 = attempt(state.cur, feats, state.skipped,
-                                      state.skip_code)
-        # Fallback against the prev-prev frame (reference :139-150), on a
-        # host branch: the one sync of the step.
+        # Attempt 1 against the last accepted frame and the fallback,
+        # attempt 2, against the frame before it (reference :139-150): JAX's
+        # lax.cond on the device. Both run as one batch of twice the size;
+        # attempt 2 starts from attempt 1's skip code, which it keeps where
+        # none of its gates fires (KEEP marks that), and it is taken where
+        # use2 holds. Elsewhere every output is attempt 1's (ok2 false, the
+        # code and n_matches attempt 1's), and a NaN of an attempt on the
+        # empty state stays in the branch torch.where does not take.
+        single = state.has_cur.ndim == 0
+
+        def pair(a, b):
+            return torch.stack([a, b]) if single else torch.cat([a, b])
+
+        def halves(x):
+            return (x[0], x[1]) if single else x.chunk(2)
+
+        def fits(f):   # the fields attempt reads
+            return f._replace(img=None, disp=None)
+
+        fa = FrameFeatures(*(None if a is None else pair(a, b) for a, b in
+                             zip(fits(state.cur), fits(state.prev))))
+        fb = FrameFeatures(*(None if a is None else pair(a, a)
+                             for a in fits(feats)))
+        T, okb, code, nm = attempt(
+            fa, fb, pair(state.skipped, state.skipped),
+            pair(state.skip_code, torch.full_like(state.skip_code, KEEP)))
+        (T1, T2), (ok1, ok2), (code1, code2), (nm1, nm2) = map(
+            halves, (T, okb, code, nm))
+        code2 = torch.where(code2 == KEEP, code1, code2)
         use2 = ~ok1 & state.has_prev
-        if bool(use2.any()):
-            T2, ok2, code2, nm2 = attempt(state.prev, feats, state.skipped,
-                                          code1)
-        else:
-            T2 = torch.eye(4, dtype=torch.float32,
-                           device=T1.device).expand(T1.shape)
-            ok2 = torch.zeros_like(ok1)
-            code2, nm2 = code1, torch.zeros_like(nm1)
         ok = ok1 | (use2 & ok2)
         code_final = torch.where(use2, code2, code1)
 
@@ -309,9 +330,46 @@ def make_step(camera, cfg: OdometerConfig, color: bool):
     return step
 
 
+STAT_NAMES = ("n_kps", "n_matches", "ok1", "ok2", "skip_code")
+
+
+def host_sync_free(camera, cfg: OdometerConfig) -> bool:
+    """Whether the step reads nothing on the host, so that it can be
+    captured as one CUDA graph. Two loops still test their convergence on
+    the host where JAX runs ``lax.while_loop``s: the speckle filter's
+    labelling (``ops/sgbm.speckle_filter``) and the rigid clique's greedy
+    loop (``pose/rigid_clique.py``)."""
+    p = camera.sgbm
+    speckle = p.speckle_window_size > 0 and p.speckle_range > 0
+    return not speckle and cfg.rigidity_threshold <= 0
+
+
+def make_update_fn(camera, cfg: OdometerConfig, color: bool):
+    """The step with its results packed for the host: (state, imgL, imgR)
+    -> (state', vals), vals int32 (3 + len(STAT_NAMES)[, B]) of ok, skipped,
+    skip_code and STAT_NAMES' stats, which an update copies to the host in
+    its one sync."""
+    step = make_step(camera, cfg, color)
+
+    def update(state: OdomState, img_left, img_right):
+        state, ok, stats = step(state, img_left, img_right)
+        return state, torch.stack(
+            [ok.to(torch.int32), state.skipped, state.skip_code]
+            + [stats[k].to(torch.int32) for k in STAT_NAMES])
+
+    return update
+
+
 class StereoOdometer:
     """The reference StereoOdometer's surface (same defaults), running on
-    the camera's device."""
+    the camera's device.
+
+    On the card each ``update`` replays the step as one CUDA graph
+    (``openvo_tpu_torch/_graph.py``), captured on the first update and
+    cached on the camera per (config, color), as JAX caches its jitted
+    step; ``captured`` says whether the last update did. It runs eagerly
+    on the CPU, under ``_graph.disable_capture()``, and where the step
+    reads the host (:func:`host_sync_free`)."""
 
     MIN_VALID_DISPARITY = 4
     MAX_VALID_DISPARITY = 100
@@ -341,12 +399,16 @@ class StereoOdometer:
         self._state = init_state(stereo_camera.cropped_shape,
                                  config.orb.max_keypoints, self.device)
         self._steps = {}
+        self.captured = None
         self.skipped_frames = 0
         self.skip_cause = ""
         self.last_stats = {}
 
     @property
     def state(self) -> OdomState:
+        """The odometer's state. On a captured odometer it is the graph's
+        static buffers, which the next update overwrites, as JAX's donated
+        state is invalid after the next step: copy what you keep."""
         return self._state
 
     @state.setter
@@ -360,23 +422,49 @@ class StereoOdometer:
         self.skipped_frames = int(vals[0])
         self.skip_cause = SKIP_CAUSE_STRINGS[int(vals[1])]
 
+    def _update_fn(self, color: bool):
+        """The update function for ``color`` images: on the card (unless
+        capture is disabled or the step reads the host) the captured step
+        the camera caches per (config, color), else the eager one."""
+        key = (self.config, color)
+        if (self.device.type == "cuda" and capture_enabled()
+                and host_sync_free(self.stereo, self.config)):
+            cache = self.stereo.__dict__.setdefault("_step_cache", {})
+            if key not in cache:
+                cache[key] = capture(make_update_fn(self.stereo, self.config,
+                                                    color))
+            return cache[key]
+        if key not in self._steps:
+            self._steps[key] = make_update_fn(self.stereo, self.config, color)
+        return self._steps[key]
+
+    def _claim(self, step: CapturedStep) -> None:
+        """Make ``step``'s static buffers this odometer's: another odometer
+        of the same camera and config whose state they hold keeps a copy."""
+        other = step.holder() if step.holder is not None else None
+        if other is not None and other is not self and \
+                other._state is step.state:
+            other._state = tree_map(torch.clone, step.state)
+        step.holder = weakref.ref(self)
+
     def update(self, img_left, img_right) -> bool:
-        """Process one stereo pair; True iff tracking succeeded."""
-        img_left = torch.as_tensor(img_left, device=self.device)
-        img_right = torch.as_tensor(img_right, device=self.device)
-        color = img_left.ndim == 3
-        if color not in self._steps:
-            self._steps[color] = make_step(self.stereo, self.config, color)
-        self._state, ok, stats = self._steps[color](self._state, img_left,
-                                                    img_right)
-        names = list(stats)
-        vals = torch.stack([ok.to(torch.int32), self._state.skipped,
-                            self._state.skip_code]
-                           + [stats[k].to(torch.int32) for k in names]).cpu()
+        """Process one stereo pair; True iff tracking succeeded. Its one
+        host sync is the copy of the results."""
+        ndim = (img_left.ndim if torch.is_tensor(img_left)
+                else np.ndim(img_left))
+        step = self._update_fn(ndim == 3)
+        self.captured = isinstance(step, CapturedStep)
+        if self.captured:
+            self._claim(step)
+        else:
+            img_left = torch.as_tensor(img_left, device=self.device)
+            img_right = torch.as_tensor(img_right, device=self.device)
+        self._state, vals = step(self._state, img_left, img_right)
+        vals = vals.cpu()
         self.skipped_frames = int(vals[1])
         self.skip_cause = SKIP_CAUSE_STRINGS[int(vals[2])]
         self.last_stats = {k: vals[3 + i].numpy() for i, k in
-                           enumerate(names)}
+                           enumerate(STAT_NAMES)}
         return bool(vals[0])
 
     def current_pose(self):

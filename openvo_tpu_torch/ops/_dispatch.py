@@ -2,9 +2,8 @@
 
 from __future__ import annotations
 
-import functools
-
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def target_device(device="cuda") -> torch.device:
@@ -44,13 +43,23 @@ def stream_handle(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-@functools.lru_cache(maxsize=None)
-def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+_CONSTANTS = {}
+
+
+def device_constant(values, device, dtype=torch.float32, *args):
     """The constant tensor of ``values`` on ``device``, built once per
-    device: per-frame code reads it without a host-to-device copy.
-    ``values`` is a number, nested tuples, or a function of no arguments
-    that returns an array (cached by identity, so a large table is not
-    hashed on every call)."""
-    if callable(values):
-        values = values()
-    return torch.as_tensor(values, dtype=dtype, device=device)
+    (values, device, dtype, args): per-frame code reads it without a
+    host-to-device copy, which on the card would be a stream sync, and
+    which a captured CUDA graph cannot hold (``openvo_tpu_torch/_graph.py``
+    builds every constant in its warm-up run). ``values`` is a number,
+    nested tuples, or a function that returns an array from ``args``
+    (cached by identity, so a large table is not hashed on every call).
+    A tensor made under a tracer's fake mode (``make_fx``) is not kept."""
+    key = (values, torch.device(device), dtype, args)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.as_tensor(values(*args) if callable(values) else values,
+                            dtype=dtype, device=device)
+        if not isinstance(t, FakeTensor):
+            _CONSTANTS[key] = t
+    return t

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from openvo_tpu_torch.ops._dispatch import device_constant
+
 
 def fma(a, b, c):
     """float32 ``a * b + c`` with one rounding. The float64 product of two
@@ -34,8 +36,7 @@ def fma(a, b, c):
 def bgr_to_gray(img):
     """BGR (H, W, 3) -> gray (H, W): 0.114 B + 0.587 G + 0.299 R, rounded
     and clipped for integer input."""
-    w = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32,
-                     device=img.device)
+    w = device_constant((0.114, 0.587, 0.299), img.device)
     g = img.to(torch.float32) @ w
     if not torch.is_floating_point(img):
         return torch.clamp(torch.round(g), 0, 255).to(img.dtype)
@@ -98,7 +99,8 @@ def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
     float32: shifted products added from 0 in the kernel's order,
     horizontal then vertical, each product and sum rounded on its own, as
     the JAX package's ``gaussian_blur`` runs eagerly."""
-    k = torch.from_numpy(gaussian_kernel_1d(ksize, sigma)).to(img.device)
+    k = device_constant(gaussian_kernel_1d, img.device, torch.float32,
+                        ksize, sigma)
     r = ksize // 2
     x = _pad2d(img.to(torch.float32), r, r, "reflect")
     H, W = img.shape[-2:]

@@ -141,7 +141,7 @@ def harris_response(img, block_size: int = 7, k: float = 0.04):
     sxy = box_filter(dx * dy, block_size)
     det = fma(sxx, syy, -(sxy * sxy))
     tr = sxx + syy
-    ktr = torch.tensor(k, dtype=torch.float32, device=img.device) * tr
+    ktr = device_constant(k, img.device) * tr
     return fma(-ktr, tr, det)
 
 
@@ -186,16 +186,13 @@ def _level_dims(H: int, W: int, params: ORBParams):
     return dims
 
 
-@functools.lru_cache(maxsize=16)
-def _mask_level_index(H: int, W: int, h_l: int, w_l: int):
-    """Nearest-neighbour rows/cols of the level-0 mask for a (h_l, w_l)
-    level, float32 products rounded half-to-even like the JAX package."""
+def _mask_level_index(n: int, n_l: int):
+    """Nearest-neighbour rows (or columns) of the level-0 mask for a level
+    of n_l rows (columns), float32 products rounded half-to-even like the
+    JAX package."""
     f32 = np.float32
-    yy = np.clip(np.round(np.arange(h_l, dtype=f32) * f32(H / h_l)),
-                 0, H - 1).astype(np.int64)
-    xx = np.clip(np.round(np.arange(w_l, dtype=f32) * f32(W / w_l)),
-                 0, W - 1).astype(np.int64)
-    return yy, xx
+    return np.clip(np.round(np.arange(n_l, dtype=f32) * f32(n / n_l)),
+                   0, n - 1).astype(np.int64)
 
 
 def detect(img, mask, params: ORBParams):
@@ -238,16 +235,18 @@ def detect(img, mask, params: ORBParams):
         for level in range(1, nl):
             h_l, w_l = dims[level]
             hh, ww = min(h_l, H), min(w_l, W)
-            yy, xx = _mask_level_index(H, W, h_l, w_l)
-            m_l = m0.index_select(-2, torch.from_numpy(yy).to(dev))
-            m_l = m_l.index_select(-1, torch.from_numpy(xx).to(dev))
+            yy = device_constant(_mask_level_index, dev, torch.int64, H, h_l)
+            xx = device_constant(_mask_level_index, dev, torch.int64, W, w_l)
+            m_l = m0.index_select(-2, yy).index_select(-1, xx)
             mstack[..., level, :hh, :ww] = m_l[..., :hh, :ww]
 
     # --- per-pixel stages over the whole stack ---
     score, corner = fast_score(stack, float(params.fast_threshold))
     corner = corner & _nms3x3(score)
-    hl = torch.tensor([h for h, _ in dims], device=dev)[:, None, None]
-    wl = torch.tensor([w for _, w in dims], device=dev)[:, None, None]
+    hl = device_constant(tuple(h for h, _ in dims), dev,
+                         torch.int64)[:, None, None]
+    wl = device_constant(tuple(w for _, w in dims), dev,
+                         torch.int64)[:, None, None]
     ys = torch.arange(H, device=dev)[None, :, None]
     xs = torch.arange(W, device=dev)[None, None, :]
     corner &= (xs >= b) & (xs < wl - b) & (ys >= b) & (ys < hl - b)
@@ -256,7 +255,7 @@ def detect(img, mask, params: ORBParams):
     resp = harris_response(stack)
 
     # --- per-level top-k on each level's own (h_l, w_l) canvas ---
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    neg_inf = float("-inf")
     xy_list, val_list = [], []
     for lv in range(nl):
         h_l, w_l = dims[lv]
@@ -284,7 +283,7 @@ def detect(img, mask, params: ORBParams):
     top_vals = torch.stack(val_list, dim=-2)         # (..., nl, P)
     xy2 = torch.stack(xy_list, dim=-3)               # (..., nl, P, 2)
     rank = torch.arange(P, device=dev)[None, :]
-    budget = torch.tensor(k_eff, device=dev)[:, None]
+    budget = device_constant(tuple(k_eff), dev, torch.int64)[:, None]
     valid2 = torch.isfinite(top_vals) & (rank < budget)
 
     # --- compact to the fixed capacity: valid rows first, level-major rank
@@ -296,7 +295,7 @@ def detect(img, mask, params: ORBParams):
     xy_flat = xy2.reshape(lead + (n, 2))
     resp_flat = top_vals.reshape(lead + (n,))
     valid_flat = valid2.reshape(lead + (n,))
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")
     if sum(k_eff) > K:
         order_key = torch.where(valid_flat, -resp_flat, inf)
     else:

@@ -121,8 +121,7 @@ def _bt_cost(lp, rp, min_disp: int, num_disp: int, bf16: bool):
     x = torch.arange(W, device=dev)
     src = x[:, None] - min_disp - d[None, :]
     ok = (src >= 0) & (x[:, None] - min_disp <= W - 1)
-    nan = torch.tensor(float("nan"), dtype=wd, device=dev)
-    r_sh = torch.where(ok, rp[..., src.clamp(0, W - 1)], nan)
+    r_sh = torch.where(ok, rp[..., src.clamp(0, W - 1)], float("nan"))
 
     def envelopes(a, x_dim):
         am = 0.5 * (a + torch.roll(a, 1, dims=x_dim))

@@ -2,14 +2,17 @@
 N independent stereo odometers advanced together, the cameras a leading
 batch axis of every tensor of the step.
 
-JAX maps the whole step over the cameras with ``jax.vmap``. Here the step
-takes the (N, H, W) batch itself: ``extract`` runs each kernel and plain
-stage once for the N cameras, and ``step_feats`` runs each camera's state
-machine on its own (the fallback attempt for every camera when any needs
-it, each taking its own branch; one host sync a step). The pose filters,
-when on, take the N cameras' point clouds at once: the rigid clique's
-greedy loop steps every camera together, with its host checks once a
-batch of steps for all of them.
+JAX maps the whole step over the cameras with ``jax.vmap`` and jits it
+with the state donated (``openvo_tpu/parallel/rig.py:45-46``). Here the
+step takes the (N, H, W) batch itself: ``extract`` runs each kernel and
+plain stage once for the N cameras, and ``step_feats`` runs each camera's
+state machine on its own (the fallback attempt computed for every camera,
+each taking its own branch). On the card ``RigOdometer.update`` replays
+the step as one CUDA graph (``openvo_tpu_torch/_graph.py``), its one sync
+the copy of the results. The pose filters, when on, take the N cameras'
+point clouds at once: the rigid clique's greedy loop steps every camera
+together, with its host checks once a batch of steps for all of them, and
+the rig then runs eagerly.
 
 All cameras share calibration (the synthetic-rig case), as in the JAX
 package.
@@ -20,10 +23,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import OdometerConfig
-from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
-                                                     OdomState, init_state,
-                                                     make_step)
+from openvo_tpu_torch.models.stereo_odometer import (STAT_NAMES,
+                                                     FrameFeatures,
+                                                     OdomState,
+                                                     host_sync_free,
+                                                     init_state, make_step,
+                                                     make_update_fn)
 
 
 def make_rig_step(camera, cfg: OdometerConfig, color: bool = False):
@@ -49,7 +56,10 @@ def init_rig_state(camera, cfg: OdometerConfig, n_cameras: int) -> OdomState:
 class RigOdometer:
     """N independent odometers advanced by one batched step on the
     camera's device (the card unless the camera was built with
-    ``device="cpu"``)."""
+    ``device="cpu"``). On the card the step is one replayed CUDA graph
+    unless it reads the host (``host_sync_free``) or capture is disabled;
+    ``captured`` says how the last update ran, and ``graph`` is the
+    captured step."""
 
     def __init__(self, camera, n_cameras: int,
                  config: OdometerConfig | None = None):
@@ -58,20 +68,32 @@ class RigOdometer:
         self.n_cameras = n_cameras
         self.device = camera.device
         self._state = init_rig_state(camera, self.config, n_cameras)
-        self._step = make_rig_step(camera, self.config)
+        self._update = make_update_fn(camera, self.config, False)
+        self.graph = (capture(self._update) if self.device.type == "cuda"
+                      and host_sync_free(camera, self.config) else None)
+        self.captured = None
         self.last_stats = {}
+
+    @property
+    def state(self) -> OdomState:
+        """The cameras' state; on a captured rig the graph's static
+        buffers, which the next update overwrites: copy what you keep."""
+        return self._state
 
     def update(self, imgs_left, imgs_right):
         """imgs_*: (N, H, W). Returns per-camera success flags (N,) bool;
-        ``last_stats`` holds each camera's step statistics."""
-        self._state, oks, stats = self._step(
-            self._state, torch.as_tensor(imgs_left, device=self.device),
-            torch.as_tensor(imgs_right, device=self.device))
-        names = list(stats)
-        vals = torch.stack([oks.to(torch.int32)]
-                           + [stats[k].to(torch.int32) for k in names]).cpu()
-        self.last_stats = {k: vals[1 + i].numpy() for i, k in
-                           enumerate(names)}
+        ``last_stats`` holds each camera's step statistics. Its one host
+        sync is the copy of the results."""
+        self.captured = self.graph is not None and capture_enabled()
+        if self.captured:
+            self._state, vals = self.graph(self._state, imgs_left, imgs_right)
+        else:
+            self._state, vals = self._update(
+                self._state, torch.as_tensor(imgs_left, device=self.device),
+                torch.as_tensor(imgs_right, device=self.device))
+        vals = vals.cpu()
+        self.last_stats = {k: vals[3 + i].numpy() for i, k in
+                           enumerate(STAT_NAMES)}
         return vals[0].numpy().astype(bool)
 
     def current_poses(self):

@@ -18,14 +18,26 @@ The trajectory is the frame-at-a-time odometer's: the batched ``extract``
 gives each frame the single-frame call's disparity, keypoints and
 descriptors bit for bit, and the state machine consumes the same features
 in the same order.
+
+JAX runs each chunk as one program: ``extract`` under ``vmap``, then the
+state machine under ``lax.scan`` (``openvo_tpu/parallel/stream.py:52-72``).
+Here a chunk is one function too, the batched ``extract`` and the state
+machine unrolled over the chunk's frames, and on the card it is captured
+once per chunk size as a CUDA graph and replayed
+(``openvo_tpu_torch/_graph.py``): the stream reads nothing on the host.
+With the speckle filter or the rigid clique on, whose loops test their
+convergence on the host (``models/stereo_odometer.host_sync_free``), the
+chunks run eagerly.
 """
 
 from __future__ import annotations
 
 import torch
 
+from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
+                                                     host_sync_free,
                                                      make_pipeline_fns)
 
 
@@ -39,10 +51,31 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
     ``chunk`` at a time (all B at once without it: ``chunk`` bounds the
     batched stages' memory, and B must be a multiple of it), then the state
     machine, with the reference's skip/fallback semantics, steps over each
-    chunk's features, one host sync a frame."""
+    chunk's features.
+
+    On the card (unless capture is disabled or the step reads the host)
+    each chunk replays a CUDA graph captured once per chunk size
+    (``stream.graphs``, by size; ``stream.captured`` says how the last
+    call ran), and the state returned is the graph's static buffers, valid
+    until the next call with that size, as JAX's donated state.
+    ``stream.skip_codes`` holds each frame's skip code of the last call."""
     fns = make_pipeline_fns(camera, cfg, color)
     extract, step_feats = fns["extract"], fns["step_feats"]
     dev = camera.device
+    graphs = {}
+
+    def run_chunk(state, lefts, rights):
+        """One chunk: (state, (n, H, W) pairs) -> (state', ok (n,),
+        c_T_w (n, 4, 4), skip code (n,))."""
+        feats = extract(lefts, rights)
+        oks, poses, codes = [], [], []
+        for i in range(lefts.shape[0]):
+            state, ok, _ = step_feats(state,
+                                      FrameFeatures(*(x[i] for x in feats)))
+            oks.append(ok)
+            poses.append(state.c_T_w)
+            codes.append(state.skip_code)
+        return state, torch.stack(oks), torch.stack(poses), torch.stack(codes)
 
     def stream(state, lefts, rights):
         lefts = torch.as_tensor(lefts, device=dev)
@@ -51,15 +84,23 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
         size = b if chunk is None or chunk >= b else chunk
         if b % size:
             raise ValueError(f"frame count {b} not divisible by {chunk=}")
-        oks, poses = [], []
+        stream.captured = (dev.type == "cuda" and capture_enabled()
+                           and host_sync_free(camera, cfg))
+        if stream.captured and size not in graphs:
+            graphs[size] = capture(run_chunk)
+        outs = []
         for start in range(0, b, size):
-            feats = extract(lefts[start:start + size],
-                            rights[start:start + size])
-            for i in range(size):
-                state, ok, _ = step_feats(
-                    state, FrameFeatures(*(x[i] for x in feats)))
-                oks.append(ok)
-                poses.append(state.c_T_w)
-        return state, (torch.stack(oks), torch.stack(poses))
+            cut = slice(start, start + size)
+            if stream.captured:
+                state, *out = graphs[size](state, lefts[cut], rights[cut])
+                out = [x.clone() for x in out]
+            else:
+                state, *out = run_chunk(state, lefts[cut], rights[cut])
+            outs.append(out)
+        ok, pose, stream.skip_codes = (torch.cat(x) for x in zip(*outs))
+        return state, (ok, pose)
 
+    stream.graphs = graphs
+    stream.captured = None
+    stream.skip_codes = None
     return stream

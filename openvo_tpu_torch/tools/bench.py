@@ -19,8 +19,15 @@ levels):
 - ``rig``: ``parallel/rig``'s batched step over 8 cameras fed identical
   streams (``bench.py:175-197``); camera-frames a second in all.
 
+On the card every pass whose step reads nothing on the host (all but
+on-lat, whose speckle filter tests its convergence on the host) replays
+its step, or each chunk of the stream, as one CUDA graph
+(``openvo_tpu_torch/_graph.py``, JAX's ``jit`` with donated state); each
+pass's line says so in ``captured``.
+
 Each pass makes one warm call over the sequence (the kernels' first build
-or load included: ``warmup_s``), then ``--repeats`` timed calls over the
+or load and the graph's capture included: ``warmup_s``), then
+``--repeats`` timed calls over the
 whole sequence from a fresh state, each between two CUDA events with one
 sync at its end; the latency passes also take each frame's host-clock
 latency (a frame ends in a sync). A pass prints one ``PASS_RESULT`` line.
@@ -167,7 +174,10 @@ def run_pass(tag, args):
     import torch
 
     from openvo_tpu_torch import OdometerConfig, StereoCamera
-    from openvo_tpu_torch.models.stereo_odometer import init_state, make_step
+    from openvo_tpu_torch._graph import capture
+    from openvo_tpu_torch.models.stereo_odometer import (host_sync_free,
+                                                         init_state,
+                                                         make_step)
     from openvo_tpu_torch.parallel.rig import init_rig_state, make_rig_step
     from openvo_tpu_torch.parallel.stream import make_stream_fn
 
@@ -194,8 +204,16 @@ def run_pass(tag, args):
     def fresh():
         return init_state(cam.cropped_shape, cfg.orb.max_keypoints, dev)
 
+    # on the card each step that reads nothing on the host replays a CUDA
+    # graph (JAX's jit); a captured step's outputs live until its next
+    # call, so the runs below copy what they keep
+    captured = cuda and host_sync_free(cam, cfg)
+
+    def compiled(step):
+        return capture(step) if captured else step
+
     if tag == "rig":
-        step = make_rig_step(cam, cfg)
+        step = compiled(make_rig_step(cam, cfg))
         # identical streams, on the card before the run
         rig_l = lefts[:, None].expand(-1, N_CAMERAS, -1, -1).contiguous()
         rig_r = rights[:, None].expand(-1, N_CAMERAS, -1, -1).contiguous()
@@ -204,8 +222,8 @@ def run_pass(tag, args):
             state, oks, ctws = init_rig_state(cam, cfg, N_CAMERAS), [], []
             for i in range(n):
                 state, ok, _ = step(state, rig_l[i], rig_r[i])
-                oks.append(ok)
-                ctws.append(state.c_T_w)
+                oks.append(ok.clone())
+                ctws.append(state.c_T_w.clone())
             return torch.stack(oks), torch.stack(ctws)
         work = n * N_CAMERAS
     elif tag == "off-tp":
@@ -215,7 +233,7 @@ def run_pass(tag, args):
             return stream(fresh(), lefts, rights)[1]
         work = n
     else:
-        step = make_step(cam, cfg, False)
+        step = compiled(make_step(cam, cfg, False))
 
         def run(latencies):
             state, oks, ctws = fresh(), [], []
@@ -224,8 +242,8 @@ def run_pass(tag, args):
                 state, ok, _ = step(state, lefts[i], rights[i])
                 sync()
                 latencies.append(time.perf_counter() - t0)
-                oks.append(ok)
-                ctws.append(state.c_T_w)
+                oks.append(ok.clone())
+                ctws.append(state.c_T_w.clone())
             return torch.stack(oks), torch.stack(ctws)
         work = n
 
@@ -233,6 +251,8 @@ def run_pass(tag, args):
     warm = run([])
     sync()
     warmup_s = time.perf_counter() - t0
+    if tag == "off-tp":
+        captured = stream.captured
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     ms, lat, runs = [], [], []
@@ -262,6 +282,7 @@ def run_pass(tag, args):
     r = {"tag": tag, "device": (torch.cuda.get_device_name(0) if cuda
                                 else "cpu"),
          "timer": "cuda events" if cuda else "host clock (CPU)",
+         "captured": bool(captured),
          "frames": n, "work": work, "repeats": args.repeats,
          "ms_each": ms, "ms_median": med, "ms_min": min(ms),
          "ms_max": max(ms),
@@ -305,8 +326,8 @@ def cumulative(results, args, smi):
         out[f"{key}_fps"] = None if r is None else r["fps"]
         if r is None:
             continue
-        for field in ("warmup_s", "ms_median", "ms_min", "spread",
-                      "peak_mib", "p50_ms", "p90_ms"):
+        for field in ("captured", "warmup_s", "ms_median", "ms_min",
+                      "spread", "peak_mib", "p50_ms", "p90_ms"):
             if field in r:
                 out[f"{key}_{field}"] = r[field]
     if "on-lat" in results:

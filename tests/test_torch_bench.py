@@ -15,14 +15,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PASS_FIELDS = {"tag", "device", "timer", "frames", "work", "repeats",
                "ms_each", "ms_median", "ms_min", "ms_max", "spread", "fps", "fps_best",
                "warmup_s", "tracked", "skipped", "ate", "path_len",
-               "repeats_agree", "peak_mib"}
+               "repeats_agree", "peak_mib", "captured"}
 LINE_FIELDS = {"metric", "value", "unit", "headline_shape", "tracked_frames",
                "total_frames", "ate_m", "ate_pct_of_path", "latency_fps",
                "stream_fps", "speckle_on_fps", "rig_fps", "card",
                "latency_warmup_s", "latency_ms_median", "latency_ms_min",
                "latency_spread", "latency_p50_ms", "latency_p90_ms",
                "latency_peak_mib", "stream_warmup_s", "stream_ms_median",
-               "stream_ms_min", "stream_spread", "stream_peak_mib"}
+               "stream_ms_min", "stream_spread", "stream_peak_mib",
+               "latency_captured", "stream_captured"}
 
 
 def bench(args, tmp_path):
@@ -45,6 +46,7 @@ def test_cpu_run_prints_well_formed_lines(tmp_path):
     for r in results:
         assert PASS_FIELDS <= set(r), PASS_FIELDS - set(r)
         assert r["device"] == "cpu" and r["frames"] == 4
+        assert r["captured"] is False   # the CPU runs eagerly
         assert r["repeats_agree"] and r["tracked"] == 4
         assert r["skipped"] == []
         assert r["ms_min"] <= r["ms_median"] <= r["ms_max"]
