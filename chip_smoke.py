@@ -21,11 +21,15 @@ Phases, in order; any failure exits non-zero before the final line:
    edge; then H1, H2 (the top-down trio into s1), H3 and H4 launched once
    over a batch of frames 0-15, and H5, the float32 H2 trio and H3 over
    block13's float32 C of the same frames, each also held to its 16
-   single-frame launches, timed a frame; also hold the speckle filter on
-   the card against the same function on the CPU, on frame 0 and on
-   frames 0-15 as one batch (whose host syncs must be its slowest
-   frame's), and time block13's plain float32 cost volume alone and over
-   the batch;
+   single-frame launches, timed a frame; then the loops JAX runs as
+   ``lax.while_loop``s: H7 (the speckle filter's labelling) on frame 0's
+   on-lat disparity before the filter and on frames 0-15 as one batch, on
+   a 1 px spiral, random islands, an all-invalid and a one-component map
+   at KITTI size, labels and masks equal; H8 (the rigid clique's greedy
+   loop) on the `filters` path's clouds of frames 1 and 2 against frame 0,
+   on 16 clouds of consecutive frames as one batch, and on random clouds
+   with NaN rows, exact ties and no valid row, memberships equal; and
+   time block13's plain float32 cost volume alone and over the batch;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
    SGBM configurations, with the rigid clique and outlier filters on, and
@@ -35,15 +39,16 @@ Phases, in order; any failure exits non-zero before the final line:
    and every kernel's launches per frame;
    then the streams (STREAMS): ``parallel/stream.make_stream_fn`` with
    chunks of 16, each extracted batched, at off-lat's SGBM (`off-tp`: H1-H4
-   once a chunk), on-lat's (`on-tp`: the speckle filter's loop once a
-   chunk too) and block13's (`block13-tp`: H5, H3 and the float32 H2's
-   three launches once a chunk), and the rigs (RIGS):
+   once a chunk), on-lat's (`on-tp`: H7 once a chunk too) and block13's
+   (`block13-tp`: H5, H3 and the float32 H2's three launches once a
+   chunk), and the rigs (RIGS):
    ``parallel/rig.RigOdometer`` with 8 cameras, camera 7 fed a blank pair
    at frame 20, with off-lat's settings (`rig8`) and `filters`' (`rig8-
-   filters`: the rigid clique and outlier pass over the 8 cameras at
-   once); each held to its single-frame path frame by frame (ok, skip
-   cause, c_T_w within 1e-5), with launches and host syncs a frame;
-   each path of CAPTURED runs this phase eagerly (``_graph.
+   filters`: H8 over the 8 cameras' 16 clouds at once, and the outlier
+   pass); each held to its single-frame path frame by frame (ok, skip
+   cause, c_T_w within 1e-5), with launches and host syncs a frame; the
+   speckle filter and the rigid clique must make no host sync on any path;
+   each of these paths runs this phase eagerly (``_graph.
    disable_capture()``), its launch counts from that run, then again as
    users run it, each step one replayed CUDA graph (``openvo_tpu_torch/
    _graph.py``): ok, skip causes and c_T_w must equal the eager run's bit
@@ -52,9 +57,7 @@ Phases, in order; any failure exits non-zero before the final line:
    captured medians, the warm-up plus capture seconds, the graph's pool
    and, under torch.profiler, the kernels and kernel time of a few more
    captured calls are logged; two off-lat odometers on one camera, run in
-   turns, share its captured step and each equal the eager run; every
-   other path must choose the eager run itself (its step reads the host)
-   and logs its mode;
+   turns, share its captured step and each equal the eager run;
 4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
@@ -63,9 +66,10 @@ Phases, in order; any failure exits non-zero before the final line:
 5. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
    the card (a gloo group, messages staged through host memory: NCCL
    refuses two ranks on one GPU) over the 64 frames with the off-lat
-   parameters, and on frame 0 with the block13 parameters on the shifted
-   pair; the ranks' bands must equal the single-device disparity on the
-   card, and every rank must launch the band H1 and the carry H2;
+   parameters, on frame 0 with the block13 parameters on the shifted pair
+   and with on-lat's (the speckle filter over the gathered frame); the
+   ranks' bands must equal the single-device disparity on the card, and
+   every rank must launch the band H1 and the carry H2, and H7 on-lat;
 6. `shard4`: the frame-sharded trajectory (parallel/sharding.py) on 4
    ranks sharing the card over frames 0-15, 4 a rank, against the
    one-process relative poses composed on the card; every rank launches
@@ -73,7 +77,8 @@ Phases, in order; any failure exits non-zero before the final line:
 7. the port's benchmark, ``python3 -m openvo_tpu_torch.tools.bench
    --repeats 2`` (bench.py's four passes, off-lat, off-tp, on-lat and
    rig, each in a subprocess, on the corridor cached by this run): every
-   pass prints a result, off-lat and on-lat track >= 63 of the 64 frames
+   pass prints a result and ran captured, off-lat and on-lat track >= 63
+   of the 64 frames
    with an ATE <= 1.25 m, off-tp and rig skip the frames off-lat skips.
 
 Phase 2 also times K4's one-call PyTorch equivalent, ``torch.gather``
@@ -88,7 +93,6 @@ and the card's name and power limit from nvidia-smi; the last line is
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gc
 import json
@@ -120,10 +124,6 @@ PATHS = {
     # ORB's cv2.ORB ranking: held to the JAX package's run instead
     "cv2rank": ({}, None, None),
 }
-# The paths whose steps replay a CUDA graph: each runs eagerly first (its
-# launch counts), then captured, held to the eager run bit for bit.
-CAPTURED = ("off-lat", "hh8", "hv4", "block13", "cv2rank", "off-tp",
-            "block13-tp", "rig8")
 SHARED_FRAMES = 8        # off-lat's frames run by two odometers in turns
 # The `filters` path: off-lat with both of the odometer's filters on, at the
 # thresholds of the JAX package's own tests (tests/test_odometer.py:228,
@@ -210,6 +210,12 @@ SGBM_SRC = "openvo_tpu_torch/csrc/sgbm.cu"
 WTA_SRC = "openvo_tpu_torch/csrc/sgbm_wta.cu"   # H3
 ORB_SRC = "openvo_tpu_torch/csrc/orb.cu"
 RESIZE_SRC = "openvo_tpu_torch/csrc/resize.cu"   # H6
+SPECKLE_SRC = "openvo_tpu_torch/csrc/speckle.cu"   # H7
+CLIQUE_SRC = "openvo_tpu_torch/csrc/clique.cu"     # H8
+# H7's and H8's JAX counterparts: lax.while_loops left to XLA (no Pallas
+# kernel)
+SPECKLE_JAX = "openvo_tpu/ops/sgbm.py:476-488 (lax.while_loop, XLA)"
+CLIQUE_JAX = "openvo_tpu/pose/rigid_clique.py:53-69 (lax.while_loop, XLA)"
 # H6's JAX counterpart: jax.image.resize under jit, left to XLA (no Pallas
 # kernel); the library call timed beside it is torch's antialiased
 # bilinear F.interpolate, level by level
@@ -704,6 +710,146 @@ def batched_cases(torch, seq, cam, cfg):
     ]
 
 
+def unfiltered_disparity(torch, seq, cam, frames):
+    """on-lat's disparity of the first ``frames`` frames as one batch
+    before the speckle filter, and its valid mask: H7's input on on-tp
+    (and, frame 0's, on on-lat: a batch gives each frame its own call's
+    bits)."""
+    from openvo_tpu_torch.ops import sgbm
+    from openvo_tpu_torch.ops.remap import remap_bilinear
+
+    p = path_params("on-lat")
+    left, right = (torch.stack([
+        remap_bilinear(torch.as_tensor(seq[side][i], device=cam.device)
+                       .to(torch.float32), *maps) for i in range(frames)])
+        for side, maps in (("left", cam.map_left), ("right", cam.map_right)))
+    d16 = sgbm.sgbm_disparity16(
+        left, right, dataclasses.replace(p, speckle_window_size=0))
+    return d16, d16 != (p.min_disparity - 1) * 16
+
+
+def real_clouds(torch, seq, cam, cfg, pairs):
+    """The point clouds the `filters` path fits, (len(pairs), 512, 3) each
+    with the match mask: frame b matched against frame a for each (a, b)
+    of ``pairs``, each frame extracted on its own."""
+    from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
+                                                         make_pipeline_fns)
+
+    fns = make_pipeline_fns(cam, cfg, False)
+    feats = {i: fns["extract"](torch.as_tensor(seq["left"][i],
+                                               device=cam.device),
+                               torch.as_tensor(seq["right"][i],
+                                               device=cam.device))
+             for i in sorted({i for pair in pairs for i in pair})}
+
+    def stack(side):
+        return FrameFeatures(*(torch.stack([feats[pair[side]][k]
+                                            for pair in pairs])
+                               for k in range(len(FrameFeatures._fields))))
+
+    pts_a, pts_b, mok, _, _ = fns["point_clouds"](stack(0), stack(1))
+    return pts_a, pts_b, mok
+
+
+def loop_kernel_cases(torch, seq, cam, cfg):
+    """Phase 2's cases of H7 and H8, the loops JAX runs as
+    ``lax.while_loop``s, against their plain versions on the same card
+    tensors (and, for the path's inputs, on the CPU): H7 on frame 0's
+    on-lat disparity before the filter (on-lat) and on frames 0-15 as one
+    batch (on-tp), on the CPU tests' spiral and random islands at KITTI
+    size, an all-invalid and a one-component map; H8 on the `filters`
+    path's clouds of frames 1 and 2 against frame 0 (its two attempts),
+    on 16 clouds of consecutive frames as one batch (rig8-filters), and on
+    random clouds with NaN rows, exact ties and no valid row. Each byte
+    bound counts its inputs read once and its outputs written once."""
+    from openvo_tpu_torch.ops import clique_cuda, sgbm, speckle_cuda
+    from openvo_tpu_torch.pose import rigid_clique
+    from openvo_tpu_torch.tools import loop_cases
+
+    dev = cam.device
+    p = path_params("on-lat")
+    max_diff, window = 16 * p.speckle_range, p.speckle_window_size
+    H, W = IMG_SIZE[1], IMG_SIZE[0]
+    n = H * W
+
+    def h7(variant, path, d, valid, frames=1):
+        single = None
+        if frames > 1:
+            single = lambda: [  # noqa: E731
+                tuple(o + i * n if o.dtype == torch.int32 else o for o in
+                      speckle_cuda.speckle_keep(d[i], valid[i], max_diff,
+                                                window))
+                for i in range(frames)]
+        return Case("speckle_keep", variant, path,
+                    lambda: speckle_cuda.speckle_keep(d, valid, max_diff,
+                                                      window),
+                    lambda: sgbm.speckle_keep_plain(d, valid, max_diff,
+                                                    window),
+                    SPECKLE_JAX, (d, valid), 12, SPECKLE_SRC, frames=frames,
+                    single=single)
+
+    def on_card(maker, *args):
+        return tuple(torch.from_numpy(x).to(dev) for x in maker(*args))
+
+    db, vb = unfiltered_disparity(torch, seq, cam, BATCH)
+    d0, v0 = db[0], vb[0]
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(
+            speckle_cuda.speckle_keep(d0, v0, max_diff, window),
+            sgbm.speckle_keep_plain(d0.cpu(), v0.cpu(), max_diff, window))):
+        raise AssertionError("H7 on frame 0 differs from the plain version "
+                             "on the CPU")
+    cases = [
+        h7("frame 0, on-lat's disparity before the filter", "on-lat", d0, v0),
+        h7(f"frames 0-{BATCH - 1} as one batch", "on-tp", db, vb, BATCH),
+        h7("a 1 px spiral at KITTI size", None,
+           *on_card(loop_cases.spiral, H, W)),
+        h7("random islands at KITTI size", None,
+           *on_card(loop_cases.islands, 0, H, W)),
+        h7("every pixel invalid", None,
+           *on_card(loop_cases.uniform, H, W, False)),
+        h7("one component", None, *on_card(loop_cases.uniform, H, W, True)),
+    ]
+
+    thr = FILTERS["rigidity_threshold"]
+
+    def h8(variant, path, prev, pts, mask, frames=1):
+        cons, num = rigid_clique.consistency(prev, pts, mask, thr)
+        single = None
+        if frames > 1:
+            single = lambda: [clique_cuda.greedy_clique(  # noqa: E731
+                cons[i], num[i]) for i in range(frames)]
+        picks = (clique_cuda.greedy_clique(cons, num).sum(-1) - 1).tolist()
+        log(f"[kernels] greedy_clique [{variant}]: picks a cloud {picks}")
+        return Case("greedy_clique", variant, path,
+                    lambda: clique_cuda.greedy_clique(cons, num),
+                    lambda: rigid_clique.greedy_clique_plain(cons, num),
+                    CLIQUE_JAX, (cons, num), 4 * prev.shape[-2], CLIQUE_SRC,
+                    frames=frames, single=single)
+
+    filters_cfg = dataclasses.replace(cfg, **FILTERS)
+    two = real_clouds(torch, seq, cam, filters_cfg, [(0, 1), (0, 2)])
+    want = rigid_clique.rigid_body_filter(*(t.cpu() for t in two), thr)
+    if not torch.equal(rigid_clique.rigid_body_filter(*two, thr).cpu(),
+                       want):
+        raise AssertionError("the rigid clique on the card differs from "
+                             "the CPU's on frames 1 and 2")
+    sixteen = real_clouds(torch, seq, cam, filters_cfg,
+                          [(i, i + 1) for i in range(BATCH)])
+    cases += [
+        h8("frames 1 and 2 against frame 0, filters' threshold (the "
+           "path's two attempts)", "filters", *two),
+        h8(f"{BATCH} clouds of consecutive frames as one batch",
+           "rig8-filters", *sixteen, frames=BATCH),
+        h8("random clouds, 40 NaN rows", None,
+           *on_card(loop_cases.clouds, 1, 2, 512, 0.9, 0.2, 40)),
+        h8("random clouds, 30 exact ties", None,
+           *on_card(loop_cases.clouds, 2, 2, 512, 0.9, 0.2, 0, 30)),
+        h8("no valid row", None,
+           *on_card(loop_cases.clouds, 3, 2, 512, 0.0)),
+    ]
+    return cases
+
+
 def prefiltered_pair(torch, seq, cam, shift, cap, frame=0):
     """A frame (0 unless given), rectified (and resampled by ``shift`` px),
     prefiltered."""
@@ -723,8 +869,9 @@ def check_kernels(torch, seq, cam, cfg):
     variant also against its kernel's single-frame launch on each frame;
     its times and bound are per frame)."""
     results = []
-    cases = kernel_cases(torch, seq, cam, cfg) + batched_cases(torch, seq,
-                                                               cam, cfg)
+    cases = (kernel_cases(torch, seq, cam, cfg)
+             + batched_cases(torch, seq, cam, cfg)
+             + loop_kernel_cases(torch, seq, cam, cfg))
     for c in cases:
         out, ref = as_tuple(c.kern()), as_tuple(c.plain())
         err = max(max_abs_err(a, b) for a, b in zip(out, ref))
@@ -747,7 +894,8 @@ def check_kernels(torch, seq, cam, cfg):
                         "replaces": c.replaces, "max_abs_err": err,
                         "bound_ms": bound_ms / c.frames, "bound_by": bound_by,
                         # no one PyTorch call computes an SGM scan, a fused
-                        # cost + box + scan, or BRIEF's sampling and packing
+                        # cost + box + scan, BRIEF's sampling and packing,
+                        # connected components or a greedy clique
                         "library_ms": None if c.library is None else min(
                             time_ms(torch, c.library, 20),
                             time_ms(torch, c.library, 20)) / c.frames})
@@ -784,33 +932,15 @@ def check_kernels(torch, seq, cam, cfg):
 
 def check_plain_stages(torch, seq, cam):
     """The plain PyTorch stages of the paths, on frame 0 and on frames 0-15
-    as one batch: the speckle filter on the card against the same function
-    on the CPU (on-lat's disparity before the filter; a batch's host syncs
-    against its frames' own), and the time and peak memory of block13's
-    float32 cost volume and box sum."""
+    as one batch: the time and peak memory of block13's float32 cost
+    volume and box sum, and H6's pyramid against the CPU's."""
     from openvo_tpu_torch.ops import sgbm, sgbm_cuda
     from openvo_tpu_torch.ops.remap import remap_bilinear
 
-    p = path_params("on-lat")
-    unfiltered = dataclasses.replace(p, speckle_window_size=0)
     left, right = (
         remap_bilinear(torch.as_tensor(seq[side][0], device=cam.device)
                        .to(torch.float32), *maps)
         for side, maps in (("left", cam.map_left), ("right", cam.map_right)))
-    d16 = sgbm.sgbm_disparity16(left, right, unfiltered)
-    valid = d16 != (p.min_disparity - 1) * 16
-    sgbm.speckle_filter.syncs = 0
-    keep = sgbm.speckle_filter(d16, valid, p)
-    syncs = sgbm.speckle_filter.syncs
-    keep_cpu = sgbm.speckle_filter(d16.cpu(), valid.cpu(), p)
-    if not torch.equal(keep.cpu(), keep_cpu):
-        raise AssertionError("the speckle mask on the card differs from the "
-                             "CPU's")
-    ms = time_ms(torch, lambda: sgbm.speckle_filter(d16, valid, p), 5)
-    removed = int(valid.sum() - keep.sum())
-    log(f"[speckle] frame 0: mask equal to the CPU's; {removed} of "
-        f"{int(valid.sum())} valid pixels removed; {syncs} host syncs; "
-        f"{ms:.4f} ms on the card")
     q = path_params("block13")
     cap = max(q.pre_filter_cap, 15) | 1
     lp, rp = sgbm.prefilter_xsobel(left, cap), sgbm.prefilter_xsobel(right,
@@ -825,37 +955,13 @@ def check_plain_stages(torch, seq, cam):
     log(f"[cost_volume_f32] block13's float32 cost volume and box sum: "
         f"{cost_ms:.4f} ms on the card, {cost_mib:.1f} MiB at its peak")
 
-    # the same stages over frames 0-15 as one batch, as on-tp and
-    # block13-tp run them
+    # the same stage over frames 0-15 as one batch, as block13-tp runs it
     lefts, rights = (torch.stack([
         remap_bilinear(torch.as_tensor(seq[side][i], device=cam.device)
                        .to(torch.float32), *maps) for i in range(BATCH)])
         for side, maps in (("left", cam.map_left), ("right", cam.map_right)))
-    d16b = sgbm.sgbm_disparity16(lefts, rights, unfiltered)
-    validb = d16b != (p.min_disparity - 1) * 16
-    rounds = []
-    for i in range(BATCH):
-        sgbm.speckle_filter.syncs = 0
-        sgbm.speckle_filter(d16b[i], validb[i], p)
-        rounds.append(sgbm.speckle_filter.syncs)
-    sgbm.speckle_filter.syncs = 0
-    keepb = sgbm.speckle_filter(d16b, validb, p)
-    syncs_b = sgbm.speckle_filter.syncs
-    if not torch.equal(keepb.cpu(),
-                       sgbm.speckle_filter(d16b.cpu(), validb.cpu(), p)):
-        raise AssertionError("the batched speckle mask on the card differs "
-                             "from the CPU's")
-    if syncs_b != max(rounds):
-        raise AssertionError(f"the batched speckle filter synced {syncs_b} "
-                             f"times, its frames {rounds}")
-    ms_b = time_ms(torch, lambda: sgbm.speckle_filter(d16b, validb, p),
-                   5) / BATCH
-    log(f"[speckle] frames 0-{BATCH - 1} as one batch: mask equal to the "
-        f"CPU's; {syncs_b} host syncs (its frames alone: {rounds}); "
-        f"{ms_b:.4f} ms a frame on the card")
     lps, rps = sgbm.prefilter_xsobel(lefts, cap), sgbm.prefilter_xsobel(
         rights, cap)
-    del d16b, validb, keepb
     gc.collect()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -866,13 +972,7 @@ def check_plain_stages(torch, seq, cam):
         f"{cost_ms_b:.4f} ms a frame on the card, {cost_mib_b:.1f} MiB at "
         f"its peak")
     resize_against_cpu(torch, seq, cam)
-    return [{"name": "speckle_filter", "variant": "plain PyTorch",
-             "route": "torch", "source": "openvo_tpu_torch/ops/sgbm.py",
-             "replaces": "openvo_tpu/ops/sgbm.py:498 (XLA, no Pallas "
-                         "kernel)", "max_abs_err": 0.0, "ms": ms,
-             "host_syncs": syncs, "batch_ms_a_frame": ms_b,
-             "batch_host_syncs": syncs_b},
-            {"name": "cost_volume_f32", "variant": "float32, block 13, plain "
+    return [{"name": "cost_volume_f32", "variant": "float32, block 13, plain "
              "PyTorch", "route": "torch",
              "source": "openvo_tpu_torch/ops/sgbm_cuda.py",
              "replaces": "openvo_tpu/ops/sgbm.py:555-558 (XLA)",
@@ -929,28 +1029,44 @@ def time_k4_library(torch, dev, smi):
             "replaces": f"{PALLAS_SGBM}:827", "library_ms": ms}
 
 
-def expected_launches(params):
-    """Each kernel's launches per frame on a single-device path."""
+def expected_launches(params, filters=False):
+    """Each kernel's launches per frame on a single-device path: H7 with
+    the speckle filter on, H8 (one launch for both attempts' clouds) with
+    the rigid clique on."""
     from openvo_tpu_torch.ops import sgbm
 
     f32 = sgbm.int16_sentinel(params.block_size,
                               max(params.pre_filter_cap, 15) | 1) is None
     dirs = 1 if params.num_paths == 4 else 3
     ways = 1 if params.num_paths == 5 else 2
+    speckle = params.speckle_window_size > 0 and params.speckle_range > 0
     return {"cost_hsweep": 0 if f32 else 1, "hsweep": int(f32),
             "vsweep": dirs * ways if f32 else 1, "hsweep_wta_lr": 1,
-            "brief_describe": 1, "resize_levels": 1}
+            "brief_describe": 1, "resize_levels": 1,
+            "speckle_keep": int(speckle), "greedy_clique": int(filters)}
+
+
+def all_kernels():
+    """Every kernel wrapper of the port (each with its launch count)."""
+    from openvo_tpu_torch.ops import (clique_cuda, orb_cuda, sgbm_cuda,
+                                      speckle_cuda)
+
+    return (sgbm_cuda.KERNELS + orb_cuda.KERNELS + speckle_cuda.KERNELS
+            + clique_cuda.KERNELS)
 
 
 def plain_tripwires():
     """The plain versions of every kernel, as (module, name): a path runs
     with each replaced by a function that fails."""
-    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
+    from openvo_tpu_torch.ops import orb_cuda, sgbm, sgbm_cuda
+    from openvo_tpu_torch.pose import rigid_clique
 
     return {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
             (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
             (orb_cuda, "brief_describe_plain"),
-            (orb_cuda, "resize_levels_plain")}
+            (orb_cuda, "resize_levels_plain"),
+            (sgbm, "speckle_keep_plain"),
+            (rigid_clique, "greedy_clique_plain")}
 
 
 def tripwire(*_a, **_k):
@@ -981,11 +1097,11 @@ def run_path(torch, seq, name, smi):
     """Phase 3 for one path: the odometer over the sequence with the plain
     versions disabled; returns launch counts per kernel name and, frame by
     frame, ok, the skip cause and c_T_w."""
-    from openvo_tpu_torch import StereoCamera, StereoOdometer
-    from openvo_tpu_torch.ops import orb_cuda, sgbm, sgbm_cuda
+    from openvo_tpu_torch import StereoCamera, StereoOdometer, _graph
+    from openvo_tpu_torch.ops import sgbm
     from openvo_tpu_torch.pose import rigid_clique
 
-    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    kernels = all_kernels()
     plains = plain_tripwires()
     params = path_params(name)
     cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
@@ -1001,7 +1117,7 @@ def run_path(torch, seq, name, smi):
     base = torch.cuda.memory_allocated() / 2 ** 20
     torch.cuda.reset_peak_memory_stats()
     try:
-        with eager_for(name):
+        with _graph.disable_capture():
             sgbm.speckle_filter.syncs = 0
             rigid_clique.rigid_body_filter.syncs = 0
             for k in kernels:
@@ -1037,6 +1153,7 @@ def run_path(torch, seq, name, smi):
         f"{syncs} ({syncs / N_FRAMES} a frame); rigid clique host syncs "
         f"{clique_syncs} ({clique_syncs / N_FRAMES} a frame); "
         f"{mode_line(name, odo.captured)}")
+    no_loop_syncs(name, syncs, clique_syncs)
     if not np.isfinite(poses).all():
         raise AssertionError(f"{name}: non-finite pose")
     if name == "filters":
@@ -1055,7 +1172,8 @@ def run_path(torch, seq, name, smi):
                              f"{min_tracked}")
     if max_ate is not None and not ate <= max_ate:
         raise AssertionError(f"{name}: ATE {ate} m above {max_ate}")
-    for k, per_frame in expected_launches(params).items():
+    for k, per_frame in expected_launches(params,
+                                          name == "filters").items():
         if launches[k] != per_frame * N_FRAMES:
             raise AssertionError(f"{name}: {k} launched {launches[k]} times "
                                  f"in {N_FRAMES} frames, expected "
@@ -1064,25 +1182,22 @@ def run_path(torch, seq, name, smi):
                       "poses": poses, "lat": lat}
 
 
-def eager_for(name):
-    """The eager run of a path of CAPTURED (``_graph.disable_capture``);
-    every other path runs as users run it."""
-    from openvo_tpu_torch import _graph
-
-    return (_graph.disable_capture() if name in CAPTURED
-            else contextlib.nullcontext())
-
-
 def mode_line(name, captured):
-    """The run's mode, logged for every path: a path of CAPTURED runs
-    eagerly here and captured in its own run; every other path must choose
-    the eager run itself."""
+    """The eager run's mode, logged for every path: each runs eagerly here
+    (``_graph.disable_capture``) and captured in its own run."""
     if captured is not False:
         raise AssertionError(f"{name}: ran captured={captured} where the "
                              f"eager run was due")
-    return ("mode: eager (capture disabled; the captured run follows)"
-            if name in CAPTURED else
-            "mode: eager (its step reads the host: not captured)")
+    return "mode: eager (capture disabled; the captured run follows)"
+
+
+def no_loop_syncs(name, speckle, clique):
+    """Fail unless the speckle filter's and the rigid clique's loops made
+    no host sync: on the card they are H7 and H8."""
+    if speckle or clique:
+        raise AssertionError(f"{name}: the speckle filter synced {speckle} "
+                             f"times and the rigid clique {clique} times on "
+                             f"the card")
 
 
 def count_syncs(torch, fn):
@@ -1158,7 +1273,7 @@ def replay_profile(torch, name, fn, calls=4, unit="a frame", per_call=1):
 
 
 def run_captured(torch, seq, name, smi, ref):
-    """A single-frame path of CAPTURED as users run it: each update one
+    """A single-frame path of PATHS as users run it: each update one
     replayed CUDA graph, the plain versions disabled; held to its eager run
     ``ref`` bit for bit, each of frames 2-63 one host sync (the copy of
     the update's results)."""
@@ -1431,16 +1546,15 @@ def sync_sources(torch, fn):
         if "synchroniz" in str(w.message)).most_common())
 
 
-def _tiled_rank(rank, tmp, out_q, device, p, q):
+def _tiled_rank(rank, tmp, out_q, device, p, q, o):
     """One rank of phase 4: the tiled SGBM with parameters ``p`` over the
-    frames, and ``q`` on the shifted frame 0, on ``device`` in a gloo
-    group."""
+    frames, ``q`` on the shifted frame 0 and ``o`` (on-lat's, the speckle
+    filter on) on frame 0, on ``device`` in a gloo group."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
-    from openvo_tpu_torch.ops import sgbm_cuda
     from openvo_tpu_torch.parallel.tiling import make_tiled_sgbm_fn
 
     try:
@@ -1454,7 +1568,8 @@ def _tiled_rank(rank, tmp, out_q, device, p, q):
         fn(left[0], right[0])    # warm-up
         sync()
         dist.barrier()
-        for k in sgbm_cuda.KERNELS:
+        kernels = all_kernels()
+        for k in kernels:
             k.launches = 0
         bands, lat = [], []
         for i in range(len(left)):
@@ -1464,7 +1579,7 @@ def _tiled_rank(rank, tmp, out_q, device, p, q):
             sync()
             dist.barrier()
             lat.append(time.perf_counter() - t0)
-        launches = {k.__name__: k.launches for k in sgbm_cuda.KERNELS}
+        launches = {k.__name__: k.launches for k in kernels}
         # where a tiled frame's time goes: the first and last ranks under
         # torch.profiler for PROFILED frames (outside the timed loop)
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -1481,15 +1596,21 @@ def _tiled_rank(rank, tmp, out_q, device, p, q):
             table = (avg.table(sort_by="cpu_time_total", row_limit=12)
                      + avg.table(sort_by="device_time_total", row_limit=8))
         fn13 = make_tiled_sgbm_fn(q, device=device)
-        for k in sgbm_cuda.KERNELS:
+        for k in kernels:
             k.launches = 0
         band13 = fn13(data["left13"], data["right13"])
-        launches13 = {k.__name__: k.launches for k in sgbm_cuda.KERNELS}
+        launches13 = {k.__name__: k.launches for k in kernels}
+        fn_on = make_tiled_sgbm_fn(o, device=device)
+        for k in kernels:
+            k.launches = 0
+        band_on = fn_on(left[0], right[0])
+        launches_on = {k.__name__: k.launches for k in kernels}
         np.savez(f"{tmp}/rank{rank}.npz",
                  bands=torch.stack(bands).cpu().numpy(),
-                 band13=band13.cpu().numpy())
+                 band13=band13.cpu().numpy(), band_on=band_on.cpu().numpy())
         dist.destroy_process_group()
         out_q.put((rank, {"launches": launches, "launches13": launches13,
+                          "launches_on": launches_on,
                           "lat_ms": [t * 1e3 for t in lat],
                           "profile": table}))
     except BaseException as e:  # reported to the parent, which fails
@@ -1499,11 +1620,14 @@ def _tiled_rank(rank, tmp, out_q, device, p, q):
 
 def run_tiled4(torch, seq, cam):
     """Phase 4: the row-tiled SGBM on TILED_RANKS ranks sharing the card,
-    against the single-device disparity on the card. Returns launch counts
-    summed over the ranks."""
+    against the single-device disparity on the card: off-lat over the
+    frames, block13 on the shifted frame 0, on-lat (H7 over the gathered
+    frame on every rank) on frame 0. Returns launch counts summed over the
+    ranks and the off-lat and on-lat runs."""
     from openvo_tpu_torch.ops import sgbm
 
     p, q = path_params("off-lat"), path_params("block13")
+    o = path_params("on-lat")
     dev = cam.device
     refs = [sgbm.sgbm_disparity16(torch.as_tensor(seq["left"][i], device=dev),
                                   torch.as_tensor(seq["right"][i], device=dev),
@@ -1515,6 +1639,9 @@ def run_tiled4(torch, seq, cam):
                 for side, (mx, my) in (("left", cam.map_left),
                                        ("right", cam.map_right)))
     ref13 = sgbm.sgbm_disparity16(l13, r13, q).cpu().numpy()
+    ref_on = sgbm.sgbm_disparity16(
+        torch.as_tensor(seq["left"][0], device=dev),
+        torch.as_tensor(seq["right"][0], device=dev), o).cpu().numpy()
     with tempfile.TemporaryDirectory() as tmp:
         np.savez(f"{tmp}/inputs.npz", left=seq["left"], right=seq["right"],
                  left13=l13.cpu().numpy(), right13=r13.cpu().numpy())
@@ -1522,7 +1649,7 @@ def run_tiled4(torch, seq, cam):
         out_q = ctx.Queue()
         t0 = time.perf_counter()
         procs = [ctx.Process(target=_tiled_rank,
-                             args=(r, tmp, out_q, dev.type, p, q))
+                             args=(r, tmp, out_q, dev.type, p, q, o))
                  for r in range(TILED_RANKS)]
         for pr in procs:
             pr.start()
@@ -1548,8 +1675,10 @@ def run_tiled4(torch, seq, cam):
         ranks = [np.load(f"{tmp}/rank{r}.npz") for r in range(TILED_RANKS)]
         tiled = np.concatenate([r["bands"] for r in ranks], axis=1)
         tiled13 = np.concatenate([r["band13"] for r in ranks])
+        tiled_on = np.concatenate([r["band_on"] for r in ranks])
     neq = [int((tiled[i] != refs[i]).sum()) for i in range(N_FRAMES)]
     neq13 = int((tiled13 != ref13).sum())
+    neq_on = int((tiled_on != ref_on).sum())
     lat = np.max([reports[r]["lat_ms"] for r in range(TILED_RANKS)], axis=0)
     log(f"[tiled4] off-lat, {N_FRAMES} frames, {IMG_SIZE[1] // TILED_RANKS} "
         f"rows a rank: pixels differing from the single-device disparity "
@@ -1558,13 +1687,16 @@ def run_tiled4(torch, seq, cam):
         f"{float(np.median(lat[2:]))} ms, min {float(lat[2:].min())} ms, "
         f"max {float(lat[2:].max())} ms")
     log(f"[tiled4] block13 on the shifted frame 0: {neq13} pixels differ")
+    log(f"[tiled4] on-lat (the speckle filter on) on frame 0: {neq_on} "
+        f"pixels differ")
     for r in (0, TILED_RANKS - 1):
         log(f"[tiled4] rank {r}, {PROFILED} frames under torch.profiler:\n"
             f"{reports[r]['profile']}")
     for r in range(TILED_RANKS):
         log(f"[tiled4] rank {r} launches: off-lat "
-            f"{reports[r]['launches']}; block13 {reports[r]['launches13']}")
-    if sum(neq) or neq13:
+            f"{reports[r]['launches']}; block13 {reports[r]['launches13']}; "
+            f"on-lat {reports[r]['launches_on']}")
+    if sum(neq) or neq13 or neq_on:
         raise AssertionError("tiled4 differs from the single-device "
                              "disparity")
     for r in range(TILED_RANKS):
@@ -1577,7 +1709,11 @@ def run_tiled4(torch, seq, cam):
         got13 = reports[r]["launches13"]
         if got13["hsweep"] != 1 or got13["vsweep"] != 3:
             raise AssertionError(f"tiled4 rank {r}: block13 launches {got13}")
-    return {k: sum(reports[r]["launches"][k] for r in range(TILED_RANKS))
+        if reports[r]["launches_on"]["speckle_keep"] != 1:
+            raise AssertionError(f"tiled4 rank {r}: on-lat launches "
+                                 f"{reports[r]['launches_on']}")
+    return {k: sum(reports[r][run][k] for r in range(TILED_RANKS)
+                   for run in ("launches", "launches_on"))
             for k in reports[0]["launches"]}
 
 
@@ -1592,14 +1728,16 @@ def count_launches(torch, fn):
     return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
 
 
-def batched_path_kernels(launches, name, want, base="off-lat"):
+def batched_path_kernels(launches, name, want, base="off-lat",
+                         filters=False):
     """Fail unless each kernel launched ``want`` times what a frame of the
     single-frame path ``base`` launches, on a batched path: H1-H4 ``want``
     times and H5 not at all at off-lat's parameters (H1, ``cost_hsweep``,
     is its two kernels bt_box and hwalk); H5, H3 and H4 ``want`` times, the
-    float32 H2 three times that and H1 not at all at block13's."""
-    expected = {k: n * want
-                for k, n in expected_launches(path_params(base)).items()}
+    float32 H2 three times that and H1 not at all at block13's; H7 ``want``
+    times at on-lat's; H8 ``want`` times with ``filters``."""
+    expected = {k: n * want for k, n in expected_launches(
+        path_params(base), filters).items()}
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expected}")
@@ -1637,18 +1775,18 @@ def run_stream(torch, seq, smi, name, ref):
     speckle filter's loop, once a chunk), the plain versions disabled, held
     to its single-frame path's run ``ref`` frame by frame. Returns launch
     counts per kernel name."""
-    from openvo_tpu_torch import OdometerConfig
+    from openvo_tpu_torch import OdometerConfig, _graph
     from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
     from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
                                                          init_state,
                                                          make_pipeline_fns)
-    from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda
+    from openvo_tpu_torch.ops import orb, sgbm
     from openvo_tpu_torch.parallel.stream import make_stream_fn
 
     single = STREAMS[name]
     cam = path_camera(seq, single)
     cfg = OdometerConfig()
-    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    kernels = all_kernels()
     stream = make_stream_fn(cam, cfg, chunk=BATCH)
     fns = make_pipeline_fns(cam, cfg, False)
     lefts = torch.as_tensor(seq["left"], device=cam.device)
@@ -1665,7 +1803,7 @@ def run_stream(torch, seq, smi, name, ref):
     for m, n in saved:
         setattr(m, n, tripwire)
     try:
-        with eager_for(name):
+        with _graph.disable_capture():
             chunk0()   # first-call costs outside the timed run
             gc.collect()
             torch.cuda.synchronize()
@@ -1737,6 +1875,7 @@ def run_stream(torch, seq, smi, name, ref):
         f"allocated {base:.1f} MiB at the start, peak {peak:.1f} MiB; {smi}")
     log(f"[{name}] kernel launches: {launches}; synchronizing calls in one "
         f"chunk, by the line that made them: {syncs}; {mode}")
+    no_loop_syncs(name, speckle_syncs, 0)
     for stage, (one, batched) in stages.items():
         log(f"[{name}] {stage}: {one} launches for one frame, {batched} a "
             f"frame in a chunk of {BATCH}")
@@ -1760,7 +1899,7 @@ def run_stream(torch, seq, smi, name, ref):
 
 
 def run_captured_stream(torch, seq, smi, name, ref):
-    """A streamed path of CAPTURED as users run it: ``make_stream_fn`` with
+    """A streamed path of STREAMS as users run it: ``make_stream_fn`` with
     chunk BATCH, each chunk one replayed CUDA graph, the plain versions
     disabled. The first call captures; the second, over the 64 frames, must
     make no host sync and equal the eager run ``ref`` bit for bit."""
@@ -1823,16 +1962,14 @@ def run_rig8(torch, seq, smi, name, ref):
     frame; the blank camera must skip that frame as ``keypoints``, track
     the next against its retained frame, and track all but one frame fewer
     than ``ref``. Returns launch counts per kernel name."""
-    from openvo_tpu_torch import OdometerConfig
-    from openvo_tpu_torch.config import SKIP_CAUSE_STRINGS
-    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
+    from openvo_tpu_torch import OdometerConfig, _graph
     from openvo_tpu_torch.parallel.rig import RigOdometer
     from openvo_tpu_torch.pose import rigid_clique
 
     single = RIGS[name]
     cam = path_camera(seq)
     cfg = OdometerConfig(**odometer_kwargs(single))
-    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    kernels = all_kernels()
     blank_cam, blank_frame = RIG_BLANK
     steps = rig_inputs(torch, seq, cam)
     saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
@@ -1843,7 +1980,7 @@ def run_rig8(torch, seq, smi, name, ref):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        with eager_for(name):
+        with _graph.disable_capture():
             for k in kernels:
                 k.launches = 0
             rigid_clique.rigid_body_filter.syncs = 0
@@ -1870,6 +2007,7 @@ def run_rig8(torch, seq, smi, name, ref):
     log(f"[{name}] kernel launches: {launches}; rigid clique host checks "
         f"{clique_syncs} ({clique_syncs / N_FRAMES} a step); "
         f"{mode_line(name, rig.captured)}")
+    no_loop_syncs(name, 0, clique_syncs)
     for c in range(RIG_CAMERAS):
         if c == blank_cam:
             continue
@@ -1882,7 +2020,8 @@ def run_rig8(torch, seq, smi, name, ref):
         raise AssertionError(f"{name}: camera {blank_cam} tracked {b.sum()},"
                              f" frames {blank_frame}-{blank_frame + 1} "
                              f"{b[blank_frame:blank_frame + 2]}")
-    batched_path_kernels(launches, name, N_FRAMES)
+    batched_path_kernels(launches, name, N_FRAMES,
+                         filters=single == "filters")
     return launches, record
 
 
@@ -1927,7 +2066,7 @@ def drive_rig(torch, rig, steps, name, captured=False):
 
 
 def run_captured_rig(torch, seq, smi, name, ref):
-    """A rig of CAPTURED as users run it: each step one replayed CUDA graph
+    """A rig of RIGS as users run it: each step one replayed CUDA graph
     for the RIG_CAMERAS cameras, the plain versions disabled; every camera
     held to the eager run ``ref`` bit for bit, each of steps 2-63 one host
     sync."""
@@ -1970,7 +2109,6 @@ def _shard_rank(rank, tmp, out_q, device):
     import torch.distributed as dist
 
     from openvo_tpu_torch import OdometerConfig
-    from openvo_tpu_torch.ops import orb_cuda, sgbm_cuda
     from openvo_tpu_torch.parallel.sharding import make_sharded_trajectory_fn
 
     try:
@@ -1981,7 +2119,7 @@ def _shard_rank(rank, tmp, out_q, device):
         left, right = data["left"], data["right"]
         fn = make_sharded_trajectory_fn(path_camera(data),
                                         OdometerConfig())
-        kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+        kernels = all_kernels()
         for m, n in plain_tripwires():
             setattr(m, n, tripwire)
         fn(left, right)   # warm-up
@@ -2087,9 +2225,10 @@ def run_bench():
     """Phase 7: the port's benchmark, ``python3 -m
     openvo_tpu_torch.tools.bench --repeats BENCH_REPEATS``, its lines logged
     here. Fails unless it exits 0, every pass printed a result, the last
-    line is the cumulative one, off-lat and on-lat track BENCH_TRACKED
-    frames with an ATE within BENCH_ATE m, and off-tp and rig skip the same
-    frames as off-lat, every repeat and (rig) every camera alike."""
+    line is the cumulative one, every pass ran captured, off-lat and on-lat
+    track BENCH_TRACKED frames with an ATE within BENCH_ATE m, and off-tp
+    and rig skip the same frames as off-lat, every repeat and (rig) every
+    camera alike."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2120,6 +2259,9 @@ def run_bench():
         if r["tracked"] < BENCH_TRACKED or not r["ate"] <= BENCH_ATE:
             raise AssertionError(f"bench {tag}: tracked {r['tracked']}, ATE "
                                  f"{r['ate']} m")
+    eager = [tag for tag, r in results.items() if not r["captured"]]
+    if eager:
+        raise AssertionError(f"bench: passes {eager} ran eagerly")
     for tag, r in results.items():
         if (r["skipped"] != results["off-lat"]["skipped"] and tag in (
                 "off-tp", "rig")) or not r["repeats_agree"] or not r.get(
@@ -2175,23 +2317,20 @@ def main() -> int:
     launches, records = {}, {}
     for name in PATHS:
         launches[name], records[name] = run_path(torch, seq, name, smi)
-        if name in CAPTURED:
-            run_captured(torch, seq, name, smi, records[name])
-            free(torch)
+        run_captured(torch, seq, name, smi, records[name])
+        free(torch)
     for name, single in STREAMS.items():
         launches[name], eager = run_stream(torch, seq, smi, name,
                                            records[single])
         free(torch)
-        if name in CAPTURED:
-            run_captured_stream(torch, seq, smi, name, eager)
-            free(torch)
+        run_captured_stream(torch, seq, smi, name, eager)
+        free(torch)
     for name, single in RIGS.items():
         launches[name], eager = run_rig8(torch, seq, smi, name,
                                          records[single])
         free(torch)
-        if name in CAPTURED:
-            run_captured_rig(torch, seq, smi, name, eager)
-            free(torch)
+        run_captured_rig(torch, seq, smi, name, eager)
+        free(torch)
     for name in ("mono", "mono-own"):
         launches[name] = run_mono(torch, seq, name, smi)
     gc.collect()

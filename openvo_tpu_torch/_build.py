@@ -59,6 +59,11 @@ SIGNATURES = {
     # frames, stream
     "ovo_resize_levels": (_P, _I, _I) + (_P,) * 6 + (_I, _P, _I, _P, _I,
                                                       _P),
+    # disp, disp is int32, valid, labels, size (scratch), keep, frames, H,
+    # W, max_diff, window, stream
+    "ovo_speckle_keep": (_P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),
+    # cons, num, out, clouds, N, stream
+    "ovo_greedy_clique": (_P, _P, _P, _I, _I, _P),
 }
 
 

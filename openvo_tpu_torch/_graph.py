@@ -4,9 +4,11 @@ JAX compiles each step it runs into one program and donates the state to
 it: the odometer's step, cached per (camera, config, color)
 (``openvo_tpu/models/stereo_odometer.py:349-360``), the rig's
 (``openvo_tpu/parallel/rig.py:45-46``) and each chunk of the stream
-(``openvo_tpu/parallel/stream.py:52-72``). Here :func:`capture` wraps such
-a step ``fn(state, *inputs) -> (state', *outs)``. On its first call on the
-card it
+(``openvo_tpu/parallel/stream.py:52-72``), and the camera's ``compute_3d``
+without state (``openvo_tpu/models/stereo_camera.py:181-188``). Here
+:func:`capture` wraps such a step ``fn(state, *inputs) -> (state',
+*outs)``; a step without state takes and returns ``()``. On its first
+call on the card it
 
 - allocates static buffers for the state and the inputs;
 - runs ``fn`` once eagerly on a side stream (the warm-up): every one-time
@@ -68,8 +70,9 @@ class CapturedStep:
     clock) and ``pool_mib`` (device memory the graph's pool reserved) are
     set by the first call."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, device=None):
         self.fn = fn
+        self.device = device   # where the buffers go; else the state's
         self.holder = None     # a weak reference to the odometer whose
                                # state the static buffers hold
         self.graph = None
@@ -95,8 +98,8 @@ class CapturedStep:
         return (self.state, *self.outs)
 
     def _capture(self, state, inputs):
-        leaves = tree_leaves(state)
-        dev = leaves[0].device
+        dev = (torch.device(self.device) if self.device is not None
+               else tree_leaves(state)[0].device)
         t0 = time.perf_counter()
         self.state = tree_map(torch.clone, state)
         self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev)
@@ -134,8 +137,10 @@ class CapturedStep:
         self.pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
 
 
-def capture(fn) -> CapturedStep:
+def capture(fn, device=None) -> CapturedStep:
     """``fn(state, *inputs) -> (state', *outs)`` as a :class:`CapturedStep`:
-    the counterpart of ``jax.jit(fn, donate_argnums=(0,))``. The caller runs
-    ``fn`` itself on the CPU and under :func:`disable_capture`."""
-    return CapturedStep(fn)
+    the counterpart of ``jax.jit(fn, donate_argnums=(0,))``. Its buffers go
+    on ``device``, or on the state's device where it is None (a step
+    without state names its device). The caller runs ``fn`` itself on the
+    CPU and under :func:`disable_capture`."""
+    return CapturedStep(fn, device)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.geometry.rectify import (init_undistort_rectify_map,
                                                stereo_rectify)
@@ -165,8 +166,26 @@ class StereoCamera:
         return fn
 
     def compute_3d(self, img_left, img_right, preprocessed: bool = False):
-        """(img_3d, disparity, img_left) for one pair, on the device."""
-        img_left = torch.as_tensor(img_left, device=self.device)
-        img_right = torch.as_tensor(img_right, device=self.device)
-        fn = self.compute_3d_fn(img_left.ndim == 3, preprocessed)
-        return fn(img_left, img_right)
+        """(img_3d, disparity, img_left) for one pair, on the device.
+
+        On the card (unless ``_graph.disable_capture()`` is active) each
+        call replays a CUDA graph captured on the first call per (color,
+        preprocessed, the inputs' shapes and dtypes), as JAX jits the
+        function per (color, preprocessed); the outputs are copies of the
+        graph's, so a later call leaves an earlier result as it was, as
+        JAX returns fresh arrays."""
+        img_left, img_right = torch.as_tensor(img_left), torch.as_tensor(
+            img_right)
+        color = img_left.ndim == 3
+        if self.device.type != "cuda" or not capture_enabled():
+            fn = self.compute_3d_fn(color, preprocessed)
+            return fn(img_left.to(self.device), img_right.to(self.device))
+        key = (color, preprocessed) + tuple(
+            (tuple(x.shape), x.dtype) for x in (img_left, img_right))
+        cache = self.__dict__.setdefault("_compute_3d_cache", {})
+        if key not in cache:
+            fn = self.compute_3d_fn(color, preprocessed)
+            cache[key] = capture(lambda _, left, right: ((), *fn(left, right)),
+                                 self.device)
+        _, *outs = cache[key]((), img_left, img_right)
+        return tuple(x.clone() for x in outs)

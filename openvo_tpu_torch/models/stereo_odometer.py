@@ -19,9 +19,11 @@ program. Here the step computes it every frame and selects with
 ``torch.where`` (what ``lax.cond`` does under ``vmap``): the step reads
 nothing on the host, so on the card ``update`` replays it as one CUDA
 graph (``openvo_tpu_torch/_graph.py``, JAX's ``jit`` with donated state),
-and its one sync is the copy of its results. With the speckle filter or
-the rigidity filter on, their loops' convergence checks read the host
-(``ops/sgbm.py``, ``pose/rigid_clique.py``) and the step runs eagerly.
+and its one sync is the copy of its results. That holds at every SGBM and
+filter configuration: the two loops JAX runs as ``lax.while_loop``s on the
+device, the speckle filter's labelling and the rigid clique's greedy
+growth, are the kernels H7 and H8 there (``ops/speckle_cuda.py``,
+``ops/clique_cuda.py``), which read nothing on the host.
 
 Every stage takes a batch as well, a leading axis on each tensor, where
 JAX maps the stage with ``jax.vmap``: ``extract`` over (B, H, W) frames
@@ -333,17 +335,6 @@ def make_step(camera, cfg: OdometerConfig, color: bool):
 STAT_NAMES = ("n_kps", "n_matches", "ok1", "ok2", "skip_code")
 
 
-def host_sync_free(camera, cfg: OdometerConfig) -> bool:
-    """Whether the step reads nothing on the host, so that it can be
-    captured as one CUDA graph. Two loops still test their convergence on
-    the host where JAX runs ``lax.while_loop``s: the speckle filter's
-    labelling (``ops/sgbm.speckle_filter``) and the rigid clique's greedy
-    loop (``pose/rigid_clique.py``)."""
-    p = camera.sgbm
-    speckle = p.speckle_window_size > 0 and p.speckle_range > 0
-    return not speckle and cfg.rigidity_threshold <= 0
-
-
 def make_update_fn(camera, cfg: OdometerConfig, color: bool):
     """The step with its results packed for the host: (state, imgL, imgR)
     -> (state', vals), vals int32 (3 + len(STAT_NAMES)[, B]) of ok, skipped,
@@ -368,8 +359,7 @@ class StereoOdometer:
     (``openvo_tpu_torch/_graph.py``), captured on the first update and
     cached on the camera per (config, color), as JAX caches its jitted
     step; ``captured`` says whether the last update did. It runs eagerly
-    on the CPU, under ``_graph.disable_capture()``, and where the step
-    reads the host (:func:`host_sync_free`)."""
+    on the CPU and under ``_graph.disable_capture()``."""
 
     MIN_VALID_DISPARITY = 4
     MAX_VALID_DISPARITY = 100
@@ -424,11 +414,10 @@ class StereoOdometer:
 
     def _update_fn(self, color: bool):
         """The update function for ``color`` images: on the card (unless
-        capture is disabled or the step reads the host) the captured step
-        the camera caches per (config, color), else the eager one."""
+        capture is disabled) the captured step the camera caches per
+        (config, color), else the eager one."""
         key = (self.config, color)
-        if (self.device.type == "cuda" and capture_enabled()
-                and host_sync_free(self.stereo, self.config)):
+        if self.device.type == "cuda" and capture_enabled():
             cache = self.stereo.__dict__.setdefault("_step_cache", {})
             if key not in cache:
                 cache[key] = capture(make_update_fn(self.stereo, self.config,

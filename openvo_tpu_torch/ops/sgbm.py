@@ -25,8 +25,9 @@ images (a distorting camera's remap). Per frame:
   on the x1 grid in the JAX package's order of operations, so fractional
   images give JAX's bits here too.
 
-The speckle filter is plain PyTorch (:func:`speckle_filter`). Every
-stage takes a (B, H, W) batch of frames as well and runs it in one pass.
+The speckle filter's labelling is H7 (``ops/speckle_cuda.py``) on the
+card and plain PyTorch on the CPU (:func:`speckle_filter`). Every stage
+takes a (B, H, W) batch of frames as well and runs it in one pass.
 ``NotImplementedError`` is raised, on every device, only where the packed
 int32 argmin key of H3 over int16 costs could overflow.
 """
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from openvo_tpu_torch.config import SGBMParams
-from openvo_tpu_torch.ops import sgbm_cuda
+from openvo_tpu_torch.ops import sgbm_cuda, speckle_cuda
 
 
 def int16_sentinel(block_size: int, cap: int) -> int | None:
@@ -75,32 +76,27 @@ def _check_envelope(params: SGBMParams, cost_max: int) -> None:
         raise NotImplementedError("SGBM penalties too large for int32 keys")
 
 
-def speckle_filter(disp16, valid, params: SGBMParams):
-    """The valid mask after speckle rejection (``cv2.filterSpeckles``
-    semantics, the JAX package's ``_speckle_filter``): 4-connected
-    components of valid pixels whose x16 disparities differ by at most
-    16*speckleRange are invalidated when they hold <= speckleWindowSize
-    pixels; invalid pixels are singletons. Takes (H, W) or a (B, H, W)
-    batch, as the JAX package's batched core ``_speckle_filter_batched``.
-
-    Any exact labelling gives the JAX package's components, whose min-scan
-    labelling runs to convergence. Here: hooking (every edge between two
-    labels sets the larger label's root to the smaller label) and
-    log2(H*W) pointer jumps, repeated until no edge joins two labels, then
-    ``torch.bincount`` of the labels for the sizes. Frame b's pixels hold
-    the flat indices [b*H*W, (b+1)*H*W) and no edge crosses a frame, so
-    one loop labels the whole batch and each frame as its own call does.
-    Each round costs one host sync (the convergence test, for the whole
-    batch), counted in ``speckle_filter.syncs``: a batch pays its slowest
-    frame's rounds once. Labels only decrease, so the loop ends; on
-    raster-ordered blobs one round merges a whole convex component."""
-    H, W = disp16.shape[-2:]
+def speckle_keep_plain(disp, valid, max_diff: int, window: int):
+    """H7's plain version: (labels, keep) of (H, W) or (B, H, W)
+    disparities and their valid mask, as ``ops/speckle_cuda.speckle_keep``
+    gives them. Hooking (every edge between two labels sets the larger
+    label's root to the smaller label) and log2(H*W) pointer jumps, repeated
+    until no edge joins two labels, then ``torch.bincount`` of the labels
+    for the sizes. Labels only decrease and each stays an index of its
+    component, so the loop ends with every pixel labelled by its
+    component's smallest flat index. Frame b's pixels hold the flat
+    indices [b*H*W, (b+1)*H*W) and no edge crosses a frame, so one loop
+    labels the whole batch and each frame as its own call does. Each round
+    costs one host sync (the convergence test, for the whole batch),
+    counted in ``speckle_filter.syncs``: a batch pays its slowest frame's
+    rounds once; on raster-ordered blobs one round merges a whole convex
+    component."""
+    H, W = disp.shape[-2:]
     n = H * W
-    total = disp16.numel()
-    dev = disp16.device
-    d = disp16.to(torch.int32)
-    max_diff = 16 * params.speckle_range
-    idx = torch.arange(total, device=dev).view(disp16.shape)
+    total = disp.numel()
+    dev = disp.device
+    d = disp.to(torch.int32)
+    idx = torch.arange(total, device=dev).view(disp.shape)
     conn_x = (valid[..., 1:] & valid[..., :-1]
               & ((d[..., 1:] - d[..., :-1]).abs() <= max_diff))
     conn_y = (valid[..., 1:, :] & valid[..., :-1, :]
@@ -124,8 +120,46 @@ def speckle_filter(disp16, valid, params: SGBMParams):
         for _ in range(jumps):
             labels = labels[labels]
     size = torch.bincount(labels, minlength=total)
-    keep = (size[labels] > params.speckle_window_size).view(disp16.shape)
-    return valid & keep
+    keep = valid & (size[labels] > window).view(disp.shape)
+    return labels.to(torch.int32).view(disp.shape), keep
+
+
+@torch.library.custom_op("openvo_torch::speckle_keep", mutates_args=(),
+                         device_types="cpu")
+def _speckle_keep(disp: torch.Tensor, valid: torch.Tensor, max_diff: int,
+                  window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return speckle_keep_plain(disp, valid, max_diff, window)
+
+
+@_speckle_keep.register_kernel("cuda")
+def _(disp, valid, max_diff, window):
+    return speckle_cuda.speckle_keep(disp.contiguous(), valid.contiguous(),
+                                     max_diff, window)
+
+
+@_speckle_keep.register_fake
+def _(disp, valid, max_diff, window):
+    return (disp.new_empty(disp.shape, dtype=torch.int32),
+            valid.new_empty(disp.shape))
+
+
+def speckle_filter(disp16, valid, params: SGBMParams):
+    """The valid mask after speckle rejection (``cv2.filterSpeckles``
+    semantics, the JAX package's ``_speckle_filter``): 4-connected
+    components of valid pixels whose x16 disparities differ by at most
+    16*speckleRange are invalidated when they hold <= speckleWindowSize
+    pixels; invalid pixels are singletons. Takes (H, W) or a (B, H, W)
+    batch, as the JAX package's batched core ``_speckle_filter_batched``.
+
+    Any exact labelling gives the JAX package's components, whose min-scan
+    labelling runs to convergence. The operator ``openvo_torch::
+    speckle_keep`` labels them: H7 (``ops/speckle_cuda.py``, union-find in
+    a fixed number of launches, no host read) on the card, its plain
+    version :func:`speckle_keep_plain` on the CPU, and under ``make_fx``'s
+    fake mode a node of the traced graph."""
+    return torch.ops.openvo_torch.speckle_keep(
+        disp16, valid, 16 * params.speckle_range,
+        params.speckle_window_size)[1]
 
 
 speckle_filter.syncs = 0
@@ -167,7 +201,7 @@ def vertical(C, p1: int, p2: int, num_paths: int, acc=None):
 def sgbm_disparity16(left, right, params: SGBMParams):
     """Full SGBM pipeline -> (H, W) int16 disparity x16 on the images'
     device; invalid = (minDisparity - 1) * 16. A (B, H, W) batch runs each
-    kernel, the plain stages and the speckle filter's loop once for the
+    kernel, the plain stages and the speckle filter once for the
     batch and gives (B, H, W), each frame's disparity bit for bit."""
     if left.device != right.device:
         raise ValueError(f"device mismatch: {left.device} vs {right.device}")

@@ -10,9 +10,8 @@ state machine on its own (the fallback attempt computed for every camera,
 each taking its own branch). On the card ``RigOdometer.update`` replays
 the step as one CUDA graph (``openvo_tpu_torch/_graph.py``), its one sync
 the copy of the results. The pose filters, when on, take the N cameras'
-point clouds at once: the rigid clique's greedy loop steps every camera
-together, with its host checks once a batch of steps for all of them, and
-the rig then runs eagerly.
+point clouds at once: the rigid clique's kernel H8 runs a block for each
+cloud, and the rig's step is captured with them as without them.
 
 All cameras share calibration (the synthetic-rig case), as in the JAX
 package.
@@ -28,7 +27,6 @@ from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.models.stereo_odometer import (STAT_NAMES,
                                                      FrameFeatures,
                                                      OdomState,
-                                                     host_sync_free,
                                                      init_state, make_step,
                                                      make_update_fn)
 
@@ -57,7 +55,7 @@ class RigOdometer:
     """N independent odometers advanced by one batched step on the
     camera's device (the card unless the camera was built with
     ``device="cpu"``). On the card the step is one replayed CUDA graph
-    unless it reads the host (``host_sync_free``) or capture is disabled;
+    unless capture is disabled;
     ``captured`` says how the last update ran, and ``graph`` is the
     captured step."""
 
@@ -70,7 +68,7 @@ class RigOdometer:
         self._state = init_rig_state(camera, self.config, n_cameras)
         self._update = make_update_fn(camera, self.config, False)
         self.graph = (capture(self._update) if self.device.type == "cuda"
-                      and host_sync_free(camera, self.config) else None)
+                      else None)
         self.captured = None
         self.last_stats = {}
 

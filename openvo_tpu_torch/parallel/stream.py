@@ -10,8 +10,8 @@ batch grid axis. Here ``extract`` takes the (B, H, W) chunk itself, at
 every SGBM configuration: each SGBM kernel (H1, H2, H3 on the int16 path;
 H5, H2, H3 over block13's float32 volume) and the descriptor kernel H4
 launches once for the chunk, and so do the plain PyTorch stages around
-them (the float32 cost volume, the speckle filter's labelling loop), so a
-chunk pays their launches and host syncs once instead of once a frame
+them (the float32 cost volume), and the speckle filter's labelling kernel
+H7, so a chunk pays their launches once instead of once a frame
 (``models/stereo_odometer.py``).
 
 The trajectory is the frame-at-a-time odometer's: the batched ``extract``
@@ -24,10 +24,9 @@ state machine under ``lax.scan`` (``openvo_tpu/parallel/stream.py:52-72``).
 Here a chunk is one function too, the batched ``extract`` and the state
 machine unrolled over the chunk's frames, and on the card it is captured
 once per chunk size as a CUDA graph and replayed
-(``openvo_tpu_torch/_graph.py``): the stream reads nothing on the host.
-With the speckle filter or the rigid clique on, whose loops test their
-convergence on the host (``models/stereo_odometer.host_sync_free``), the
-chunks run eagerly.
+(``openvo_tpu_torch/_graph.py``): the stream reads nothing on the host,
+at every SGBM and filter configuration (the speckle filter's labelling and
+the rigid clique's loop are the kernels H7 and H8 there).
 """
 
 from __future__ import annotations
@@ -37,7 +36,6 @@ import torch
 from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
-                                                     host_sync_free,
                                                      make_pipeline_fns)
 
 
@@ -53,11 +51,11 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
     machine, with the reference's skip/fallback semantics, steps over each
     chunk's features.
 
-    On the card (unless capture is disabled or the step reads the host)
-    each chunk replays a CUDA graph captured once per chunk size
-    (``stream.graphs``, by size; ``stream.captured`` says how the last
-    call ran), and the state returned is the graph's static buffers, valid
-    until the next call with that size, as JAX's donated state.
+    On the card (unless capture is disabled) each chunk replays a CUDA
+    graph captured once per chunk size (``stream.graphs``, by size;
+    ``stream.captured`` says how the last call ran), and the state
+    returned is the graph's static buffers, valid until the next call
+    with that size, as JAX's donated state.
     ``stream.skip_codes`` holds each frame's skip code of the last call."""
     fns = make_pipeline_fns(camera, cfg, color)
     extract, step_feats = fns["extract"], fns["step_feats"]
@@ -84,8 +82,7 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
         size = b if chunk is None or chunk >= b else chunk
         if b % size:
             raise ValueError(f"frame count {b} not divisible by {chunk=}")
-        stream.captured = (dev.type == "cuda" and capture_enabled()
-                           and host_sync_free(camera, cfg))
+        stream.captured = dev.type == "cuda" and capture_enabled()
         if stream.captured and size not in graphs:
             graphs[size] = capture(run_chunk)
         outs = []

@@ -19,11 +19,10 @@ levels):
 - ``rig``: ``parallel/rig``'s batched step over 8 cameras fed identical
   streams (``bench.py:175-197``); camera-frames a second in all.
 
-On the card every pass whose step reads nothing on the host (all but
-on-lat, whose speckle filter tests its convergence on the host) replays
-its step, or each chunk of the stream, as one CUDA graph
-(``openvo_tpu_torch/_graph.py``, JAX's ``jit`` with donated state); each
-pass's line says so in ``captured``.
+On the card every pass replays its step, or each chunk of the stream, as
+one CUDA graph (``openvo_tpu_torch/_graph.py``, JAX's ``jit`` with donated
+state), on-lat's speckle filter included (its labelling is the kernel
+H7); each pass's line says so in ``captured``.
 
 Each pass makes one warm call over the sequence (the kernels' first build
 or load and the graph's capture included: ``warmup_s``), then
@@ -175,9 +174,7 @@ def run_pass(tag, args):
 
     from openvo_tpu_torch import OdometerConfig, StereoCamera
     from openvo_tpu_torch._graph import capture
-    from openvo_tpu_torch.models.stereo_odometer import (host_sync_free,
-                                                         init_state,
-                                                         make_step)
+    from openvo_tpu_torch.models.stereo_odometer import init_state, make_step
     from openvo_tpu_torch.parallel.rig import init_rig_state, make_rig_step
     from openvo_tpu_torch.parallel.stream import make_stream_fn
 
@@ -204,10 +201,10 @@ def run_pass(tag, args):
     def fresh():
         return init_state(cam.cropped_shape, cfg.orb.max_keypoints, dev)
 
-    # on the card each step that reads nothing on the host replays a CUDA
-    # graph (JAX's jit); a captured step's outputs live until its next
-    # call, so the runs below copy what they keep
-    captured = cuda and host_sync_free(cam, cfg)
+    # on the card each step replays a CUDA graph (JAX's jit); a captured
+    # step's outputs live until its next call, so the runs below copy what
+    # they keep
+    captured = cuda
 
     def compiled(step):
         return capture(step) if captured else step

@@ -6,11 +6,17 @@ JAX's ``lax.cond`` (``openvo_tpu/models/stereo_odometer.py:228-240``).
 - ``make_fx`` in fake mode traces the whole stereo step at the 320x240
   test configuration, the rig's step over 2 cameras and one chunk of the
   stream over 2 frames, with no data-dependent guard: a host branch such
-  as ``if bool(use2.any())`` stops such a trace;
+  as ``if bool(use2.any())`` stops such a trace. Each also with the loops
+  JAX runs as ``lax.while_loop``s on: the step with the speckle filter
+  (window 100, range 2, as ``bench.py:54-56``) and with the rigid clique
+  and outlier pass (``filters``' thresholds), the chunk with speckle, the
+  rig step with the filters; their loops trace as the operators
+  ``openvo_torch::speckle_keep`` and ``openvo_torch::greedy_clique``;
 - the step against JAX's jitted step from the same state
   (``state_from_jax_leaves``) when attempt 1 succeeds, when it fails with
-  a frame before last (the fallback fires) and when it fails without one:
-  ok, the skip code, every stat and c_T_w within 1e-4.
+  a frame before last (the fallback fires) and when it fails without one,
+  and with the speckle filter or the filters on: ok, the skip code, every
+  stat and c_T_w within 1e-4.
 
 The captured replay itself needs the card (``chip_smoke.py`` holds it to
 the eager run there).
@@ -43,8 +49,19 @@ SGBM = {
     "P1": 200, "P2": 800, "disp12MaxDiff": 1, "preFilterCap": 63,
     "uniquenessRatio": 10, "speckleWindowSize": 0, "speckleRange": 0,
 }
+SPECKLE = {"speckleWindowSize": 100, "speckleRange": 2}   # bench.py:54-56
+# the rigid clique and the outlier pass at the JAX package's test values
+# (tests/test_odometer.py:228, :300)
+FILTERS = dict(rigidity_threshold=0.05, outlier_threshold=0.01)
 POSE_ATOL = 1e-4
 N_FEATURE_FIELDS = 6
+# trace case -> (SGBM settings over SGBM, odometer settings, the operator
+# the trace must hold)
+TRACES = {
+    "default": ({}, {}, None),
+    "speckle": (SPECKLE, {}, "openvo_torch.speckle_keep"),
+    "filters": ({}, FILTERS, "openvo_torch.greedy_clique"),
+}
 
 
 def render(seed, n):
@@ -58,9 +75,10 @@ def frame(seq, i):
             np.clip(seq["right"][i], 0, 255).astype(np.uint8))
 
 
-def camera_args(seq):
+def camera_args(seq, sgbm=None):
     return (seq["K"], seq["dist"], seq["K"], seq["dist"],
-            {"R": seq["R"], "T": seq["T"]}, SGBM, IMG_SIZE)
+            {"R": seq["R"], "T": seq["T"]}, {**SGBM, **(sgbm or {})},
+            IMG_SIZE)
 
 
 @pytest.fixture(scope="module")
@@ -73,39 +91,61 @@ def cam(seq):
     return openvo_tpu_torch.StereoCamera(*camera_args(seq), device="cpu")
 
 
-def trace(fn, *args):
+@pytest.fixture(scope="module")
+def speckle_cam(seq):
+    return openvo_tpu_torch.StereoCamera(*camera_args(seq, SPECKLE),
+                                         device="cpu")
+
+
+def trace_case(case, cam, speckle_cam):
+    """(camera, odometer config, the operator the trace must hold) of a
+    case of TRACES."""
+    sgbm, odo, op = TRACES[case]
+    return speckle_cam if sgbm else cam, OdometerConfig(**odo), op
+
+
+def trace(fn, *args, op=None):
     """Run ``fn`` eagerly (the device constants are made there), then
-    trace it with fake tensors; a host read of a tensor's value raises."""
+    trace it with fake tensors; a host read of a tensor's value raises.
+    ``op``: an operator the traced graph must call."""
     fn(*args)
-    return make_fx(fn, tracing_mode="fake",
-                   _allow_non_fake_inputs=True)(*args)
+    graph = make_fx(fn, tracing_mode="fake",
+                    _allow_non_fake_inputs=True)(*args)
+    assert len(graph.graph.nodes) > 1000
+    if op is not None:
+        assert any(op in str(n.target) for n in graph.graph.nodes), op
+    return graph
 
 
-def test_step_traces_without_a_host_read(seq, cam):
-    cfg = OdometerConfig()
+@pytest.mark.parametrize("case", TRACES)
+def test_step_traces_without_a_host_read(seq, cam, speckle_cam, case):
+    cam, cfg, op = trace_case(case, cam, speckle_cam)
     state = init_state(cam.cropped_shape, cfg.orb.max_keypoints, "cpu")
-    graph = trace(make_step(cam, cfg, False), state,
-                  *map(torch.from_numpy, frame(seq, 0)))
-    assert len(graph.graph.nodes) > 1000
+    trace(make_step(cam, cfg, False), state,
+          *map(torch.from_numpy, frame(seq, 0)), op=op)
 
 
-def test_rig_step_traces_without_a_host_read(seq, cam):
-    cfg = OdometerConfig()
+@pytest.mark.parametrize("case", ["default", "filters"])
+def test_rig_step_traces_without_a_host_read(seq, cam, speckle_cam, case):
+    cam, cfg, op = trace_case(case, cam, speckle_cam)
     pair = [torch.from_numpy(np.stack([a, a])) for a in frame(seq, 0)]
-    graph = trace(make_rig_step(cam, cfg), init_rig_state(cam, cfg, 2),
-                  *pair)
-    assert len(graph.graph.nodes) > 1000
+    trace(make_rig_step(cam, cfg), init_rig_state(cam, cfg, 2), *pair, op=op)
 
 
-def test_stream_chunk_traces_without_a_host_read(seq, cam):
-    cfg = OdometerConfig()
+@pytest.mark.parametrize("case", ["default", "speckle"])
+def test_stream_chunk_traces_without_a_host_read(seq, cam, speckle_cam,
+                                                 case):
+    cam, cfg, op = trace_case(case, cam, speckle_cam)
     stream = make_stream_fn(cam, cfg, chunk=2)
     pairs = [frame(seq, i) for i in range(2)]
     lefts, rights = (torch.from_numpy(np.stack(x)) for x in zip(*pairs))
     state = init_state(cam.cropped_shape, cfg.orb.max_keypoints, "cpu")
-    graph = trace(stream, state, lefts, rights)
-    assert len(graph.graph.nodes) > 1000
+    trace(stream, state, lefts, rights, op=op)
     assert stream.captured is False   # the CPU runs eagerly
+
+
+def jax_leaves(s):
+    return [np.asarray(x) for x in jax.tree_util.tree_flatten(s)[0]]
 
 
 @pytest.fixture(scope="module")
@@ -121,10 +161,8 @@ def jax_states(seq):
     s2 = step(s1, *frame(seq, 1))[0]
     su = step(s0, *frame(render(7, 1), 0))[0]
 
-    def leaves(s):
-        return [np.asarray(x) for x in jax.tree_util.tree_flatten(s)[0]]
-
-    return step, {"s1": leaves(s1), "s2": leaves(s2), "su": leaves(su)}
+    return step, {"s1": jax_leaves(s1), "s2": jax_leaves(s2),
+                  "su": jax_leaves(su)}
 
 
 # case -> (the state: JAX's, cur swapped for the unrelated frame's or
@@ -152,6 +190,13 @@ def test_device_fallback_matches_jax_cond(seq, cam, jax_states, case):
         *map(torch.from_numpy, frame(seq, i)))
     assert bool(stats["ok1"]) == want_ok1
     assert bool(stats["ok2"]) == want_ok2
+    assert_step_matches_jax((j_state, j_ok, j_stats), (state, ok, stats))
+
+
+def assert_step_matches_jax(j_out, out):
+    """The port's step (state, ok, stats) against JAX's: ok, the skip
+    code and every stat equal, c_T_w and c_T_w_prev within POSE_ATOL."""
+    (j_state, j_ok, j_stats), (state, ok, stats) = j_out, out
     assert bool(ok) == bool(j_ok)
     assert int(state.skip_code) == int(j_state.skip_code)
     for k in STAT_NAMES:
@@ -161,6 +206,28 @@ def test_device_fallback_matches_jax_cond(seq, cam, jax_states, case):
     np.testing.assert_allclose(state.c_T_w_prev.numpy(),
                                np.asarray(j_state.c_T_w_prev), rtol=0,
                                atol=POSE_ATOL)
+
+
+@pytest.mark.parametrize("case", ["speckle", "filters"])
+def test_filtered_step_matches_jax(seq, cam, speckle_cam, case):
+    """With the speckle filter or the rigid clique and outlier pass on,
+    the port's step (H7 and H8's operators, their plain versions here)
+    from JAX's state after frame 0 against JAX's jitted step on frame 1,
+    and then on frame 2 from each one's own state."""
+    sgbm, odo, _ = TRACES[case]
+    jcam = openvo_tpu.StereoCamera(*camera_args(seq, sgbm))
+    jcfg = JaxOdometerConfig(**odo)
+    jstep = jax.jit(jax_make_step(jcam, jcfg, False))
+    s = jstep(jax_init_state(jcam.cropped_shape, jcfg.orb.max_keypoints),
+              *frame(seq, 0))[0]
+    cam, cfg, _ = trace_case(case, cam, speckle_cam)
+    step = make_step(cam, cfg, False)
+    state = state_from_jax_leaves(jax_leaves(s), "cpu")
+    for i in (1, 2):
+        j_out = jstep(s, *frame(seq, i))
+        out = step(state, *map(torch.from_numpy, frame(seq, i)))
+        assert_step_matches_jax(j_out, out)
+        s, state = j_out[0], out[0]
 
 
 def test_attempts_on_the_empty_state_leave_no_nan(seq, cam):

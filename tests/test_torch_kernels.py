@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from openvo_tpu_torch.config import SGBMParams
-from openvo_tpu_torch.ops import orb_cuda, sgbm, sgbm_cuda
+from openvo_tpu_torch.ops import (clique_cuda, orb_cuda, sgbm, sgbm_cuda,
+                                  speckle_cuda)
+from openvo_tpu_torch.tools import loop_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -769,3 +771,181 @@ def test_resize_levels_equals_plain(cuda, H, W, integer):
     assert orb_cuda.resize_levels.launches == n0 + 2
     for i in range(3):
         assert torch.equal(batch[i], orb_cuda.resize_levels(imgs[i], dims))
+
+
+# ---------------------------------------------------------------------------
+# the loops JAX runs as lax.while_loop: H7 (speckle labelling) and H8 (the
+# rigid clique)
+# ---------------------------------------------------------------------------
+
+SPECKLE_MAPS = {
+    "spiral": lambda: loop_cases.spiral(),
+    "islands-0": lambda: loop_cases.islands(0),
+    "islands-1": lambda: loop_cases.islands(1, 75, 131),
+    "all-invalid": lambda: loop_cases.uniform(40, 70, False),
+    "one-component": lambda: loop_cases.uniform(40, 70, True),
+}
+
+
+def sgbm_map(dev, H=96, W=200):
+    """An SGBM disparity (speckle off) of a textured pair and its mask."""
+    left, right = image_pair(dev, H, W)
+    d = sgbm.sgbm_disparity16(left, right, SGBMParams(num_disparities=64))
+    return d, d != -16
+
+
+def assert_speckle_equals_plain(d, valid, window, max_diff=32, calls=5):
+    """H7 against its plain version on the card and on the CPU: labels and
+    masks equal; one launch a call, every one of ``calls`` calls alike (a
+    race of the union-find would show as calls that differ)."""
+    n0 = speckle_cuda.speckle_keep.launches
+    labels, keep = speckle_cuda.speckle_keep(d, valid, max_diff, window)
+    assert speckle_cuda.speckle_keep.launches == n0 + 1
+    assert labels.dtype == torch.int32 and keep.dtype == torch.bool
+    for _ in range(calls - 1):
+        again = speckle_cuda.speckle_keep(d, valid, max_diff, window)
+        assert torch.equal(again[0], labels) and torch.equal(again[1], keep)
+    for dev in (d.device, torch.device("cpu")):
+        want = sgbm.speckle_keep_plain(d.to(dev), valid.to(dev), max_diff,
+                                       window)
+        assert torch.equal(labels.to(dev), want[0])
+        assert torch.equal(keep.to(dev), want[1])
+    return labels, keep
+
+
+@pytest.mark.parametrize("name", list(SPECKLE_MAPS) + ["sgbm"])
+@pytest.mark.parametrize("window", [0, 60])
+def test_speckle_keep_equals_plain(cuda, name, window):
+    """H7 on the CPU tests' maps (the spiral, random islands), one
+    component, none, and a real SGBM disparity, at two windows."""
+    if name == "sgbm":
+        d, valid = sgbm_map(cuda)
+    else:
+        d, valid = (torch.from_numpy(x).to(cuda) for x in SPECKLE_MAPS[name]())
+    labels, keep = assert_speckle_equals_plain(d, valid, window)
+    if name == "one-component":
+        assert int(labels.max()) == 0 and bool(keep.all())
+    if name == "all-invalid":
+        assert torch.equal(labels.flatten().cpu(),
+                           torch.arange(labels.numel(), dtype=torch.int32))
+        assert not bool(keep.any())
+
+
+def test_speckle_keep_batch_equals_frames(cuda):
+    """A (B, H, W) stack is one launch and one flat index space: each
+    frame's labels its own call's, offset by b*H*W; int32 disparities (as
+    the row tiles gather them) give the int16 ones' result."""
+    maps = [loop_cases.islands(s, 96, 128) for s in range(3)]
+    maps.append(loop_cases.spiral(96, 128))
+    d = torch.from_numpy(np.stack([m[0] for m in maps])).to(cuda)
+    valid = torch.from_numpy(np.stack([m[1] for m in maps])).to(cuda)
+    labels, keep = assert_speckle_equals_plain(d, valid, 60)
+    n = 96 * 128
+    for b in range(len(maps)):
+        one = speckle_cuda.speckle_keep(d[b].contiguous(),
+                                        valid[b].contiguous(), 32, 60)
+        assert torch.equal(labels[b], one[0] + b * n)
+        assert torch.equal(keep[b], one[1])
+    wide = speckle_cuda.speckle_keep(d.to(torch.int32), valid, 32, 60)
+    assert torch.equal(wide[0], labels) and torch.equal(wide[1], keep)
+
+
+def test_speckle_keep_rejects_wrong_input(cuda):
+    d, valid = sgbm_map(cuda, 40, 80)
+    with pytest.raises(ValueError, match="CUDA"):
+        speckle_cuda.speckle_keep(d.cpu(), valid.cpu(), 32, 10)
+    with pytest.raises(TypeError):
+        speckle_cuda.speckle_keep(d.float(), valid, 32, 10)
+    huge = torch.zeros((1, 1, 1), dtype=torch.int16, device=cuda).expand(
+        2 ** 16, 2 ** 8, 2 ** 8)
+    with pytest.raises(ValueError, match="int32"):
+        speckle_cuda.speckle_keep(huge, huge > 0, 32, 10)
+
+
+CLIQUE_CASES = {
+    # name -> (clouds, points, loop_cases.clouds' options)
+    "one cloud": (1, 512, {}),
+    "nan rows": (2, 512, dict(nan_rows=40)),
+    "ties": (2, 512, dict(ties=30)),
+    "all invalid": (2, 512, dict(valid=0.0)),
+    "all nan": (1, 64, dict(nan_rows=64, valid=1.0)),
+    "a rig's 16": (16, 512, {}),
+    "n not a multiple of 32": (3, 100, {}),
+    "one point": (2, 1, {}),
+    "shared memory above 48 KB": (2, 700, {}),
+    "cons from global memory": (2, 1500, {}),
+}
+
+
+@pytest.mark.parametrize("name", CLIQUE_CASES)
+def test_greedy_clique_equals_plain(cuda, name):
+    """H8 against its plain version on the card, and the filter on the
+    card against the CPU: equal memberships; one launch for the batch."""
+    from openvo_tpu_torch.pose import rigid_clique
+
+    B, N, kw = CLIQUE_CASES[name]
+    seed = list(CLIQUE_CASES).index(name)
+    prev, pts, mask = (torch.from_numpy(x).to(cuda)
+                       for x in loop_cases.clouds(seed, B, N, **kw))
+    cons, num = rigid_clique.consistency(prev, pts, mask, 0.05)
+    n0 = clique_cuda.greedy_clique.launches
+    got = clique_cuda.greedy_clique(cons, num)
+    assert clique_cuda.greedy_clique.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.shape == (B, N)
+    assert torch.equal(got, rigid_clique.greedy_clique_plain(cons, num))
+    for b in range(B):
+        assert torch.equal(got[b], clique_cuda.greedy_clique(cons[b], num[b]))
+    filt = rigid_clique.rigid_body_filter(prev, pts, mask, 0.05)
+    assert torch.equal(filt.cpu(), rigid_clique.rigid_body_filter(
+        prev.cpu(), pts.cpu(), mask.cpu(), 0.05))
+    if name == "one cloud":
+        assert 100 < int(got.sum()) < N
+    if name == "all invalid":
+        assert not bool(filt.any())
+
+
+def test_greedy_clique_rejects_wrong_input(cuda):
+    cons = torch.ones((4, 4), dtype=torch.bool, device=cuda)
+    num = cons.sum(0, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        clique_cuda.greedy_clique(cons.cpu(), num.cpu())
+    with pytest.raises(TypeError):
+        clique_cuda.greedy_clique(cons, num.long())
+    big = torch.zeros((4097, 4097), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="points"):
+        clique_cuda.greedy_clique(big, big.sum(0, dtype=torch.int32))
+
+
+def test_compute_3d_is_captured_and_returns_copies(cuda):
+    """StereoCamera.compute_3d on the card replays a graph captured per
+    (color, preprocessed, input shapes): its outputs equal the eager
+    function's bit for bit, and a later call leaves an earlier result as
+    it was (JAX returns fresh arrays)."""
+    from openvo_tpu_torch import StereoCamera, _graph
+    from openvo_tpu_torch.io.synthetic import render_stereo_sequence
+
+    seq = render_stereo_sequence(n_frames=2, img_size=(320, 240), f=280.0,
+                                 baseline=0.5, seed=0, step=0.3,
+                                 yaw_rate=0.004)
+    sgbm_dict = {"minDisparity": 0, "numDisparities": 64, "blockSize": 5,
+                 "P1": 200, "P2": 800, "disp12MaxDiff": 1,
+                 "preFilterCap": 63, "uniquenessRatio": 10,
+                 "speckleWindowSize": 100, "speckleRange": 2}
+    cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
+                       {"R": seq["R"], "T": seq["T"]}, sgbm_dict, (320, 240),
+                       device=cuda)
+    frames = [[np.clip(seq[s][i], 0, 255).astype(np.uint8)
+               for s in ("left", "right")] for i in range(2)]
+    with _graph.disable_capture():
+        eager = [cam.compute_3d(*f) for f in frames]
+    first = cam.compute_3d(*frames[0])
+    kept = [x.clone() for x in first]
+    second = cam.compute_3d(*frames[1])
+    assert len(cam._compute_3d_cache) == 1
+    for got, want in ((first, eager[0]), (second, eager[1]),
+                      (kept, eager[0])):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    assert not torch.equal(first[1], second[1])
