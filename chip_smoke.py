@@ -18,8 +18,11 @@ Phases, in order; any failure exits non-zero before the final line:
    redesigned H1, H2, H3 and H5 log their block walks' earlier times
    beside theirs (in the log only, not in the JSON line); H4 from frame
    0's pyramid and on a random stack with keypoints at every clamped
-   edge; then H1, H2 (the top-down trio into s1), H3 and H4 launched once
-   over a batch of frames 0-15, and H5, the float32 H2 trio and H3 over
+   edge; H9 (ORB's FAST, NMS, border and mask tests and Harris over the
+   pyramid stack) on frame 0's off-lat stack with its disparity mask, as
+   off-lat and as cv2rank (with the FAST-score keys) call it; then H1, H2
+   (the top-down trio into s1), H3, H4 and H9 launched once over a batch
+   of frames 0-15, and H5, the float32 H2 trio and H3 over
    block13's float32 C of the same frames, each also held to its 16
    single-frame launches, timed a frame; then the loops JAX runs as
    ``lax.while_loop``s: H7 (the speckle filter's labelling) on frame 0's
@@ -36,12 +39,13 @@ Phases, in order; any failure exits non-zero before the final line:
    with ORB's cv2.ORB two-stage ranking (PATHS), with the plain versions
    disabled, and check tracking, ATE (`filters` and `cv2rank`: against
    the JAX package's runs, FILTERS_JAX and tools/jax_mono_reference.npz)
-   and every kernel's launches per frame;
+   and every kernel's launches per frame (ORB's H4, H6 and H9 once a
+   frame on every path);
    then the streams (STREAMS): ``parallel/stream.make_stream_fn`` with
-   chunks of 16, each extracted batched, at off-lat's SGBM (`off-tp`: H1-H4
-   once a chunk), on-lat's (`on-tp`: H7 once a chunk too) and block13's
-   (`block13-tp`: H5, H3 and the float32 H2's three launches once a
-   chunk), and the rigs (RIGS):
+   chunks of 16, each extracted batched, at off-lat's SGBM (`off-tp`:
+   H1-H4, H6 and H9 once a chunk), on-lat's (`on-tp`: H7 once a chunk
+   too) and block13's (`block13-tp`: H5, H3 and the float32 H2's three
+   launches once a chunk), and the rigs (RIGS):
    ``parallel/rig.RigOdometer`` with 8 cameras, camera 7 fed a blank pair
    at frame 20, with off-lat's settings (`rig8`) and `filters`' (`rig8-
    filters`: H8 over the 8 cameras' 16 clouds at once, and the outlier
@@ -61,8 +65,8 @@ Phases, in order; any failure exits non-zero before the final line:
 4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
-   npz) frame by frame, then with the port's own sampler; H4 launches
-   once a frame and no SGBM kernel;
+   npz) frame by frame, then with the port's own sampler; H4, H6 and H9
+   launch once a frame and no SGBM kernel;
 5. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
    the card (a gloo group, messages staged through host memory: NCCL
    refuses two ranks on one GPU) over the 64 frames with the off-lat
@@ -73,7 +77,7 @@ Phases, in order; any failure exits non-zero before the final line:
 6. `shard4`: the frame-sharded trajectory (parallel/sharding.py) on 4
    ranks sharing the card over frames 0-15, 4 a rank, against the
    one-process relative poses composed on the card; every rank launches
-   each of H1-H4 once;
+   each of H1-H4, H6 and H9 once;
 7. the port's benchmark, ``python3 -m openvo_tpu_torch.tools.bench
    --repeats 2`` (bench.py's four passes, off-lat, off-tp, on-lat and
    rig, each in a subprocess, on the corridor cached by this run): every
@@ -220,6 +224,19 @@ CLIQUE_JAX = "openvo_tpu/pose/rigid_clique.py:53-69 (lax.while_loop, XLA)"
 # kernel); the library call timed beside it is torch's antialiased
 # bilinear F.interpolate, level by level
 RESIZE_JAX = "openvo_tpu/ops/image.py:82-85 (jax.image.resize, XLA)"
+# H9's JAX counterpart: ORB's per-pixel stages under jit, left to XLA (no
+# Pallas kernel): fast_score (:117), _nms3x3 (:210), the border and mask
+# tests, harris_response (:154)
+CORNERS_JAX = "openvo_tpu/ops/orb.py:434-445 (XLA)"
+CORNERS_SRC = "openvo_tpu_torch/csrc/orb_corners.cu"   # H9
+# H9's float operations a pixel inside a level's border box, counted from
+# the plain version: FAST 191 (32 differences, 2 x 79 for the arc folds,
+# 1 max), Sobel and its products 17, the 7x7 box sums of the three
+# products 36, the NMS 9, the tests 6, Harris 7
+CORNER_OPS = 191 + 17 + 36 + 9 + 6 + 7
+# the reach of H9's key around a pixel: FAST's circle (3) and the NMS (1),
+# or Sobel (1) and the 7x7 box (3)
+CORNER_HALO = 4
 K5 = "openvo_tpu/ops/orb_pallas.py:60"
 PALLAS_SGBM = "openvo_tpu/ops/sgbm_pallas.py"
 K1 = f"{PALLAS_SGBM}:305"
@@ -285,9 +302,19 @@ def as_tuple(x):
 
 
 def max_abs_err(a, b):
+    """The largest |a - b|; where either holds infinities (H9's keys are
+    -inf off the corners), over the elements finite in both, and inf
+    unless the others are the same values in the same places."""
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
                              f"{tuple(b.shape)} {b.dtype}")
+    if a.is_floating_point():
+        off_a, off_b = ~a.isfinite(), ~b.isfinite()
+        if bool(off_a.any()) or bool(off_b.any()):
+            if not (bool((off_a == off_b).all())
+                    and bool((a[off_a] == b[off_b]).all())):
+                return float("inf")
+            a, b = a.masked_fill(off_a, 0), b.masked_fill(off_b, 0)
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
@@ -515,6 +542,12 @@ def kernel_cases(torch, seq, cam, cfg):
         chain_case("D=1024 on 64 rows: 32 disparities a lane", 1024, 64),
         brief_case(torch, "K=512 on frame 0's pyramid", "off-lat", [h4]),
         resize_case(torch, "frame 0, 7 levels", "off-lat", img, cfg.orb),
+        corner_case(torch, "frame 0's 8 levels, its disparity mask",
+                    "off-lat", det["stack"], fmask, cfg.orb),
+        corner_case(torch, "frame 0's 8 levels, its disparity mask, with "
+                    "the FAST-score keys (cv2.ORB's ranking)", "cv2rank",
+                    det["stack"], fmask,
+                    dataclasses.replace(cfg.orb, cv2_ranking=True)),
         brief_case(torch, "random stack: window starts clamped at every "
                    "edge, levels out of range, invalid rows; K=1440, 1 and 0",
                    None, h4_edges),
@@ -614,6 +647,72 @@ def resize_case(torch, variant, path, img, params):
                 frames=frames, single=single, library=library)
 
 
+def present(keys):
+    """The tensors of H9's (key, fkey) pair: fkey is None without cv2's
+    ranking."""
+    return tuple(t for t in keys if t is not None)
+
+
+def corner_in_bytes(torch, stack, m0, dims, b, threshold):
+    """Bytes H9's function must read of the stack (..., nl, H, W) and the
+    mask m0 (..., H, W): of each level, its border box and CORNER_HALO
+    pixels around it, clipped to the canvas (whose edge pads); of the mask,
+    each pixel once that the mask test reads at a pixel that is a corner
+    before that test (anywhere else the key is -inf whatever the mask)."""
+    from openvo_tpu_torch.ops import orb
+
+    nl, H, W = stack.shape[-3:]
+    frames = stack.shape[0] if stack.ndim == 4 else 1
+
+    def span(n_l, n):
+        if min(n_l - b, n) <= b:
+            return 0
+        return min(n_l - b + CORNER_HALO, n) - max(b - CORNER_HALO, 0)
+
+    read = frames * sum(span(h, H) * span(w, W) for h, w in dims)
+    free, _ = orb.corner_keys_plain(stack, None, dims, b, threshold)
+    f, lv, y, x = torch.isfinite(free).reshape(frames, nl, H, W).nonzero(
+        as_tuple=True)
+    dev = stack.device
+    rows = torch.as_tensor(orb.mask_level_table(H, [h for h, _ in dims]),
+                           device=dev).long()
+    cols = torch.as_tensor(orb.mask_level_table(W, [w for _, w in dims]),
+                           device=dev).long()
+    at = (f * H + rows[lv, y]) * W + cols[lv, x]
+    return (read * stack.element_size()
+            + int(torch.unique(at).numel()) * m0.element_size())
+
+
+def corner_case(torch, variant, path, stack, fmask, params):
+    """H9 on the pyramid ``stack`` (..., nl, H, W) with the disparity mask
+    ``fmask`` (..., H, W), as ORB's detect calls it (fkey too with
+    ``params.cv2_ranking``): the part of the stack and the mask that the
+    keys depend on read once (:func:`corner_in_bytes`) and the keys written
+    once; CORNER_OPS operations a pixel inside each level's border box (a
+    pixel outside it is -inf by the border test alone)."""
+    from openvo_tpu_torch.ops import orb, orb_cuda
+
+    nl, H, W = stack.shape[-3:]
+    frames = stack.shape[0] if stack.ndim == 4 else 1
+    dims = tuple(orb._level_dims(H, W, params))
+    b = params.edge_threshold
+    m0 = (fmask > 0).contiguous()
+    thr = float(params.fast_threshold)
+    args = (dims, b, thr, params.cv2_ranking)
+    inside = sum(max(min(h - b, H) - b, 0) * max(min(w - b, W) - b, 0)
+                 for h, w in dims)
+    single = None
+    if frames > 1:
+        single = lambda: [present(orb_cuda.corner_keys(  # noqa
+            stack[i], m0[i], *args)) for i in range(frames)]
+    return Case("corner_keys", variant, path,
+                lambda: present(orb_cuda.corner_keys(stack, m0, *args)),
+                lambda: present(orb.corner_keys_plain(stack, m0, *args)),
+                CORNERS_JAX, (stack, m0), CORNER_OPS * inside / (nl * H * W),
+                CORNERS_SRC, corner_in_bytes(torch, stack, m0, dims, b, thr),
+                frames=frames, single=single)
+
+
 def batched_cases(torch, seq, cam, cfg):
     """Phase 2's batched variants, as the batched paths launch them: H1, H2
     (the top-down trio into s1), H3 and H4 once over frames 0-15 (BATCH)
@@ -690,6 +789,8 @@ def batched_cases(torch, seq, cam, cfg):
              single=lambda: [orb_cuda.brief_describe(*(t[i] for t in h4))
                              for i in frames]),
         resize_case(torch, f"7 levels, {variant}", "off-tp", img, cfg.orb),
+        corner_case(torch, f"8 levels, the disparity masks, {variant}",
+                    "off-tp", det["stack"], fmask, cfg.orb),
         Case("hsweep", f"forward, float32 C (block13), {variant}",
              "block13-tp", lambda: sc.hsweep(Cf, q1, q2),
              lambda: sc.hsweep_plain(Cf, q1, q2), K6, (Cf,), 10,
@@ -903,7 +1004,7 @@ def check_kernels(torch, seq, cam, cfg):
             results[-1]["frames"] = c.frames
     # times: plain, kernel, kernel, plain, each by CUDA events
     for r, c in zip(results, cases):
-        reps_plain = 20 if c.name == "brief_describe" else 1
+        reps_plain = {"brief_describe": 20, "corner_keys": 5}.get(c.name, 1)
         t_p1 = time_ms(torch, c.plain, reps_plain)
         t_k1 = time_ms(torch, c.kern, 20)
         t_k2 = time_ms(torch, c.kern, 20)
@@ -1042,7 +1143,7 @@ def expected_launches(params, filters=False):
     speckle = params.speckle_window_size > 0 and params.speckle_range > 0
     return {"cost_hsweep": 0 if f32 else 1, "hsweep": int(f32),
             "vsweep": dirs * ways if f32 else 1, "hsweep_wta_lr": 1,
-            "brief_describe": 1, "resize_levels": 1,
+            "brief_describe": 1, "resize_levels": 1, "corner_keys": 1,
             "speckle_keep": int(speckle), "greedy_clique": int(filters)}
 
 
@@ -1058,13 +1159,14 @@ def all_kernels():
 def plain_tripwires():
     """The plain versions of every kernel, as (module, name): a path runs
     with each replaced by a function that fails."""
-    from openvo_tpu_torch.ops import orb_cuda, sgbm, sgbm_cuda
+    from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda
     from openvo_tpu_torch.pose import rigid_clique
 
     return {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
             (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
             (orb_cuda, "brief_describe_plain"),
             (orb_cuda, "resize_levels_plain"),
+            (orb, "corner_keys_plain"),
             (sgbm, "speckle_keep_plain"),
             (rigid_clique, "greedy_clique_plain")}
 
@@ -1467,11 +1569,10 @@ def run_mono(torch, seq, name, smi, profiled=4):
              and k != svd_line()]
     if stray:
         raise AssertionError(f"{name}: host syncs in RANSAC at {stray}")
-    if launches["brief_describe"] != N_FRAMES or launches[
-            "resize_levels"] != N_FRAMES or any(
+    if any(launches[k.__name__] != N_FRAMES for k in orb_cuda.KERNELS) or any(
             launches[k.__name__] for k in sgbm_cuda.KERNELS):
-        raise AssertionError(f"{name}: launches {launches}, expected H4 and "
-                             f"H6 once a frame and no SGBM kernel")
+        raise AssertionError(f"{name}: launches {launches}, expected H4, "
+                             f"H6 and H9 once a frame and no SGBM kernel")
     if replay:
         ref_poses = np.linalg.inv(ref["mono_c_T_w"].astype(np.float64))
         rot, ang = motion_gaps(poses, ref_poses)

@@ -36,7 +36,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry points of csrc/*.cu: name -> argument types. Each returns the
 # cudaError_t of its launch.
 SIGNATURES = {
@@ -59,6 +60,10 @@ SIGNATURES = {
     # frames, stream
     "ovo_resize_levels": (_P, _I, _I) + (_P,) * 6 + (_I, _P, _I, _P, _I,
                                                       _P),
+    # stack, H, W, nl, sizes (host), mask (or NULL), rows, cols (or NULL),
+    # edge, threshold, key, fkey (or NULL), frames, stream
+    "ovo_corner_keys": (_P, _I, _I, _I) + (_P,) * 4 + (_I, _F, _P, _P, _I,
+                                                       _P),
     # disp, disp is int32, valid, labels, size (scratch), keep, frames, H,
     # W, max_diff, window, stream
     "ovo_speckle_keep": (_P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),

@@ -3,8 +3,10 @@
 
 Stages, all on the image's device with static shapes: a batched
 (nlevels, H, W) scale pyramid (antialiased bilinear levels in the top-left
-corner of a zero canvas), FAST-9/16 score and corner test, 3x3 non-max
-suppression, Harris response, per-level top-k by Harris response with
+corner of a zero canvas; kernel H6), FAST-9/16 score and corner test, 3x3
+non-max suppression, the border and mask tests and the Harris response
+(kernel H9, ``orb_cuda.corner_keys``, one launch over the stack; plain
+version :func:`corner_keys_plain`), per-level top-k by Harris response with
 OpenCV's per-level budget (or, with ``cv2_ranking``, cv2.ORB's two stages:
 the best 2k by FAST score, then the best k of those by Harris),
 compaction to ``max_keypoints`` rows, the
@@ -195,6 +197,61 @@ def _mask_level_index(n: int, n_l: int):
                    0, n - 1).astype(np.int64)
 
 
+def mask_level_table(n: int, sizes: tuple):
+    """(nl, n) int32: for each level of ``sizes`` rows (or columns), the
+    level-0 mask row (column) that each of its first min(n_l, n) rows
+    (columns) reads (:func:`_mask_level_index`), -1 past them; level 0
+    reads the mask itself, whatever its clamped size. H9's mask test
+    reads these tables."""
+    table = np.full((len(sizes), n), -1, np.int32)
+    table[0] = np.arange(n)
+    for lv, n_l in enumerate(sizes[1:], 1):
+        m = min(n_l, n)
+        table[lv, :m] = _mask_level_index(n, n_l)[:m]
+    return table
+
+
+def corner_keys_plain(stack, mask, dims, edge: int, threshold: float,
+                      with_score: bool = False):
+    """ORB's per-pixel detection stages over a (..., nl, H, W) pyramid
+    stack (the plain version of H9, ``orb_cuda.corner_keys``): FAST's
+    score and corner test, the 3x3 NMS, the border test (``edge`` <= x <
+    w_l - ``edge``, the same in y, level l of ``dims[l]`` = (h_l, w_l)),
+    the mask test (``mask``: None or the (..., H, W) bool level-0 mask,
+    read at level l nearest-neighbour, false past min(h_l, H) x
+    min(w_l, W)) and the Harris response. Returns (key, fkey): key =
+    the response where a pixel is a corner, -inf elsewhere; with
+    ``with_score`` fkey = the FAST score there (else None)."""
+    nl, H, W = stack.shape[-3:]
+    dev = stack.device
+    score, corner = fast_score(stack, threshold)
+    corner = corner & _nms3x3(score)
+    hl = device_constant(tuple(h for h, _ in dims), dev,
+                         torch.int64)[:, None, None]
+    wl = device_constant(tuple(w for _, w in dims), dev,
+                         torch.int64)[:, None, None]
+    ys = torch.arange(H, device=dev)[None, :, None]
+    xs = torch.arange(W, device=dev)[None, None, :]
+    corner &= ((xs >= edge) & (xs < wl - edge) & (ys >= edge)
+               & (ys < hl - edge))
+    if mask is not None:
+        mstack = torch.zeros(mask.shape[:-2] + (nl, H, W), dtype=torch.bool,
+                             device=dev)
+        mstack[..., 0, :, :] = mask
+        for level in range(1, nl):
+            h_l, w_l = dims[level]
+            hh, ww = min(h_l, H), min(w_l, W)
+            yy = device_constant(_mask_level_index, dev, torch.int64, H, h_l)
+            xx = device_constant(_mask_level_index, dev, torch.int64, W, w_l)
+            m_l = mask.index_select(-2, yy).index_select(-1, xx)
+            mstack[..., level, :hh, :ww] = m_l[..., :hh, :ww]
+        corner &= mstack
+    resp = harris_response(stack)
+    neg_inf = float("-inf")
+    key = torch.where(corner, resp, neg_inf)
+    return key, torch.where(corner, score, neg_inf) if with_score else None
+
+
 def detect(img, mask, params: ORBParams):
     """Keypoint detection half of ORB on a (H, W) grayscale image.
 
@@ -205,9 +262,10 @@ def detect(img, mask, params: ORBParams):
 
     A batch, (B, H, W) images (and masks), gives every output a leading
     frame axis, each frame's bit for bit: the pyramid (H6,
-    ``orb_cuda.resize_levels``, in its fixed order), the per-pixel stages,
-    the per-level top-k and the compaction run once for the batch (sorts
-    along the last axis, stable).
+    ``orb_cuda.resize_levels``, in its fixed order), the per-pixel stages
+    (H9, ``orb_cuda.corner_keys``), the per-level top-k and the
+    compaction run once for the batch (sorts along the last axis,
+    stable).
     """
     H, W = img.shape[-2:]
     lead = tuple(img.shape[:-2])
@@ -225,53 +283,32 @@ def detect(img, mask, params: ORBParams):
              for lv in range(nl)]
     P = max(k_eff)
 
-    # --- pyramid stack (H6) and mask stack ---
+    # --- pyramid stack (H6), then the per-pixel stages over it (H9):
+    # key = the Harris response at corners, fkey = the FAST score there,
+    # -inf elsewhere ---
     stack = orb_cuda.resize_levels(imgf.contiguous(), dims)
-    mstack = None
-    if mask is not None:
-        m0 = mask > 0
-        mstack = torch.zeros(lead + (nl, H, W), dtype=torch.bool, device=dev)
-        mstack[..., 0, :, :] = m0
-        for level in range(1, nl):
-            h_l, w_l = dims[level]
-            hh, ww = min(h_l, H), min(w_l, W)
-            yy = device_constant(_mask_level_index, dev, torch.int64, H, h_l)
-            xx = device_constant(_mask_level_index, dev, torch.int64, W, w_l)
-            m_l = m0.index_select(-2, yy).index_select(-1, xx)
-            mstack[..., level, :hh, :ww] = m_l[..., :hh, :ww]
-
-    # --- per-pixel stages over the whole stack ---
-    score, corner = fast_score(stack, float(params.fast_threshold))
-    corner = corner & _nms3x3(score)
-    hl = device_constant(tuple(h for h, _ in dims), dev,
-                         torch.int64)[:, None, None]
-    wl = device_constant(tuple(w for _, w in dims), dev,
-                         torch.int64)[:, None, None]
-    ys = torch.arange(H, device=dev)[None, :, None]
-    xs = torch.arange(W, device=dev)[None, None, :]
-    corner &= (xs >= b) & (xs < wl - b) & (ys >= b) & (ys < hl - b)
-    if mstack is not None:
-        corner &= mstack
-    resp = harris_response(stack)
+    m0 = None if mask is None else (mask > 0).contiguous()
+    key, fkey = orb_cuda.corner_keys(stack, m0, dims, b,
+                                     float(params.fast_threshold),
+                                     params.cv2_ranking)
 
     # --- per-level top-k on each level's own (h_l, w_l) canvas ---
-    neg_inf = float("-inf")
     xy_list, val_list = [], []
     for lv in range(nl):
         h_l, w_l = dims[lv]
-        corner_l = corner[..., lv, :h_l, :w_l].reshape(lead + (-1,))
-        resp_l = resp[..., lv, :h_l, :w_l].reshape(lead + (-1,))
+        key_l = key[..., lv, :h_l, :w_l].reshape(lead + (-1,))
         if not params.cv2_ranking:
             kk = k_eff[lv]
-            tv, ti = _topk_flat(torch.where(corner_l, resp_l, neg_inf), kk)
+            tv, ti = _topk_flat(key_l, kk)
         else:
             # the best 2k by FAST score (cv2's pre-Harris retainBest), then
-            # the best of those by Harris response
+            # the best of those by Harris response: key holds it at every
+            # corner, and key and fkey are -inf at the same pixels, so a
+            # winner that is no corner is -inf in both
             k2 = min(2 * k_eff[lv], h_l * w_l)
-            score_l = score[..., lv, :h_l, :w_l].reshape(lead + (-1,))
-            fv, fi = _topk_flat(torch.where(corner_l, score_l, neg_inf), k2)
-            resp_at = torch.where(torch.isfinite(fv), resp_l.gather(-1, fi),
-                                  neg_inf)
+            fkey_l = fkey[..., lv, :h_l, :w_l].reshape(lead + (-1,))
+            _, fi = _topk_flat(fkey_l, k2)
+            resp_at = key_l.gather(-1, fi)
             kk = min(P, k2)
             tv, sel = _topk_flat(resp_at, kk)
             ti = fi.gather(-1, sel)

@@ -1,7 +1,10 @@
 """ORB's kernels and their plain versions: the steered-BRIEF descriptor
 kernel H4 (``csrc/orb.cu``), from a keypoint's pyramid level to its packed
-descriptor, and the pyramid kernel H6 (``csrc/resize.cu``), every level's
-resize from level 0 in one launch.
+descriptor, the pyramid kernel H6 (``csrc/resize.cu``), every level's
+resize from level 0 in one launch, and the detection kernel H9
+(``csrc/orb_corners.cu``), FAST, the NMS, the border and mask tests and
+Harris over the whole stack in one launch (plain version
+``ops/orb.corner_keys_plain``).
 
 The plain version is the JAX package's descriptor stage
 (``openvo_tpu/ops/orb.py:529-555``) in pieces: :func:`patch_windows_stack`
@@ -247,4 +250,60 @@ def resize_levels(img, dims):
 
 resize_levels.launches = 0
 
-KERNELS = (brief_describe, resize_levels)
+
+def corner_keys(stack, mask, dims, edge: int, threshold: float,
+                with_score: bool = False):
+    """H9, replacing the per-pixel stages that XLA fuses inside JAX's ORB
+    (``openvo_tpu/ops/orb.py:434-445``: ``fast_score``, ``_nms3x3``, the
+    border and mask tests, ``harris_response``): over the (nl, H, W)
+    float32 pyramid stack of levels ``dims`` (h_l, w_l), key = the Harris
+    response at each corner and -inf elsewhere, and with ``with_score``
+    fkey = the FAST score at each corner (else None), bit for bit those of
+    ``orb.corner_keys_plain``. ``mask``: None or the (H, W) bool level-0
+    mask; ``edge``: the border; ``threshold``: FAST's. One launch for
+    every level (see ``csrc/orb_corners.cu``).
+
+    A batch, (B, nl, H, W) stacks with (B, H, W) masks, gives (B, nl, H,
+    W) keys from the same launch."""
+    from openvo_tpu_torch.ops import orb   # orb imports this module
+
+    dev = stack.device if mask is None else device_of(stack, mask)
+    if dev.type == "cpu":
+        return orb.corner_keys_plain(stack, mask, dims, edge, threshold,
+                                     with_score)
+    if stack.ndim not in (3, 4):
+        raise ValueError(f"stack: {stack.ndim} axes, expected (nl, H, W) or "
+                         f"(B, nl, H, W)")
+    lead = tuple(stack.shape[:-3])
+    nl, H, W = stack.shape[-3:]
+    check_cuda_input(stack, torch.float32, lead + (nl, H, W), "stack")
+    dims = tuple((int(h), int(w)) for h, w in dims)
+    if len(dims) != nl:
+        raise ValueError(f"dims: {len(dims)} levels, the stack {nl}")
+    key = torch.empty_like(stack)
+    fkey = torch.empty_like(stack) if with_score else None
+    frames = lead[0] if lead else 1
+    if frames == 0:
+        return key, fkey
+    rows = cols = None
+    if mask is not None:
+        check_cuda_input(mask, torch.bool, lead + (H, W), "mask")
+        rows = device_constant(orb.mask_level_table, dev, torch.int32, H,
+                               tuple(h for h, _ in dims))
+        cols = device_constant(orb.mask_level_table, dev, torch.int32, W,
+                               tuple(w for _, w in dims))
+    sizes = (ctypes.c_int * (2 * nl))(*[v for hw in dims for v in hw])
+    err = _build.library().ovo_corner_keys(
+        stack.data_ptr(), H, W, nl, sizes,
+        *(None if t is None else t.data_ptr() for t in (mask, rows, cols)),
+        int(edge), float(threshold), key.data_ptr(),
+        None if fkey is None else fkey.data_ptr(), frames,
+        stream_handle(dev))
+    corner_keys.launches += 1
+    _build.check_launch(err, "corner_keys")
+    return key, fkey
+
+
+corner_keys.launches = 0
+
+KERNELS = (brief_describe, resize_levels, corner_keys)

@@ -12,6 +12,8 @@ JAX's ``lax.cond`` (``openvo_tpu/models/stereo_odometer.py:228-240``).
   and outlier pass (``filters``' thresholds), the chunk with speckle, the
   rig step with the filters; their loops trace as the operators
   ``openvo_torch::speckle_keep`` and ``openvo_torch::greedy_clique``;
+  and the step with cv2.ORB's ranking, whose top-k reads the FAST-score
+  keys of ORB's per-pixel stages (H9's second output);
 - the step against JAX's jitted step from the same state
   (``state_from_jax_leaves``) when attempt 1 succeeds, when it fails with
   a frame before last (the fallback fires) and when it fails without one,
@@ -35,7 +37,7 @@ from openvo_tpu.io.synthetic import render_stereo_sequence
 from openvo_tpu.models.stereo_odometer import init_state as jax_init_state
 from openvo_tpu.models.stereo_odometer import make_step as jax_make_step
 from openvo_tpu_torch import _graph
-from openvo_tpu_torch.config import OdometerConfig
+from openvo_tpu_torch.config import OdometerConfig, ORBParams
 from openvo_tpu_torch.models.stereo_odometer import (STAT_NAMES,
                                                      init_state, make_step,
                                                      state_from_jax_leaves,
@@ -61,6 +63,8 @@ TRACES = {
     "default": ({}, {}, None),
     "speckle": (SPECKLE, {}, "openvo_torch.speckle_keep"),
     "filters": ({}, FILTERS, "openvo_torch.greedy_clique"),
+    # cv2.ORB's ranking: detect's top-k reads H9's FAST-score keys too
+    "cv2rank": ({}, {"orb": ORBParams(cv2_ranking=True)}, None),
 }
 
 

@@ -774,6 +774,123 @@ def test_resize_levels_equals_plain(cuda, H, W, integer):
 
 
 # ---------------------------------------------------------------------------
+# H9: ORB's per-pixel detection stages over the pyramid stack
+# ---------------------------------------------------------------------------
+
+def bits(t):
+    """A float32 tensor's bits, so that equality also holds the sign of 0."""
+    return t.view(torch.int32)
+
+
+def corner_stack(H, W, kind, frames=None, seed=0):
+    """A (nl, H, W) stack (or a batch of ``frames``) with ORB's default
+    levels: "pyramid", the pyramid of a smoothed random frame (non-integer
+    levels 1-7 on a zero canvas); "random", uniform noise on the whole
+    canvas (corners on every canvas and level edge). With the levels'
+    sizes and a random bool level-0 mask, all on the CPU."""
+    from openvo_tpu_torch.config import ORBParams
+    from openvo_tpu_torch.ops import orb
+
+    rng = np.random.default_rng(seed)
+    dims = tuple(orb._level_dims(H, W, ORBParams()))
+    lead = () if frames is None else (frames,)
+    if kind == "pyramid":
+        img = rng.uniform(0, 255, lead + (H, W + 2)).astype(np.float32)
+        img = np.round((img[..., :-2] + img[..., 1:-1] + img[..., 2:]) / 3)
+        stack = orb_cuda.resize_levels_plain(torch.from_numpy(img), dims)
+    else:
+        stack = torch.from_numpy(rng.uniform(
+            0, 255, lead + (len(dims), H, W)).astype(np.float32))
+    mask = torch.from_numpy(rng.random(lead + (H, W)) > 0.3)
+    return stack, mask, dims
+
+
+# (kind, edge, FAST threshold, masked): ORB's own border, and borders of 3
+# and 0, whose corners reach the canvas's and every level's edges
+CORNER_CASES = [("pyramid", 31, 20.0, False), ("pyramid", 31, 20.0, True),
+                ("random", 3, 60.0, True), ("random", 0, 80.0, False)]
+
+
+# KITTI and 320x240 (neither a multiple of the 32-pixel tile), and small
+# frames whose clamped levels (2 * 31 + 3 = 65) exceed the frame in one
+# axis or both
+@pytest.mark.parametrize("H,W", [(376, 1242), (240, 320), (70, 90),
+                                 (50, 120), (33, 45)])
+@pytest.mark.parametrize("kind,edge,threshold,masked", CORNER_CASES)
+def test_corner_keys_equals_plain(cuda, H, W, kind, edge, threshold,
+                                  masked):
+    """H9 equals its plain version bit for bit on the whole canvas, on the
+    card and on the CPU, for both rankings (key, and fkey with it), in
+    one launch each."""
+    from openvo_tpu_torch.ops import orb
+
+    stack, mask, dims = corner_stack(H, W, kind, seed=H + edge)
+    mask = mask if masked else None
+    args = (dims, edge, threshold)
+    cpu = orb.corner_keys_plain(stack, mask, *args, True)
+    stack = stack.to(cuda)
+    mask = None if mask is None else mask.to(cuda)
+    for with_score in (False, True):
+        (key, fkey), n = launches(orb_cuda.corner_keys, lambda: (
+            orb_cuda.corner_keys(stack, mask, *args, with_score)))
+        assert n == 1 and key.shape == stack.shape
+        plain = orb.corner_keys_plain(stack, mask, *args, with_score)
+        assert torch.equal(bits(key), bits(plain[0]))
+        assert torch.equal(bits(key.cpu()), bits(cpu[0]))
+        if with_score:
+            assert torch.equal(bits(fkey), bits(plain[1]))
+            assert torch.equal(bits(fkey.cpu()), bits(cpu[1]))
+        else:
+            assert fkey is None
+    assert bool(torch.isfinite(key).any())
+
+
+@pytest.mark.parametrize("kind,edge,threshold,masked", CORNER_CASES)
+def test_batched_corner_keys_equals_frames(cuda, kind, edge, threshold,
+                                           masked):
+    """H9 over a batch of 3 frames in one launch equals its 3 single-frame
+    launches and the plain version, on each of 3 calls."""
+    from openvo_tpu_torch.ops import orb
+
+    stack, mask, dims = corner_stack(70, 130, kind, FRAMES, seed=edge)
+    stack = stack.to(cuda)
+    mask = mask.to(cuda) if masked else None
+    args = (dims, edge, threshold, True)
+    plain = orb.corner_keys_plain(stack, mask, *args)
+    for _ in range(3):
+        out, n = launches(orb_cuda.corner_keys, lambda: (
+            orb_cuda.corner_keys(stack, mask, *args)))
+        assert n == 1
+        singles = [orb_cuda.corner_keys(
+            stack[i], None if mask is None else mask[i], *args)
+            for i in range(FRAMES)]
+        assert_batch(tuple(bits(t) for t in out),
+                     [tuple(bits(t) for t in one) for one in singles],
+                     tuple(bits(t) for t in plain))
+
+
+def test_corner_keys_rejects_wrong_input(cuda):
+    stack, mask, dims = corner_stack(40, 60, "random")
+    stack, mask = stack.to(cuda), mask.to(cuda)
+    args = (dims, 3, 20.0)
+    with pytest.raises(TypeError):
+        orb_cuda.corner_keys(stack.double(), mask, *args)
+    with pytest.raises(TypeError):
+        orb_cuda.corner_keys(stack, mask.to(torch.uint8), *args)
+    with pytest.raises(ValueError, match="device mismatch"):
+        orb_cuda.corner_keys(stack, mask.cpu(), *args)
+    with pytest.raises(ValueError):
+        orb_cuda.corner_keys(stack, mask[:, :30].contiguous(), *args)
+    with pytest.raises(ValueError):
+        orb_cuda.corner_keys(stack[0], mask, *args)
+    with pytest.raises(ValueError, match="levels"):
+        orb_cuda.corner_keys(stack, mask, dims[:-1], 3, 20.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        orb_cuda.corner_keys(stack.transpose(1, 2).contiguous().transpose(
+            1, 2), mask, *args)
+
+
+# ---------------------------------------------------------------------------
 # the loops JAX runs as lax.while_loop: H7 (speckle labelling) and H8 (the
 # rigid clique)
 # ---------------------------------------------------------------------------

@@ -187,6 +187,147 @@ def test_resize_levels_plain_is_the_pyramid(frames):
             assert not one[lv, h:].any() and not one[lv, :, w:].any()
 
 
+@pytest.fixture(scope="module")
+def bench_pyramid():
+    """The pyramid of the bench corridor's frame 0 (left, at 320x240),
+    non-integer at levels 1-7, by the plain H6; a disparity-style mask:
+    the left band of 48 columns invalid (no right-image match) and holes
+    where smoothed noise is low; ORB's default levels."""
+    from openvo_tpu_torch.io import synthetic as syn
+    from openvo_tpu_torch.tools import bench
+
+    size = (320, 240)
+    tex = syn.make_texture(np.random.default_rng(bench.SEQ["seed"]))
+    planes = syn.corridor_planes(bench.SEQ["corridor_length"],
+                                 bench.SEQ["corridor_half_width"])
+    K, _, _, _ = syn.make_rig(size, bench.focal(size), bench.B)
+    pose = syn.camera_trajectory(1, bench.SEQ["step"],
+                                 bench.SEQ["yaw_rate"])[0]
+    left, _ = bench.render_pair((K, pose, planes, tex, size, bench.B))
+    img = np.clip(left, 0, 255).astype(np.uint8)
+    H, W = img.shape
+    dims = tuple(orb._level_dims(H, W, ORBParams()))
+    stack = orb_cuda.resize_levels_plain(
+        torch.from_numpy(img).to(torch.float32), dims)
+    noise = np.random.default_rng(3).random((H // 8 + 1, W // 8 + 1))
+    holes = np.kron(noise, np.ones((8, 8)))[:H, :W] < 0.15
+    mask = (np.arange(W)[None, :] >= 48) & ~holes
+    return stack, torch.from_numpy(mask), dims
+
+
+def jax_corner_keys(stack, mask, dims, b, threshold):
+    """The JAX package's per-pixel stages on a stack, composed as its
+    jitted ``detect_and_compute`` runs them (``openvo_tpu/ops/orb.py:
+    410-445``): FAST and the NMS vmapped over the levels, the border test,
+    the mask stack (level 0 the mask, level l its nearest-neighbour
+    downsample), Harris vmapped; then the keys that the top-k reads."""
+    nl, H, W = stack.shape
+
+    def stages(st, m):
+        score, corner = jax.vmap(lambda im: jorb.fast_score(
+            im, threshold))(st)
+        corner = corner & jax.vmap(jorb._nms3x3)(score)
+        hl = jnp.asarray([h for h, _ in dims], jnp.int32)[:, None, None]
+        wl = jnp.asarray([w for _, w in dims], jnp.int32)[:, None, None]
+        ys = jax.lax.broadcasted_iota(jnp.int32, (1, H, W), 1)
+        xs = jax.lax.broadcasted_iota(jnp.int32, (1, H, W), 2)
+        corner &= (xs >= b) & (xs < wl - b) & (ys >= b) & (ys < hl - b)
+        if m is not None:
+            mstack = jnp.zeros((nl, H, W), jnp.bool_)
+            mstack = mstack.at[0].set(m > 0)
+            for level in range(1, nl):
+                h_l, w_l = dims[level]
+                yy = jnp.clip(jnp.round(jnp.arange(h_l) * (H / h_l))
+                              .astype(jnp.int32), 0, H - 1)
+                xx = jnp.clip(jnp.round(jnp.arange(w_l) * (W / w_l))
+                              .astype(jnp.int32), 0, W - 1)
+                m_l = (m[yy][:, xx] > 0)[:H, :W]
+                mstack = mstack.at[level, :m_l.shape[0], :m_l.shape[1]].set(
+                    m_l)
+            corner &= mstack
+        resp = jax.vmap(jorb.harris_response)(st)
+        return (jnp.where(corner, resp, -jnp.inf),
+                jnp.where(corner, score, -jnp.inf))
+
+    fn = jax.jit(lambda st: stages(st, None)) if mask is None else jax.jit(
+        stages)
+    args = (jnp.asarray(stack.numpy()),) + (
+        () if mask is None else (jnp.asarray(mask.numpy()),))
+    return tuple(np.asarray(a) for a in fn(*args))
+
+
+def bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("with_score", [False, True])
+def test_corner_keys_plain_equals_jax(bench_pyramid, masked, with_score):
+    """H9's plain version, the per-pixel stages as one function, equals
+    JAX's jitted composition bit for bit on the whole canvas of a real
+    pyramid (non-integer levels 1-7), with and without a disparity-style
+    mask, for key (the default ranking) and fkey (cv2.ORB's)."""
+    stack, mask, dims = bench_pyramid
+    mask = mask if masked else None
+    p = ORBParams()
+    key, fkey = orb.corner_keys_plain(stack, mask, dims, p.edge_threshold,
+                                      float(p.fast_threshold), with_score)
+    want_key, want_fkey = jax_corner_keys(stack, mask, dims,
+                                          p.edge_threshold,
+                                          float(p.fast_threshold))
+    assert np.isfinite(want_key).sum() > 300
+    np.testing.assert_array_equal(bits(key), bits(want_key))
+    if with_score:
+        np.testing.assert_array_equal(bits(fkey), bits(want_fkey))
+    else:
+        assert fkey is None
+    # the keys' corners lie on every level
+    finite = np.isfinite(want_key).reshape(len(dims), -1).sum(1)
+    assert (finite > 0).all(), finite
+
+
+def test_corner_keys_batch_equals_frames(frames):
+    """A (B, nl, H, W) batch through H9's CPU route (the plain version)
+    gives each frame's keys bit for bit, both rankings, masked."""
+    p = ORBParams()
+    imgs = torch.from_numpy(np.stack([f[0] for f in frames]).astype(
+        np.float32))
+    masks = torch.from_numpy(np.stack([f[1] for f in frames]) > 0)
+    dims = tuple(orb._level_dims(240, 320, p))
+    stack = orb_cuda.resize_levels(imgs, dims)
+    args = (dims, p.edge_threshold, float(p.fast_threshold), True)
+    key, fkey = orb_cuda.corner_keys(stack, masks, *args)
+    assert key.shape == fkey.shape == stack.shape
+    for i in range(len(frames)):
+        one = orb.corner_keys_plain(stack[i], masks[i], *args)
+        assert torch.equal(key[i].view(torch.int32), one[0].view(torch.int32))
+        assert torch.equal(fkey[i].view(torch.int32),
+                           one[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("H,W", [(240, 320), (50, 120)])
+def test_mask_level_tables_give_the_mask_stack(H, W):
+    """H9 reads the mask of level l as m0[rows[l, y], cols[l, x]], false
+    where either is -1 (``orb.mask_level_table``); that is the plain
+    version's mask stack, level 0 the mask itself even where its size is
+    clamped beyond the frame (50 rows < 2 * 31 + 3)."""
+    p = ORBParams()
+    dims = tuple(orb._level_dims(H, W, p))
+    m0 = torch.from_numpy(np.random.default_rng(H).random((H, W)) > 0.5)
+    rows = torch.from_numpy(orb.mask_level_table(
+        H, tuple(h for h, _ in dims))).long()
+    cols = torch.from_numpy(orb.mask_level_table(
+        W, tuple(w for _, w in dims))).long()
+    got = (m0[rows.clamp(min=0)[:, :, None], cols.clamp(min=0)[:, None, :]]
+           & (rows >= 0)[:, :, None] & (cols >= 0)[:, None, :])
+    # the plain version's mask stack, read back through a stack whose
+    # every pixel is a corner: edge 0, threshold below any score, a flat
+    # image (the NMS keeps every pixel of a constant score)
+    stack = torch.zeros((len(dims), H, W))
+    key, _ = orb.corner_keys_plain(stack, m0, dims, 0, -1.0)
+    assert torch.equal(torch.isfinite(key), got)
+
+
 def test_topk_ties_go_to_lower_index():
     rng = np.random.default_rng(7)
     for n, k in [(20000, 32), (3000, 16)]:

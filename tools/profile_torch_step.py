@@ -21,8 +21,15 @@ and under torch.profiler the kernels launched, the host-to-device copies
 and H4's own device time. Both calls keep their signatures across the port's
 checkouts, so ``--root`` (the checkout whose ``openvo_tpu_torch`` and
 ``chip_smoke`` are profiled, by default this one) compares commits in one
-call: run parent, change, change, parent. The last line is a JSON object
-of the stage medians and the descriptor stage.
+call: run parent, change, change, parent.
+
+Last, ``detect`` in its stages, each run alone on the same frames under
+torch.profiler (kernels and device ms a frame): the pyramid (H6), FAST's
+score, the 3x3 NMS and Harris as plain PyTorch (the functions the per-pixel
+stages were built from), the per-pixel stages whole as plain PyTorch
+(``orb.corner_keys_plain``) and as H9 (``orb_cuda.corner_keys``) where the
+checkout has them, and ``detect`` whole. The last line is a JSON object of
+the stage medians, the descriptor stage and detect's stages.
 """
 
 from __future__ import annotations
@@ -107,6 +114,65 @@ def orb_stage_costs(detect, detect_and_compute, inputs, reps=5):
     return out
 
 
+def profiled(fn, n):
+    """(CUDA kernels, their device ms) a call of fn(i), i < n, under
+    torch.profiler, after one call to warm up."""
+    fn(0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    kernels, us = 0, 0.0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))):
+            kernels += 1
+            us += e.device_time_total
+    return kernels / n, us / 1e3 / n
+
+
+def detect_stages(orb, orb_cuda, inputs, params):
+    """ORB's ``detect`` in its stages, each alone on each of ``inputs``
+    ((img, mask) pairs): kernels and device ms a frame (:func:`profiled`),
+    and what ``detect`` runs beside the stages (its top-k, compaction and
+    the per-pixel stages' glue) as the difference."""
+    H, W = inputs[0][0].shape[-2:]
+    dims = tuple(orb._level_dims(H, W, params))
+    b, thr = params.edge_threshold, float(params.fast_threshold)
+    imgs = [img.to(torch.float32).contiguous() for img, _ in inputs]
+    masks = [(m > 0).contiguous() for _, m in inputs]
+    stacks = [orb_cuda.resize_levels(img, dims) for img in imgs]
+    scores = [orb.fast_score(st, thr)[0] for st in stacks]
+    stages = {
+        "pyramid (H6)": lambda i: orb_cuda.resize_levels(imgs[i], dims),
+        "FAST score and test (plain)": lambda i: orb.fast_score(stacks[i],
+                                                                thr),
+        "3x3 NMS (plain)": lambda i: orb._nms3x3(scores[i]),
+        "Harris (plain)": lambda i: orb.harris_response(stacks[i]),
+    }
+    if hasattr(orb, "corner_keys_plain"):
+        stages["per-pixel stages whole (plain)"] = lambda i: (
+            orb.corner_keys_plain(stacks[i], masks[i], dims, b, thr))
+    if hasattr(orb_cuda, "corner_keys"):
+        stages["per-pixel stages whole (H9)"] = lambda i: (
+            orb_cuda.corner_keys(stacks[i], masks[i], dims, b, thr))
+    stages["detect"] = lambda i: orb.detect(*inputs[i], params)
+    out = {name: dict(zip(("kernels", "device_ms"),
+                          profiled(fn, len(inputs))))
+           for name, fn in stages.items()}
+    per_pixel = ("per-pixel stages whole (H9)"
+                 if "per-pixel stages whole (H9)" in out else None)
+    parts = ["pyramid (H6)"] + ([per_pixel] if per_pixel else [
+        "FAST score and test (plain)", "3x3 NMS (plain)", "Harris (plain)"])
+    out["detect less " + " and ".join(parts)] = {
+        k: out["detect"][k] - sum(out[p][k] for p in parts)
+        for k in ("kernels", "device_ms")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=16)
@@ -126,7 +192,7 @@ def main() -> int:
 
     print(f"[root] {os.path.abspath(args.root)}: openvo_tpu_torch from "
           f"{os.path.dirname(orb.__file__)}")
-    seq = chip_smoke.render_sequence()
+    seq = chip_smoke.get_sequence()
     cam = StereoCamera(seq["K"], seq["dist"], seq["K"], seq["dist"],
                        {"R": seq["R"], "T": seq["T"]}, chip_smoke.SGBM,
                        chip_smoke.IMG_SIZE, device="cuda")
@@ -183,8 +249,12 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
     print(f"[profile] {len(window)} frames, wall {wall_ms:.3f} ms, device "
           f"busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%)"
+          f", {kernels / len(window)} CUDA kernels a frame"
           f", {sum(e.count for e in events if getattr(e, 'self_device_time_total', 0) > 0)}"
           f" op calls with device time")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
@@ -208,10 +278,17 @@ def main() -> int:
               f"(quartiles {c['host_ms_quartiles']}), {c['kernels']:.1f} "
               f"kernels, {c['htod_copies']:.1f} host-to-device copies, H4 "
               f"device {c['h4_device_ms']:.4f} ms")
+    from openvo_tpu_torch.ops import orb_cuda
+
+    det = detect_stages(orb, orb_cuda, orb_inputs, cfg.orb)
+    for name, c in det.items():
+        print(f"[detect] {name}, a frame over {len(orb_inputs)} frames: "
+              f"{c['kernels']:.1f} kernels, {c['device_ms']:.4f} ms of "
+              f"kernel time")
     print(json.dumps({"root": os.path.abspath(args.root),
                       "stage_median_ms": {k: float(np.median(v))
                                           for k, v in stages.items()},
-                      "orb": costs}))
+                      "orb": costs, "detect_stages": det}))
     return 0
 
 
