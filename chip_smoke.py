@@ -273,6 +273,21 @@ BLOCK_WALK_MS = {
     ("hsweep_wta_lr", "float32 C with the bottom-up partial apart (8 paths)"):
         1.395,
 }
+# H6's and H9's times before their redesign (their first designs: a
+# thread a pixel, one zeroed canvas and a copy beside it; a block a 32x32
+# tile of every level), a frame, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6), by (kernel, variant) of the kernel cases; logged
+# beside this run's times only
+FIRST_DESIGN_MS = {
+    ("resize_levels", "frame 0, 7 levels"): 0.0428,
+    ("resize_levels", f"7 levels, batch of {BATCH} frames (frames "
+                      f"0-{BATCH - 1})"): 0.0261,
+    ("corner_keys", "frame 0's 8 levels, its disparity mask"): 0.0644,
+    ("corner_keys", "frame 0's 8 levels, its disparity mask, with the "
+                    "FAST-score keys (cv2.ORB's ranking)"): 0.0657,
+    ("corner_keys", f"8 levels, the disparity masks, batch of {BATCH} "
+                    f"frames (frames 0-{BATCH - 1})"): 0.0525,
+}
 
 
 def log(*a):
@@ -343,6 +358,9 @@ class Case:
     # one PyTorch call (or one a level) that computes the same function,
     # timed as library_ms; None where there is none
     library: object = None
+    # what else the log line says of these inputs (H9: corners and FAST
+    # pretest passes a level)
+    note: str = ""
 
 
 def bound(case, outs):
@@ -702,15 +720,38 @@ def corner_case(torch, variant, path, stack, fmask, params):
     inside = sum(max(min(h - b, H) - b, 0) * max(min(w - b, W) - b, 0)
                  for h, w in dims)
     single = None
+    note = ""
     if frames > 1:
         single = lambda: [present(orb_cuda.corner_keys(  # noqa
             stack[i], m0[i], *args)) for i in range(frames)]
+    else:
+        note = corner_counts(torch, stack, m0, dims, b, thr)
     return Case("corner_keys", variant, path,
                 lambda: present(orb_cuda.corner_keys(stack, m0, *args)),
                 lambda: present(orb.corner_keys_plain(stack, m0, *args)),
                 CORNERS_JAX, (stack, m0), CORNER_OPS * inside / (nl * H * W),
                 CORNERS_SRC, corner_in_bytes(torch, stack, m0, dims, b, thr),
-                frames=frames, single=single)
+                frames=frames, single=single, note=note)
+
+
+def corner_counts(torch, stack, m0, dims, b, threshold):
+    """What H9 computes on one frame's stack, a level: its corners (finite
+    keys), and the pixels of the level inside the canvas that pass FAST's
+    cardinal pretest (either polarity), where it computes FAST's arcs."""
+    from openvo_tpu_torch.ops import orb, orb_cuda
+
+    H, W = stack.shape[-2:]
+    key, _ = orb.corner_keys_plain(stack, m0, dims, b, threshold)
+    bright, dark = orb_cuda.fast_pretest(stack, threshold)
+    corners = [int(torch.isfinite(k).sum()) for k in key]
+    passes, share = [], []
+    for level, (h, w) in enumerate(dims):
+        hh, ww = min(h, H), min(w, W)
+        n = int((bright | dark)[level, :hh, :ww].sum())
+        passes.append(n)
+        share.append(round(100 * n / (hh * ww), 1))
+    return (f"corners a level {corners} ({sum(corners)}), FAST pretest "
+            f"passes a level {passes} ({share} % of each level's pixels)")
 
 
 def batched_cases(torch, seq, cam, cfg):
@@ -984,7 +1025,8 @@ def check_kernels(torch, seq, cam, cfg):
         log(f"[kernels] {c.name} [{c.variant}]: shapes "
             f"{[tuple(o.shape) for o in out]}, max_abs_err vs plain {err}"
             + ("" if err_single is None else
-               f", vs {c.frames} single-frame launches {err_single}"))
+               f", vs {c.frames} single-frame launches {err_single}")
+            + (f"; {c.note}" if c.note else ""))
         if err != 0.0 or err_single:
             raise AssertionError(f"{c.name} [{c.variant}] differs from its "
                                  f"plain version or its single-frame "
@@ -1012,6 +1054,7 @@ def check_kernels(torch, seq, cam, cfg):
         r["ms"] = min(t_k1, t_k2) / c.frames
         r["plain_ms"] = min(t_p1, t_p2) / c.frames
         earlier = BLOCK_WALK_MS.get((c.name, c.variant))
+        first = FIRST_DESIGN_MS.get((c.name, c.variant))
         single = ""
         if c.frames > 1:
             # the same frames by single-frame launches back to back, timed
@@ -1026,6 +1069,8 @@ def check_kernels(torch, seq, cam, cfg):
             f"{t_k2:.4f} ms"
             + ("" if earlier is None else
                f" (redesigned; the block walk: {earlier} ms)")
+            + ("" if first is None else
+               f" (redesigned; the first design: {first} ms a frame)")
             + f", plain {t_p1:.4f} / {t_p2:.4f} ms, bound "
             f"{r['bound_ms'] * c.frames:.4f} ms ({r['bound_by']})" + single)
     return results

@@ -56,14 +56,14 @@ SIGNATURES = {
     # stack, nl, H, W, octave, xy, cos, sin, valid, pattern, taps (host),
     # out, K (a frame), frames, stream
     "ovo_brief_describe": (_P, _I, _I, _I) + (_P,) * 8 + (_I, _I, _P),
-    # img, H, W, r0, rn, rw, c0, cn, cw, taps, sizes (host), nl, stack,
-    # frames, stream
-    "ovo_resize_levels": (_P, _I, _I) + (_P,) * 6 + (_I, _P, _I, _P, _I,
-                                                      _P),
-    # stack, H, W, nl, sizes (host), mask (or NULL), rows, cols (or NULL),
-    # edge, threshold, key, fkey (or NULL), frames, stream
-    "ovo_corner_keys": (_P, _I, _I, _I) + (_P,) * 4 + (_I, _F, _P, _P, _I,
-                                                       _P),
+    # img, H, W, nl, tiles, ntiles, spans, nspans, r0, rn, rw, c0, cn, cw,
+    # taps, stack, frames, stream
+    "ovo_resize_levels": (_P, _I, _I, _I, _P, _I, _P, _I) + (_P,) * 6 + (
+        _I, _P, _I, _P),
+    # stack, H, W, nl, tiles, ntiles, spans, nspans, mask (or NULL), rows,
+    # cols (or NULL), threshold, key, fkey (or NULL), frames, stream
+    "ovo_corner_keys": (_P, _I, _I, _I, _P, _I, _P, _I) + (_P,) * 3 + (
+        _F, _P, _P, _I, _P),
     # disp, disp is int32, valid, labels, size (scratch), keep, frames, H,
     # W, max_diff, window, stream
     "ovo_speckle_keep": (_P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),

@@ -1,6 +1,7 @@
 // H9: ORB's per-pixel detection stages over the pyramid stack in one
 // launch, bound with ctypes (openvo_tpu_torch/ops/orb_cuda.py holds the
-// wrapper; the plain version is ops/orb.corner_keys_plain).
+// wrapper and builds the tables; the plain version is
+// ops/orb.corner_keys_plain).
 //
 //   H9 corner_keys <- the FAST score and corner test, the 3x3 NMS, the
 //   border and mask tests and the Harris response, which the JAX package
@@ -15,24 +16,60 @@
 // w_l - edge and edge <= y < h_l - edge, and (with a mask) the level-0
 // mask at (rows[l][y], cols[l][x]) nonzero, -1 meaning outside the level.
 //
-// One block of 256 threads per (32x32 output tile, level, frame):
-//   1. the tile and a 4-pixel halo (40x40) of the canvas go to shared
-//      memory;
-//   2. FAST scores on the 34x34 around the tile (the NMS reads one more
-//      pixel each way), -inf outside the canvas;
-//   3. Sobel dx, dy on the 38x38 around it and their three products, 0
-//      outside the canvas (the box sum's zero padding);
-//   4. the 7 horizontal taps of each product, 38 rows x 32 columns;
-//   5. per output pixel: the 7 vertical taps, Harris, the tests, the keys.
-// A tile wholly outside its level's border box writes -inf and reads
-// nothing. The paddings are those of the plain version, all at the
-// canvas's edge, not the level's: replicate for FAST, reflect-101 for
-// Sobel, zero for the box sums, -inf for the NMS.
+// Work: a corner lies in its level's border box (cut to the canvas), and
+// only there does a key need more than -inf. The wrapper lists, once per
+// frame size, levels and edge, the 32x64 tiles that cover each box from
+// its top-left corner (ragged at its far edges) and the spans of the
+// canvas outside the boxes (csrc/spans.cuh). The grid is one block a tile
+// of a frame: no block is idle. A tile block:
+//   1. loads the tile and a 4-pixel halo (40x72) of the canvas into shared
+//      memory by cp.async (4 bytes a copy: a row of the stack is not
+//      16-byte aligned in general, W = 1242 on KITTI);
+//   2. runs FAST's pretest (below) on the tile and the 1-pixel ring the
+//      NMS reads, holding -inf where it fails, and lists where it passes
+//      (a ballot and one shared atomic a warp);
+//   3. scores the listed pixels: the 16 differences and the arc folds of
+//      the polarities that passed;
+//   4. per tile pixel: the threshold and the NMS; -inf is written at once
+//      where they fail, and the rest is listed;
+//   5. tests the mask at the listed pixels, all at once (the tables', then
+//      the mask's reads wait once a tile, not once a warp's pass);
+//   6. per corner, 8 lanes: lane j < 7 adds the Sobel products of window
+//      row j left to right from the first tap, lane 0 adds the 7 rows top
+//      to bottom (shuffles), computes Harris and writes key (and fkey);
+// then its warps write the block's share of the spans, -inf with 16-byte
+// stores. A tile whose halo stays inside the canvas (every tile at ORB's
+// edge of 31) reads shared memory at fixed offsets; one that reaches past
+// it clamps, reflects and tests each read (corner_tile<true>).
 //
-// Bound: bytes. It reads the stack once (14.9 MB a KITTI frame) and
-// writes key (and fkey) once; about 270 float operations a pixel inside
-// the levels' border boxes cost less than the bytes at 67 TFLOP/s. The
-// halo re-reads 1.56x the tile's pixels, from L2.
+// FAST's pretest is exact. An arc of 9 contiguous circle pixels (of 16)
+// always holds two adjacent ones of the 4 cardinal pixels (circle indices
+// 0, 4, 8, 12: 9 consecutive indices hold two consecutive multiples of 4).
+// A bright arc scores > threshold only if each of its 9 pixels has
+// __fsub_rn(n, v) > threshold, a dark one only if each has
+// __fsub_rn(v, n) > threshold. So where no two adjacent cardinals are both
+// bright (both dark) by that test, read with the same replicate clamping
+// at the canvas's edge as the circle, the bright (dark) arc score is <=
+// threshold. A pixel that fails for both polarities scores <= threshold:
+// it is no corner, and since a corner's own score is > threshold it
+// cannot change a corner's NMS test either; its score is held as -inf.
+// Where one polarity fails, the other's arc score stands for the score:
+// the two agree wherever either is > threshold, and elsewhere the value
+// again decides nothing. fkey is written only at corners, where the
+// score is exact. tests/test_torch_orb.py checks this on the plain
+// functions.
+//
+// The paddings are those of the plain version, all at the canvas's edge,
+// not the level's: replicate for FAST, reflect-101 for Sobel, zero for the
+// box sums, -inf for the NMS.
+//
+// Bound: bytes. It must read each level's border box and its 4-pixel halo
+// of the stack (4.27 MB on a KITTI frame) and the mask where a corner
+// tests it, and write key (and fkey) once over the whole canvas (14.94 MB
+// each); the pretest leaves 2-19% of a level's pixels to FAST's arcs on
+// the bench's frames, and Harris runs at the ~1.6% that are corners. What
+// holds it above the bound is the instructions a tile issues between its
+// barriers (48 registers: 5 blocks an SM).
 //
 // Bit-exactness with the plain version (torch on the CPU, which rounds
 // every product and sum on its own, and ops/image.fma where XLA fuses a
@@ -42,29 +79,57 @@
 // once to float32, as ops/image.fma (not fmaf).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "spans.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kHalo = 4;                // FAST's 3 + the NMS's 1
-constexpr int kIn = kTile + 2 * kHalo;  // 40: the image tile
-constexpr int kScore = kTile + 2;       // 34: scores, for the NMS
-constexpr int kProd = kTile + 6;        // 38: Sobel products, for the box
-constexpr int kBox = 7;
+#ifdef OVO_SERIAL
+constexpr int kThreads = 1;
+#else
 constexpr int kThreads = 256;
-constexpr int kMaxLevels = 16;
+#endif
+constexpr int kWarps = kThreads >= 32 ? kThreads / 32 : 1;
+constexpr int kLanes = kThreads >= 32 ? 32 : kThreads;
+constexpr int kTileH = 32, kTileW = 64;  // orb_cuda.CORNER_TILE
+constexpr int kHalo = 4;                 // FAST's 3 + the NMS's 1
+constexpr int kInH = kTileH + 2 * kHalo, kInW = kTileW + 2 * kHalo;
+constexpr int kInStride = kInW + 1;
+constexpr int kScH = kTileH + 2, kScW = kTileW + 2;  // scores, for the NMS
+constexpr int kBox = 7;
+constexpr int kGroup = 8;      // lanes a corner in Harris (7 rows)
+constexpr int kTileInts = 5;   // a tile: {level, y0, y1, x0, x1}
+constexpr int kBright = 1 << 14, kDark = 1 << 15;
+constexpr uint16_t kStruck = 0xffff;   // a listed corner the mask refuses
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kScH * kScW < kBright, "a pretest entry: 14 bits of index");
+static_assert(kTileH * kTileW < kStruck, "a corner entry: 16 bits");
 
-struct Levels {
-  int h[kMaxLevels], w[kMaxLevels];
+// FAST's circle of radius 3, (dx, dy) in circular order (orb.FAST_CIRCLE):
+// dx = 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1 and
+// dy(q) = -dx(q + 4)
+__host__ __device__ constexpr int circle_dx(int q) {
+  return q <= 3 ? q : (q <= 5 ? 3 : (q <= 11 ? 8 - q : (q <= 13 ? -3
+                                                                 : q - 16)));
+}
+__host__ __device__ constexpr int circle_dy(int q) {
+  return -circle_dx((q + 4) & 15);
+}
+
+struct TileSmem {
+  float img[kInH][kInStride];        // the canvas from (y0 - 4, x0 - 4)
+  float score[kScH][kScW];           // from (y0 - 1, x0 - 1)
+  uint16_t pass[kScH * kScW];        // pretest passes: index | polarities
+  uint16_t corners[kTileH * kTileW]; // r * kTileW + c
+  int npass, ncorners;
 };
 
-// FAST's circle of radius 3, (dx, dy) in circular order (orb.FAST_CIRCLE)
-__constant__ int kCircleX[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                                 0, -1, -2, -3, -3, -3, -2, -1};
-__constant__ int kCircleY[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
-                                 3, 3, 2, 1, 0, -1, -2, -3};
+struct Prod {
+  float xx, yy, xy;
+};
 
 __device__ __forceinline__ float emu_fma(float a, float b, float c) {
   return __double2float_rn(
@@ -96,186 +161,343 @@ __device__ __forceinline__ float arc_score(const float (&m)[16]) {
   return out;
 }
 
-__global__ void __launch_bounds__(kThreads) corner_keys_kernel(
-    const float* __restrict__ stack, int H, int W, int nl, Levels lv,
-    const uint8_t* __restrict__ mask, const int* __restrict__ rows,
-    const int* __restrict__ cols, int edge, float threshold,
-    float* __restrict__ key, float* __restrict__ fkey, int tiles_x) {
-  __shared__ float img[kIn][kIn + 1];
-  __shared__ float score[kScore][kScore + 1];
-  __shared__ float pxx[kProd][kProd + 1], pyy[kProd][kProd + 1],
-      pxy[kProd][kProd + 1];
-  __shared__ float hxx[kProd][kTile + 1], hyy[kProd][kTile + 1],
-      hxy[kProd][kTile + 1];
-  const int l = blockIdx.y, f = blockIdx.z, t = threadIdx.x;
-  const int ty0 = (blockIdx.x / tiles_x) * kTile;
-  const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  const size_t plane = ((size_t)f * nl + l) * H * W;
-  const float* src = stack + plane;
-  float* kout = key + plane;
-  float* fout = fkey == nullptr ? nullptr : fkey + plane;
-  const float neg_inf = -INFINITY;
+// Sobel's two 3-tap sums in the plain version's order, (a + 2b) + c
+__device__ __forceinline__ float tri(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(a, __fmul_rn(2.f, b)), c);
+}
 
-  // the level's border box, cut to the canvas
-  const int y_lo = edge, y_hi = min(lv.h[l] - edge, H);
-  const int x_lo = edge, x_hi = min(lv.w[l] - edge, W);
-  if (y_lo >= y_hi || x_lo >= x_hi || ty0 >= y_hi || ty0 + kTile <= y_lo ||
-      tx0 >= x_hi || tx0 + kTile <= x_lo) {
-    for (int i = t; i < kTile * kTile; i += kThreads) {
-      const int y = ty0 + i / kTile, x = tx0 + i % kTile;
-      if (y < H && x < W) {
+__device__ __forceinline__ void add_to(Prod& a, const Prod& b) {
+  a.xx = __fadd_rn(a.xx, b.xx);
+  a.yy = __fadd_rn(a.yy, b.yy);
+  a.xy = __fadd_rn(a.xy, b.xy);
+}
+
+// Sobel at canvas pixel (y, x) with reflect-101 at the canvas's edge,
+// dx = ((a + 2b) + c) - ((d + 2e) + f) over the right and left columns,
+// dy the same over the lower and upper rows, and the three products
+// rounded; 0 outside the canvas (the box sum's zero padding). img holds
+// the canvas from (oy, ox).
+__device__ __forceinline__ Prod sobel_products(const TileSmem& s, int H,
+                                               int W, int oy, int ox, int y,
+                                               int x) {
+  Prod p{0.f, 0.f, 0.f};
+  if (y < 0 || y >= H || x < 0 || x >= W) return p;
+  const int ym = reflect101(y - 1, H) - oy, yc = y - oy,
+            yp = reflect101(y + 1, H) - oy;
+  const int xm = reflect101(x - 1, W) - ox, xc = x - ox,
+            xp = reflect101(x + 1, W) - ox;
+  const float dx = __fsub_rn(tri(s.img[ym][xp], s.img[yc][xp], s.img[yp][xp]),
+                             tri(s.img[ym][xm], s.img[yc][xm], s.img[yp][xm]));
+  const float dy = __fsub_rn(tri(s.img[yp][xm], s.img[yp][xc], s.img[yp][xp]),
+                             tri(s.img[ym][xm], s.img[ym][xc], s.img[ym][xp]));
+  p.xx = __fmul_rn(dx, dx);
+  p.yy = __fmul_rn(dy, dy);
+  p.xy = __fmul_rn(dx, dy);
+  return p;
+}
+
+// A row of the 7x7 box at canvas row y around column x: the products at
+// x - 3 .. x + 3 added left to right from the first. kEdge: the window
+// may reach the canvas's edge (reflect-101, zeros beyond); else rows
+// y - 1 .. y + 1 and columns x - 4 .. x + 4 lie inside it, and the nine
+// columns are read once.
+template <bool kEdge>
+__device__ __forceinline__ Prod box_row(const TileSmem& s, int H, int W,
+                                        int oy, int ox, int y, int x) {
+  if (kEdge) {
+    Prod a = sobel_products(s, H, W, oy, ox, y, x - 3);
+#pragma unroll
+    for (int k = 1; k < kBox; ++k)
+      add_to(a, sobel_products(s, H, W, oy, ox, y, x - 3 + k));
+    return a;
+  }
+  const float* up = &s.img[y - 1 - oy][x - 4 - ox];
+  float u[9], m[9], d[9], v[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    u[k] = up[k];
+    m[k] = up[kInStride + k];
+    d[k] = up[2 * kInStride + k];
+    v[k] = tri(u[k], m[k], d[k]);   // a column's (a + 2b) + c
+  }
+  Prod a{0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kBox; ++k) {
+    const float dx = __fsub_rn(v[k + 2], v[k]);
+    const float dy = __fsub_rn(tri(d[k], d[k + 1], d[k + 2]),
+                               tri(u[k], u[k + 1], u[k + 2]));
+    const Prod p{__fmul_rn(dx, dx), __fmul_rn(dy, dy), __fmul_rn(dx, dy)};
+    if (k == 0)
+      a = p;
+    else
+      add_to(a, p);
+  }
+  return a;
+}
+
+// det = fma(sxx, syy, -(sxy * sxy)), tr = sxx + syy,
+// resp = fma(-(0.04 * tr), tr, det)
+__device__ __forceinline__ float harris(const Prod& b) {
+  const float det = emu_fma(b.xx, b.yy, -__fmul_rn(b.xy, b.xy));
+  const float tr = __fadd_rn(b.xx, b.yy);
+  const float ktr = __fmul_rn(0.04f, tr);
+  return emu_fma(-ktr, tr, det);
+}
+
+// The tile [y0, y1) x [x0, x1) of one level's plane: src the stack's
+// plane, kout/fout the keys' (fout NULL without cv2's ranking), m0 the
+// frame's level-0 mask and rows/cols the level's rows of the mask tables
+// (all three NULL without a mask). kEdge: the tile's 4-pixel halo reaches
+// past the canvas, so reads clamp, reflect and test; else (every tile of
+// ORB's default edge of 31) they read the shared tile at fixed offsets.
+template <bool kEdge>
+__device__ void corner_tile(TileSmem& s, const float* __restrict__ src,
+                            int H, int W, int y0, int y1, int x0, int x1,
+                            const uint8_t* __restrict__ m0,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ cols, float thr,
+                            float* __restrict__ kout,
+                            float* __restrict__ fout) {
+  const int t = threadIdx.x, warp = t / kLanes, lane = t % kLanes;
+  const float neg_inf = -INFINITY;
+  const int oy = y0 - kHalo, ox = x0 - kHalo;
+
+  // 1. the canvas around the tile (what lies outside it is never read)
+  const int ly0 = max(oy, 0), ly1 = min(y1 + kHalo, H);
+  const int lx0 = max(ox, 0), lx1 = min(x1 + kHalo, W);
+  for (int y = ly0 + warp; y < ly1; y += kWarps)
+    for (int x = lx0 + lane; x < lx1; x += kLanes)
+      copy_async(&s.img[y - oy][x - ox], src + (size_t)y * W + x);
+  if (t == 0) {
+    s.npass = 0;
+    s.ncorners = 0;
+  }
+  wait_async();
+  __syncthreads();
+
+  // 2. the pretest on rows y0 - 1 .. y1, columns x0 - 1 .. x1: adjacent
+  // cardinals both bright or both dark; -inf outside the canvas (the
+  // NMS's padding) and where neither polarity passes
+  const int sh = y1 - y0 + 2, sw = x1 - x0 + 2;
+  for (int i0 = 0; i0 < kScH * kScW; i0 += kThreads) {
+    const int i = i0 + t, r = i / kScW, c = i - r * kScW;
+    const int y = y0 - 1 + r, x = x0 - 1 + c;
+    int code = 0;
+    if (r < sh && c < sw) {
+      if (!kEdge || (y >= 0 && y < H && x >= 0 && x < W)) {
+        const float* p = &s.img[r + 3][c + 3];   // (y, x)
+        const float v = *p;
+        const float n0 = kEdge ? s.img[clampi(y - 3, 0, H - 1) - oy][c + 3]
+                               : p[-3 * kInStride];
+        const float n4 = kEdge ? s.img[r + 3][clampi(x + 3, 0, W - 1) - ox]
+                               : p[3];
+        const float n8 = kEdge ? s.img[clampi(y + 3, 0, H - 1) - oy][c + 3]
+                               : p[3 * kInStride];
+        const float n12 = kEdge ? s.img[r + 3][clampi(x - 3, 0, W - 1) - ox]
+                                : p[-3];
+        const bool b0 = __fsub_rn(n0, v) > thr, b4 = __fsub_rn(n4, v) > thr,
+                   b8 = __fsub_rn(n8, v) > thr, b12 = __fsub_rn(n12, v) > thr;
+        const bool d0 = __fsub_rn(v, n0) > thr, d4 = __fsub_rn(v, n4) > thr,
+                   d8 = __fsub_rn(v, n8) > thr, d12 = __fsub_rn(v, n12) > thr;
+        if ((b0 && b4) || (b4 && b8) || (b8 && b12) || (b12 && b0))
+          code |= kBright;
+        if ((d0 && d4) || (d4 && d8) || (d8 && d12) || (d12 && d0))
+          code |= kDark;
+      }
+      s.score[r][c] = neg_inf;
+    }
+    append(s.pass, &s.npass, code != 0, (uint16_t)(code | i));
+  }
+  __syncthreads();
+
+  // 3. the arc scores of the polarities that passed
+  const int npass = s.npass;
+  for (int k = t; k < npass; k += kThreads) {
+    const int code = s.pass[k], i = code & (kBright - 1);
+    const int r = i / kScW, c = i - r * kScW;
+    const float* p = &s.img[r + 3][c + 3];
+    const float v = *p;
+    float n[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      n[q] = kEdge
+                 ? s.img[clampi(y0 - 1 + r + circle_dy(q), 0, H - 1) - oy]
+                        [clampi(x0 - 1 + c + circle_dx(q), 0, W - 1) - ox]
+                 : p[circle_dy(q) * kInStride + circle_dx(q)];
+    float sb = neg_inf, sd = neg_inf;
+    if (code & kBright) {
+      float m[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) m[q] = __fsub_rn(n[q], v);
+      sb = arc_score(m);
+    }
+    if (code & kDark) {
+      float m[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) m[q] = __fsub_rn(v, n[q]);
+      sd = arc_score(m);
+    }
+    s.score[r][c] = fmaxf(sb, sd);
+  }
+  __syncthreads();
+
+  // 4. the NMS and the tests; -inf where they fail, the corners listed
+  const int th = y1 - y0, tw = x1 - x0;
+  for (int i0 = 0; i0 < kTileH * kTileW; i0 += kThreads) {
+    const int i = i0 + t, r = i / kTileW, c = i % kTileW;
+    bool corner = false;
+    if (r < th && c < tw) {
+      const int y = y0 + r, x = x0 + c;
+      const float sc = s.score[r + 1][c + 1];
+      corner = sc > thr;
+      if (corner) {
+        float mx = sc;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            mx = fmaxf(mx, s.score[r + dy][c + dx]);
+        corner = sc >= mx;
+      }
+      if (!corner) {
         kout[(size_t)y * W + x] = neg_inf;
         if (fout != nullptr) fout[(size_t)y * W + x] = neg_inf;
       }
     }
-    return;
-  }
-
-  // 1. the canvas at rows oy.., columns ox.. (0 outside it, never read)
-  const int oy = ty0 - kHalo, ox = tx0 - kHalo;
-  for (int i = t; i < kIn * kIn; i += kThreads) {
-    const int r = i / kIn, c = i % kIn, y = oy + r, x = ox + c;
-    img[r][c] = (y >= 0 && y < H && x >= 0 && x < W)
-                    ? __ldg(src + (size_t)y * W + x)
-                    : 0.f;
+    append(s.corners, &s.ncorners, corner, (uint16_t)i);
   }
   __syncthreads();
 
-  // 2. FAST: bright = n - img, dark = img - n over the 16 neighbours,
-  // replicated at the canvas's edge; -inf outside the canvas (the NMS's
-  // padding)
-  for (int i = t; i < kScore * kScore; i += kThreads) {
-    const int r = i / kScore, c = i % kScore;
-    const int y = ty0 - 1 + r, x = tx0 - 1 + c;
-    float s = neg_inf;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      const float v = img[y - oy][x - ox];
-      float bright[16], dark[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float n = img[clampi(y + kCircleY[k], 0, H - 1) - oy]
-                           [clampi(x + kCircleX[k], 0, W - 1) - ox];
-        bright[k] = __fsub_rn(n, v);
-        dark[k] = __fsub_rn(v, n);
+  // 5. the mask test of the listed corners, all at once (its two
+  // dependent reads, the tables then the mask, wait once a tile); -inf
+  // and struck from the list where it fails
+  const int nc = s.ncorners;
+  if (m0 != nullptr) {
+    for (int k = t; k < nc; k += kThreads) {
+      const int r = s.corners[k] / kTileW, c = s.corners[k] % kTileW;
+      const int y = y0 + r, x = x0 + c;
+      const int yi = rows[y], xi = cols[x];
+      if (yi < 0 || xi < 0 || m0[(size_t)yi * W + xi] == 0) {
+        kout[(size_t)y * W + x] = neg_inf;
+        if (fout != nullptr) fout[(size_t)y * W + x] = neg_inf;
+        s.corners[k] = kStruck;
       }
-      s = fmaxf(arc_score(bright), arc_score(dark));
     }
-    score[r][c] = s;
+    __syncthreads();
   }
 
-  // 3. Sobel with reflect-101 at the canvas's edge:
-  // dx = ((a + 2b) + c) - ((d + 2e) + f) over the right and left columns,
-  // dy the same over the lower and upper rows; the products rounded; 0
-  // outside the canvas
-  for (int i = t; i < kProd * kProd; i += kThreads) {
-    const int r = i / kProd, c = i % kProd;
-    const int y = ty0 - 3 + r, x = tx0 - 3 + c;
-    float vxx = 0.f, vyy = 0.f, vxy = 0.f;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      const int ym = reflect101(y - 1, H) - oy, yc = y - oy,
-                yp = reflect101(y + 1, H) - oy;
-      const int xm = reflect101(x - 1, W) - ox, xc = x - ox,
-                xp = reflect101(x + 1, W) - ox;
-      const float dx = __fsub_rn(
-          __fadd_rn(__fadd_rn(img[ym][xp], __fmul_rn(2.f, img[yc][xp])),
-                    img[yp][xp]),
-          __fadd_rn(__fadd_rn(img[ym][xm], __fmul_rn(2.f, img[yc][xm])),
-                    img[yp][xm]));
-      const float dy = __fsub_rn(
-          __fadd_rn(__fadd_rn(img[yp][xm], __fmul_rn(2.f, img[yp][xc])),
-                    img[yp][xp]),
-          __fadd_rn(__fadd_rn(img[ym][xm], __fmul_rn(2.f, img[ym][xc])),
-                    img[ym][xp]));
-      vxx = __fmul_rn(dx, dx);
-      vyy = __fmul_rn(dy, dy);
-      vxy = __fmul_rn(dx, dy);
-    }
-    pxx[r][c] = vxx;
-    pyy[r][c] = vyy;
-    pxy[r][c] = vxy;
+  // 6. Harris at the corners
+#ifdef OVO_SERIAL
+  for (int k = 0; k < nc; ++k) {
+    if (s.corners[k] == kStruck) continue;
+    const int r = s.corners[k] / kTileW, c = s.corners[k] % kTileW;
+    const int y = y0 + r, x = x0 + c;
+    Prod b = box_row<kEdge>(s, H, W, oy, ox, y - 3, x);
+    for (int j = 1; j < kBox; ++j)
+      add_to(b, box_row<kEdge>(s, H, W, oy, ox, y - 3 + j, x));
+    kout[(size_t)y * W + x] = harris(b);
+    if (fout != nullptr) fout[(size_t)y * W + x] = s.score[r + 1][c + 1];
   }
-  __syncthreads();
-
-  // 4. the box's horizontal taps, left to right from the first tap
-  for (int i = t; i < kProd * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile;
-    float a = pxx[r][c], b = pyy[r][c], d = pxy[r][c];
-#pragma unroll
-    for (int k = 1; k < kBox; ++k) {
-      a = __fadd_rn(a, pxx[r][c + k]);
-      b = __fadd_rn(b, pyy[r][c + k]);
-      d = __fadd_rn(d, pxy[r][c + k]);
+#else
+  constexpr int kGroups = kThreads / kGroup;
+  const int g = t / kGroup, j = t % kGroup, lead = lane & ~(kGroup - 1);
+  for (int base = 0; base < nc; base += kGroups) {
+    const int k = base + g;
+    const bool on = k < nc && s.corners[k] != kStruck;
+    int r = 0, c = 0;
+    Prod row{0.f, 0.f, 0.f};
+    if (on) {
+      r = s.corners[k] / kTileW;
+      c = s.corners[k] % kTileW;
+      if (j < kBox)
+        row = box_row<kEdge>(s, H, W, oy, ox, y0 + r - 3 + j, x0 + c);
     }
-    hxx[r][c] = a;
-    hyy[r][c] = b;
-    hxy[r][c] = d;
+    Prod b{__shfl_sync(kFull, row.xx, lead), __shfl_sync(kFull, row.yy, lead),
+           __shfl_sync(kFull, row.xy, lead)};
+#pragma unroll
+    for (int q = 1; q < kBox; ++q)
+      add_to(b, Prod{__shfl_sync(kFull, row.xx, lead + q),
+                     __shfl_sync(kFull, row.yy, lead + q),
+                     __shfl_sync(kFull, row.xy, lead + q)});
+    if (on && j == 0) {
+      const size_t at = (size_t)(y0 + r) * W + x0 + c;
+      kout[at] = harris(b);
+      if (fout != nullptr) fout[at] = s.score[r + 1][c + 1];
+    }
   }
-  __syncthreads();
+#endif
+}
 
-  // 5. each output pixel: the tests, then (at a corner) the vertical taps
-  // and Harris: det = fma(sxx, syy, -(sxy * sxy)), tr = sxx + syy,
-  // resp = fma(-(0.04 * tr), tr, det)
-  const uint8_t* m0 = mask == nullptr ? nullptr : mask + (size_t)f * H * W;
-  for (int i = t; i < kTile * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile;
-    const int y = ty0 + r, x = tx0 + c;
-    if (y >= H || x >= W) continue;
-    const float s = score[r + 1][c + 1];
-    float mx = s;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) mx = fmaxf(mx, score[r + dy][c + dx]);
-    bool corner = s > threshold && s >= mx && y >= y_lo && y < y_hi &&
-                  x >= x_lo && x < x_hi;
-    if (corner && m0 != nullptr) {
-      const int yi = rows[l * H + y], xi = cols[l * W + x];
-      corner = yi >= 0 && xi >= 0 && m0[(size_t)yi * W + xi] != 0;
-    }
-    float k = neg_inf;
-    if (corner) {
-      float sxx = hxx[r][c], syy = hyy[r][c], sxy = hxy[r][c];
-#pragma unroll
-      for (int j = 1; j < kBox; ++j) {
-        sxx = __fadd_rn(sxx, hxx[r + j][c]);
-        syy = __fadd_rn(syy, hyy[r + j][c]);
-        sxy = __fadd_rn(sxy, hxy[r + j][c]);
-      }
-      const float det = emu_fma(sxx, syy, -__fmul_rn(sxy, sxy));
-      const float tr = __fadd_rn(sxx, syy);
-      const float ktr = __fmul_rn(0.04f, tr);
-      k = emu_fma(-ktr, tr, det);
-    }
-    kout[(size_t)y * W + x] = k;
-    if (fout != nullptr) fout[(size_t)y * W + x] = corner ? s : neg_inf;
+// Tile b of frame f: its level's plane and the tile's edge test.
+__device__ __forceinline__ void corner_block(
+    TileSmem& s, const float* __restrict__ stack, int H, int W, int nl,
+    const int* __restrict__ tl, int f, const uint8_t* __restrict__ mask,
+    const int* __restrict__ rows, const int* __restrict__ cols,
+    float threshold, float* __restrict__ key, float* __restrict__ fkey) {
+  const int l = tl[0], y0 = tl[1], y1 = tl[2], x0 = tl[3], x1 = tl[4];
+  const size_t plane = (size_t)H * W, off = (f * (size_t)nl + l) * plane;
+  const float* src = stack + off;
+  const uint8_t* m0 = mask == nullptr ? nullptr : mask + f * plane;
+  const int* rl = rows == nullptr ? nullptr : rows + (size_t)l * H;
+  const int* cl = cols == nullptr ? nullptr : cols + (size_t)l * W;
+  float* fout = fkey == nullptr ? nullptr : fkey + off;
+  if (y0 < kHalo || x0 < kHalo || y1 + kHalo > H || x1 + kHalo > W)
+    corner_tile<true>(s, src, H, W, y0, y1, x0, x1, m0, rl, cl, threshold,
+                      key + off, fout);
+  else
+    corner_tile<false>(s, src, H, W, y0, y1, x0, x1, m0, rl, cl, threshold,
+                       key + off, fout);
+}
+
+__global__ void __launch_bounds__(kThreads) corner_keys_kernel(
+    const float* __restrict__ stack, int H, int W, int nl,
+    const int* __restrict__ tiles, int ntiles, const int* __restrict__ spans,
+    int nspans, const uint8_t* __restrict__ mask,
+    const int* __restrict__ rows, const int* __restrict__ cols,
+    float threshold, float* __restrict__ key, float* __restrict__ fkey) {
+  __shared__ TileSmem s;
+  const size_t frame = (size_t)H * W * nl;
+  const int blocks = frame_blocks(ntiles, nspans, kWarps);
+  const int f = blockIdx.x / blocks, b = blockIdx.x % blocks;
+  if (b < ntiles)
+    corner_block(s, stack, H, W, nl, tiles + (size_t)b * kTileInts, f, mask,
+                 rows, cols, threshold, key, fkey);
+  // then this block's spans outside every level's border box: -inf, a
+  // warp each
+  const int item = b + blocks * (threadIdx.x / kLanes);
+  if (item < nspans) {
+    const int* sp = spans + (size_t)item * kSpanInts;
+    write_span(sp, key + f * frame,
+               fkey == nullptr ? nullptr : fkey + f * frame, nullptr, W,
+               -INFINITY, threadIdx.x % kLanes, kLanes);
   }
 }
 
 }  // namespace
 
-// stack (frames, nl, H, W); sizes (h, w) a level (host); mask (frames, H,
-// W) bytes, rows (nl, H) and cols (nl, W), all three NULL or none; key and
-// fkey (frames, nl, H, W), fkey NULL unless wanted.
+// stack (frames, nl, H, W); tiles (ntiles, 5) and spans (nspans, 4), a
+// frame's (orb_cuda.corner_tables); mask (frames, H, W) bytes, rows (nl,
+// H) and cols (nl, W), all three NULL or none; key and fkey (frames, nl,
+// H, W), fkey NULL unless wanted.
 extern "C" int ovo_corner_keys(const float* stack, int H, int W, int nl,
-                               const int* sizes, const uint8_t* mask,
-                               const int* rows, const int* cols, int edge,
-                               float threshold, float* key, float* fkey,
-                               int frames, void* stream) {
-  if (nl <= 0 || nl > kMaxLevels || H < 2 || W < 2 || frames <= 0 ||
-      frames > 65535 || (mask == nullptr) != (rows == nullptr) ||
-      (mask == nullptr) != (cols == nullptr))
+                               const int* tiles, int ntiles,
+                               const int* spans, int nspans,
+                               const uint8_t* mask, const int* rows,
+                               const int* cols, float threshold, float* key,
+                               float* fkey, int frames, void* stream) {
+  if (nl <= 0 || H < 2 || W < 2 || frames <= 0 || ntiles < 0 ||
+      nspans < 0 || (mask == nullptr) != (rows == nullptr) ||
+      (mask == nullptr) != (cols == nullptr) ||
+      (fkey != nullptr &&
+       ((reinterpret_cast<uintptr_t>(key) ^ reinterpret_cast<uintptr_t>(fkey)) &
+        15) != 0))
     return (int)cudaErrorInvalidValue;
-  Levels lv;
-  for (int l = 0; l < nl; ++l) {
-    lv.h[l] = sizes[2 * l];
-    lv.w[l] = sizes[2 * l + 1];
-  }
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const long long tiles = (long long)tiles_x * ((H + kTile - 1) / kTile);
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)tiles, nl, frames);
-  corner_keys_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      stack, H, W, nl, lv, mask, rows, cols, edge, threshold, key, fkey,
-      tiles_x);
+  const long long blocks =
+      (long long)frames * frame_blocks(ntiles, nspans, kWarps);
+  if (blocks == 0) return (int)cudaSuccess;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  corner_keys_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      stack, H, W, nl, tiles, ntiles, spans, nspans, mask, rows, cols,
+      threshold, key, fkey);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from openvo_tpu_torch import _build
 from openvo_tpu_torch.ops._dispatch import (check_cuda_input,
@@ -189,17 +190,119 @@ def resize_levels_plain(img, dims):
     return stack
 
 
+# A warp of H6 or H9 writes one span (csrc/spans.cuh): at most this many
+# floats, or one whole run of a row where that is longer.
+SPAN_FLOATS = 2048
+
+
+def canvas_spans(H: int, W: int, keep, copy=()):
+    """The spans (int32 (n, 4): {dst, n, rows, src}, csrc/spans.cuh) of a
+    frame's (nl, H, W) stack that H6 and H9 write outside their tiles: of
+    each level l, its (H, W) plane less the rectangle ``keep[l]`` =
+    (y0, y1, x0, x1) (none where it is empty), in runs of at most
+    SPAN_FLOATS; of the levels in ``copy``, the whole plane, copied from
+    the same place of the frame's (H, W) input (src >= 0). Offsets count
+    floats from the frame's start."""
+    if len(keep) * H * W >= 2 ** 31:
+        raise ValueError(f"a stack of {len(keep)}x{H}x{W} is too large for "
+                         f"32-bit offsets")
+    out = []
+
+    def flat(base, a, b, src):
+        for s in range(a, b, SPAN_FLOATS):
+            out.append((base + s, min(SPAN_FLOATS, b - s), 1,
+                        s if src else -1))
+
+    for level, (y0, y1, x0, x1) in enumerate(keep):
+        base = level * H * W
+        if level in copy or y0 >= y1 or x0 >= x1:
+            flat(base, 0, H * W, level in copy)
+            continue
+        flat(base, 0, y0 * W + x0, False)
+        n = W - (x1 - x0)   # from a row's x1 to the next row's x0
+        if n > 0:
+            step = max(1, SPAN_FLOATS // n)
+            out += [(base + y * W + x1, n, min(step, y1 - 1 - y), -1)
+                    for y in range(y0, y1 - 1, step)]
+        flat(base, (y1 - 1) * W + x1, H * W, False)
+    return np.asarray(out, np.int32).reshape(-1, 4)
+
+
+# H6's tiles: at most 16 output rows by 64 columns, and the most image
+# floats and mid values a tile holds in shared memory (csrc/resize.cu's
+# kTileRows, kTileCols, kInFloats, kMidFloats)
+RESIZE_TILE = (16, 64)
+RESIZE_IN = 4096
+RESIZE_MID = 2048
+
+
+def _reach(first, count, a, b):
+    """[lo, hi): the inputs that outputs [a, b) of a band of taps read
+    (``resize_taps``' first and count); (0, 0) where they read none."""
+    on = count[a:b] > 0
+    if not on.any():
+        return 0, 0
+    return (int(first[a:b][on].min()),
+            int((first[a:b] + count[a:b])[on].max()))
+
+
+def _resize_tiles(H, W, dims, rows, cols):
+    """H6's tiles of a frame: {level, i0, i1, j0, j1, c_lo, c_hi, r_lo,
+    r_hi, row0, col0} (csrc/resize.cu), int32 (n, 11); a level's tiles are
+    made narrower (then shorter) until each one's image rows and columns
+    fit RESIZE_IN and its mid values RESIZE_MID."""
+    tiles = []
+    row0 = col0 = 0
+    for level, ((h, w), (rf, rc, _), (cf, cc, _)) in enumerate(
+            zip(dims[1:], rows, cols), 1):
+        hh, ww = min(h, H), min(w, W)
+
+        def fits(th, tw):
+            for i in range(0, hh, th):
+                r_lo, r_hi = _reach(rf, rc, i, i + th)
+                for j in range(0, ww, tw):
+                    c_lo, c_hi = _reach(cf, cc, j, j + tw)
+                    if (min(th, hh - i) * (c_hi - c_lo) > RESIZE_MID
+                            or (r_hi - r_lo) * (c_hi - c_lo) > RESIZE_IN):
+                        return False
+            return True
+
+        th, tw = min(RESIZE_TILE[0], hh), RESIZE_TILE[1]
+        while not fits(th, tw):
+            if tw > 1:
+                tw //= 2
+            elif th > 1:
+                th //= 2
+            else:
+                raise ValueError(f"level {level} ({h}x{w}): one output's "
+                                 f"taps exceed H6's shared memory")
+        for i0 in range(0, hh, th):
+            i1 = min(i0 + th, hh)
+            for j0 in range(0, ww, tw):
+                j1 = min(j0 + tw, ww)
+                tiles.append((level, i0, i1, j0, j1, *_reach(cf, cc, j0, j1),
+                              *_reach(rf, rc, i0, i1), row0, col0))
+        row0 += h
+        col0 += w
+    return np.asarray(tiles, np.int32).reshape(-1, 11)
+
+
 @functools.lru_cache(maxsize=16)
 def level_tables(H: int, W: int, dims: tuple, device):
-    """H6's tap tables on ``device``, built and uploaded once per frame
-    size and level sizes: every level after the first, its rows' and then
-    its columns' :func:`resize_taps`, concatenated and padded to one tap
-    count, and the levels' sizes (host, int32)."""
+    """H6's tables on ``device``, built and uploaded once per frame size
+    and level sizes: every level after the first, its rows' and then its
+    columns' :func:`resize_taps`, concatenated and padded to one tap
+    count; the tap count; the tiles (:func:`_resize_tiles`); the spans of
+    the stack that no tile writes (level 0, copied from the image, and the
+    zeros beyond each level, :func:`canvas_spans`)."""
     rows = [resize_taps(H, h) for h, _ in dims[1:]]
     cols = [resize_taps(W, w) for _, w in dims[1:]]
-    taps = max(t[2].shape[1] for t in rows + cols)
+    taps = max((t[2].shape[1] for t in rows + cols), default=1)
 
     def cat(parts):
+        if not parts:
+            return tuple(torch.zeros(1, dtype=dt, device=device)
+                         for dt in (torch.int32, torch.int32, torch.float32))
         first = np.concatenate([p[0] for p in parts])
         count = np.concatenate([p[1] for p in parts])
         w = np.concatenate([np.pad(p[2], ((0, 0), (0, taps - p[2].shape[1])))
@@ -207,9 +310,12 @@ def level_tables(H: int, W: int, dims: tuple, device):
         return tuple(torch.from_numpy(a).to(device) for a in (first, count,
                                                               w))
 
-    sizes = (ctypes.c_int * (2 * len(dims) - 2))(
-        *[v for hw in dims[1:] for v in hw])
-    return cat(rows), cat(cols), taps, sizes
+    keep = [(0, 0, 0, 0)] + [(0, min(h, H), 0, min(w, W))
+                             for h, w in dims[1:]]
+    tiles = _resize_tiles(H, W, dims, rows, cols)
+    spans = canvas_spans(H, W, keep, copy=(0,))
+    return (cat(rows), cat(cols), taps,
+            *(torch.from_numpy(a).to(device) for a in (tiles, spans)))
 
 
 def resize_levels(img, dims):
@@ -219,7 +325,8 @@ def resize_levels(img, dims):
     antialiased linear resize to ``dims[l]`` = (h, w), cut to H x W and
     zero beyond; each output pixel is :func:`resize_levels_plain`'s two
     chains of multiply-adds in its order, so the bits are the plain
-    version's. One launch for every level (see ``csrc/resize.cu``).
+    version's. One launch writes the whole stack: the levels' tiles, level
+    0's copy and the zeros (see ``csrc/resize.cu``).
 
     A batch, (B, H, W) images, gives (B, nl, H, W) from the same launch."""
     dev = img.device
@@ -232,23 +339,74 @@ def resize_levels(img, dims):
     H, W = img.shape[-2:]
     check_cuda_input(img, torch.float32, lead + (H, W), "img")
     dims = tuple((int(h), int(w)) for h, w in dims)
-    stack = torch.zeros(lead + (len(dims), H, W), dtype=torch.float32,
+    stack = torch.empty(lead + (len(dims), H, W), dtype=torch.float32,
                         device=dev)
-    stack[..., 0, :, :] = img
     frames = lead[0] if lead else 1
-    if len(dims) < 2 or frames == 0:
+    if frames == 0:
         return stack
-    (r0, rn, rw), (c0, cn, cw), taps, sizes = level_tables(H, W, dims, dev)
+    (r0, rn, rw), (c0, cn, cw), taps, tiles, spans = level_tables(
+        H, W, dims, dev)
     err = _build.library().ovo_resize_levels(
-        img.data_ptr(), H, W, r0.data_ptr(), rn.data_ptr(), rw.data_ptr(),
-        c0.data_ptr(), cn.data_ptr(), cw.data_ptr(), taps, sizes,
-        len(dims), stack.data_ptr(), frames, stream_handle(dev))
+        img.data_ptr(), H, W, len(dims), tiles.data_ptr(), tiles.shape[0],
+        spans.data_ptr(), spans.shape[0], r0.data_ptr(), rn.data_ptr(),
+        rw.data_ptr(), c0.data_ptr(), cn.data_ptr(), cw.data_ptr(), taps,
+        stack.data_ptr(), frames, stream_handle(dev))
     resize_levels.launches += 1
     _build.check_launch(err, "resize_levels")
     return stack
 
 
 resize_levels.launches = 0
+
+
+def fast_pretest(img, threshold: float):
+    """H9's pretest of FAST (``csrc/orb_corners.cu``) on (..., H, W)
+    images: (bright, dark), bool, where two adjacent ones of the four
+    cardinal circle pixels (indices 0, 4, 8, 12 of ``orb.FAST_CIRCLE``,
+    read with FAST's replicate padding) both exceed the pixel by more than
+    ``threshold`` (bright), or both fall short of it by more (dark). Every
+    arc of 9 holds two adjacent cardinals, so where a polarity fails its
+    arc score is <= threshold, and where both fail, FAST's score is."""
+    from openvo_tpu_torch.ops import orb   # orb imports this module
+
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
+    pad = F.pad(img.reshape((-1, 1, H, W)), (3, 3, 3, 3),
+                mode="replicate").reshape(lead + (H + 6, W + 6))
+    card = [pad[..., 3 + dy:3 + dy + H, 3 + dx:3 + dx + W]
+            for dx, dy in orb.FAST_CIRCLE[::4]]
+
+    def adjacent(f):
+        return (f[0] & f[1]) | (f[1] & f[2]) | (f[2] & f[3]) | (f[3] & f[0])
+
+    return (adjacent([n - img > threshold for n in card]),
+            adjacent([img - n > threshold for n in card]))
+
+
+# H9's tiles: 32 rows by 64 columns (csrc/orb_corners.cu's kTileH, kTileW)
+CORNER_TILE = (32, 64)
+
+
+@functools.lru_cache(maxsize=16)
+def corner_tables(H: int, W: int, dims: tuple, edge: int, device):
+    """H9's tables of a frame on ``device``, int32, built and uploaded once
+    per frame size, level sizes and edge: the tiles {level, y0, y1, x0,
+    x1} (n, 5) that cover each level's border box (the pixels ORB's border
+    test keeps, edge <= y < h_l - edge and the same in x, cut to the
+    canvas) from its top-left corner, CORNER_TILE each and ragged at the
+    box's far edges, and the spans of the canvas outside the boxes
+    (:func:`canvas_spans`)."""
+    th, tw = CORNER_TILE
+    tiles, keep = [], []
+    for level, (h, w) in enumerate(dims):
+        y0, y1 = max(edge, 0), min(h - edge, H)
+        x0, x1 = max(edge, 0), min(w - edge, W)
+        keep.append((y0, y1, x0, x1))
+        tiles += [(level, ty, min(ty + th, y1), tx, min(tx + tw, x1))
+                  for ty in range(y0, y1, th) if x0 < x1
+                  for tx in range(x0, x1, tw)]
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        np.asarray(tiles, np.int32).reshape(-1, 5), canvas_spans(H, W, keep)))
 
 
 def corner_keys(stack, mask, dims, edge: int, threshold: float,
@@ -261,7 +419,9 @@ def corner_keys(stack, mask, dims, edge: int, threshold: float,
     fkey = the FAST score at each corner (else None), bit for bit those of
     ``orb.corner_keys_plain``. ``mask``: None or the (H, W) bool level-0
     mask; ``edge``: the border; ``threshold``: FAST's. One launch for
-    every level (see ``csrc/orb_corners.cu``).
+    every level: tiles of the levels' border boxes (FAST's arcs only where
+    :func:`fast_pretest` passes, Harris only at corners) and -inf beyond
+    them (see ``csrc/orb_corners.cu``).
 
     A batch, (B, nl, H, W) stacks with (B, H, W) masks, gives (B, nl, H,
     W) keys from the same launch."""
@@ -292,11 +452,12 @@ def corner_keys(stack, mask, dims, edge: int, threshold: float,
                                tuple(h for h, _ in dims))
         cols = device_constant(orb.mask_level_table, dev, torch.int32, W,
                                tuple(w for _, w in dims))
-    sizes = (ctypes.c_int * (2 * nl))(*[v for hw in dims for v in hw])
+    tiles, spans = corner_tables(H, W, dims, int(edge), dev)
     err = _build.library().ovo_corner_keys(
-        stack.data_ptr(), H, W, nl, sizes,
+        stack.data_ptr(), H, W, nl, tiles.data_ptr(), tiles.shape[0],
+        spans.data_ptr(), spans.shape[0],
         *(None if t is None else t.data_ptr() for t in (mask, rows, cols)),
-        int(edge), float(threshold), key.data_ptr(),
+        float(threshold), key.data_ptr(),
         None if fkey is None else fkey.data_ptr(), frames,
         stream_handle(dev))
     corner_keys.launches += 1

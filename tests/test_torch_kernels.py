@@ -773,6 +773,29 @@ def test_resize_levels_equals_plain(cuda, H, W, integer):
         assert torch.equal(batch[i], orb_cuda.resize_levels(imgs[i], dims))
 
 
+@pytest.mark.parametrize("scale,levels", [(2.0, 6), (1.5, 8)])
+def test_resize_levels_wide_taps_equal_plain(cuda, scale, levels):
+    """H6 at other scale factors: at 2.0 the upper levels take up to 39
+    taps an output, more than its shared tables hold (the weights are then
+    read from device memory), and narrower tiles; a frame and a batch of
+    2, bit for bit the plain version's."""
+    from openvo_tpu_torch.config import ORBParams
+    from openvo_tpu_torch.ops import orb
+
+    H, W = 376, 1242
+    dims = tuple(orb._level_dims(H, W, ORBParams(scale_factor=scale,
+                                                 nlevels=levels)))
+    rng = np.random.default_rng(levels)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (2, H, W)).astype(
+        np.float32)).to(cuda)
+    for x in (imgs[0], imgs):
+        out, n = launches(orb_cuda.resize_levels, lambda: (
+            orb_cuda.resize_levels(x, dims)))
+        assert n == 1
+        assert torch.equal(bits(out), bits(orb_cuda.resize_levels_plain(
+            x, dims)))
+
+
 # ---------------------------------------------------------------------------
 # H9: ORB's per-pixel detection stages over the pyramid stack
 # ---------------------------------------------------------------------------
@@ -786,15 +809,19 @@ def corner_stack(H, W, kind, frames=None, seed=0):
     """A (nl, H, W) stack (or a batch of ``frames``) with ORB's default
     levels: "pyramid", the pyramid of a smoothed random frame (non-integer
     levels 1-7 on a zero canvas); "random", uniform noise on the whole
-    canvas (corners on every canvas and level edge). With the levels'
-    sizes and a random bool level-0 mask, all on the CPU."""
+    canvas (corners on every canvas and level edge); "flat", one value on
+    the whole canvas (no pixel passes FAST's pretest at a threshold >= 0;
+    at a negative one every pixel is a corner). With the levels' sizes and
+    a random bool level-0 mask, all on the CPU."""
     from openvo_tpu_torch.config import ORBParams
     from openvo_tpu_torch.ops import orb
 
     rng = np.random.default_rng(seed)
     dims = tuple(orb._level_dims(H, W, ORBParams()))
     lead = () if frames is None else (frames,)
-    if kind == "pyramid":
+    if kind == "flat":
+        stack = torch.full(lead + (len(dims), H, W), 7.0)
+    elif kind == "pyramid":
         img = rng.uniform(0, 255, lead + (H, W + 2)).astype(np.float32)
         img = np.round((img[..., :-2] + img[..., 1:-1] + img[..., 2:]) / 3)
         stack = orb_cuda.resize_levels_plain(torch.from_numpy(img), dims)
@@ -806,9 +833,14 @@ def corner_stack(H, W, kind, frames=None, seed=0):
 
 
 # (kind, edge, FAST threshold, masked): ORB's own border, and borders of 3
-# and 0, whose corners reach the canvas's and every level's edges
+# and 0, whose corners reach the canvas's and every level's edges; then
+# threshold 0 on noise (nearly every pixel passes FAST's pretest), a flat
+# canvas (none passes) and a flat canvas at threshold -1 (every pixel of a
+# border box is a corner: each tile's corner list at its fullest)
 CORNER_CASES = [("pyramid", 31, 20.0, False), ("pyramid", 31, 20.0, True),
-                ("random", 3, 60.0, True), ("random", 0, 80.0, False)]
+                ("random", 3, 60.0, True), ("random", 0, 80.0, False),
+                ("random", 0, 0.0, True), ("flat", 0, 0.0, False),
+                ("flat", 3, -1.0, True)]
 
 
 # KITTI and 320x240 (neither a multiple of the 32-pixel tile), and small
@@ -842,7 +874,9 @@ def test_corner_keys_equals_plain(cuda, H, W, kind, edge, threshold,
             assert torch.equal(bits(fkey.cpu()), bits(cpu[1]))
         else:
             assert fkey is None
-    assert bool(torch.isfinite(key).any())
+    # corners everywhere but on a flat canvas at a threshold >= 0
+    assert bool(torch.isfinite(key).any()) == (kind != "flat"
+                                               or threshold < 0)
 
 
 @pytest.mark.parametrize("kind,edge,threshold,masked", CORNER_CASES)
@@ -867,6 +901,40 @@ def test_batched_corner_keys_equals_frames(cuda, kind, edge, threshold,
         assert_batch(tuple(bits(t) for t in out),
                      [tuple(bits(t) for t in one) for one in singles],
                      tuple(bits(t) for t in plain))
+
+
+@pytest.mark.parametrize("frames", [1, 3, 8, 16])
+def test_batched_pyramid_and_keys_equal_frames(cuda, frames):
+    """H6 and H9 over batches of 1, 3, 8 and 16 frames, one launch each:
+    every frame's stack and keys (both rankings, masked) equal its own
+    single-frame launch and the plain version, bit for bit."""
+    from openvo_tpu_torch.config import ORBParams
+    from openvo_tpu_torch.ops import orb
+
+    p = ORBParams()
+    H, W = 240, 320
+    rng = np.random.default_rng(frames)
+    img = rng.uniform(0, 255, (frames, H, W + 2)).astype(np.float32)
+    imgs = torch.from_numpy(np.round(
+        (img[..., :-2] + img[..., 1:-1] + img[..., 2:]) / 3)).to(cuda)
+    masks = torch.from_numpy(rng.random((frames, H, W)) > 0.3).to(cuda)
+    dims = tuple(orb._level_dims(H, W, p))
+    stack, n = launches(orb_cuda.resize_levels, lambda: (
+        orb_cuda.resize_levels(imgs, dims)))
+    assert n == 1
+    assert_batch(bits(stack), [bits(orb_cuda.resize_levels(imgs[i], dims))
+                               for i in range(frames)],
+                 bits(orb_cuda.resize_levels_plain(imgs, dims)))
+    args = (dims, p.edge_threshold, float(p.fast_threshold), True)
+    out, n = launches(orb_cuda.corner_keys, lambda: (
+        orb_cuda.corner_keys(stack, masks, *args)))
+    assert n == 1
+    assert bool(torch.isfinite(out[0]).any())
+    assert_batch(tuple(bits(t) for t in out),
+                 [tuple(bits(t) for t in orb_cuda.corner_keys(
+                     stack[i], masks[i], *args)) for i in range(frames)],
+                 tuple(bits(t) for t in orb.corner_keys_plain(
+                     stack, masks, *args)))
 
 
 def test_corner_keys_rejects_wrong_input(cuda):

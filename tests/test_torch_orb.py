@@ -15,6 +15,8 @@ places within level 2. Angles differ by ATen vs XLA atan2 rounding (a few
 ulps), which moved no GET_VALUE index here.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -189,6 +191,11 @@ def test_resize_levels_plain_is_the_pyramid(frames):
 
 @pytest.fixture(scope="module")
 def bench_pyramid():
+    return bench_pyramid_stack()
+
+
+@functools.lru_cache(maxsize=1)
+def bench_pyramid_stack():
     """The pyramid of the bench corridor's frame 0 (left, at 320x240),
     non-integer at levels 1-7, by the plain H6; a disparity-style mask:
     the left band of 48 columns invalid (no right-image match) and holes
@@ -326,6 +333,115 @@ def test_mask_level_tables_give_the_mask_stack(H, W):
     stack = torch.zeros((len(dims), H, W))
     key, _ = orb.corner_keys_plain(stack, m0, dims, 0, -1.0)
     assert torch.equal(torch.isfinite(key), got)
+
+
+# ---------------------------------------------------------------------------
+# H9's FAST pretest (csrc/orb_corners.cu): exact, on the plain functions
+# ---------------------------------------------------------------------------
+
+def arc_scores(img):
+    """FAST's bright and dark arc scores of (..., H, W) images apart, each
+    folded as ``orb.fast_score`` folds it (its score is their maximum)."""
+    H, W = img.shape[-2:]
+    pad = torch.nn.functional.pad(img.reshape((-1, 1, H, W)), (3, 3, 3, 3),
+                                  mode="replicate").reshape(
+        img.shape[:-2] + (H + 6, W + 6))
+    neigh = [pad[..., 3 + dy:3 + dy + H, 3 + dx:3 + dx + W]
+             for dx, dy in orb.FAST_CIRCLE]
+
+    def arc(m):
+        m2 = [torch.minimum(m[k], m[(k + 1) % 16]) for k in range(16)]
+        m4 = [torch.minimum(m2[k], m2[(k + 2) % 16]) for k in range(16)]
+        m8 = [torch.minimum(m4[k], m4[(k + 4) % 16]) for k in range(16)]
+        out = torch.minimum(m8[0], m[8])
+        for k in range(1, 16):
+            out = torch.maximum(out, torch.minimum(m8[k], m[(k + 8) % 16]))
+        return out
+
+    return arc([n - img for n in neigh]), arc([img - n for n in neigh])
+
+
+def pretest_stack(kind, threshold):
+    """(stack, mask, dims, edge) of a pretest case: "bench" (the bench
+    pyramid, ORB's edge), "bench-masked" (with its disparity-style mask),
+    "noise-0" and "noise-3" (uniform noise on every level, edges 0 and 3,
+    the latter masked), "constant" and "staircase" (every level steps by
+    exactly ``threshold`` each 3 pixels, right and down: the cardinals'
+    differences equal the threshold)."""
+    p = ORBParams()
+    H, W = 60, 80
+    dims = tuple(orb._level_dims(H, W, p))
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random((H, W)) > 0.3)
+    if kind.startswith("bench"):
+        stack, bmask, dims = bench_pyramid_stack()
+        return (stack, bmask if kind == "bench-masked" else None, dims,
+                p.edge_threshold)
+    if kind.startswith("noise"):
+        stack = torch.from_numpy(rng.uniform(0, 255, (len(dims), H, W))
+                                 .astype(np.float32))
+        edge = int(kind[-1])
+        return stack, mask if edge else None, dims, edge
+    if kind == "constant":
+        return torch.full((len(dims), H, W), 100.0), mask, dims, 0
+    ys, xs = np.mgrid[:H, :W]
+    level = (xs // 3 + ys // 3).astype(np.float32) * np.float32(threshold)
+    stack = torch.from_numpy(np.broadcast_to(level, (len(dims), H, W)).copy())
+    return stack, None, dims, 0
+
+
+PRETEST_KINDS = ["bench", "bench-masked", "noise-0", "noise-3", "constant",
+                 "staircase"]
+
+
+@pytest.mark.parametrize("threshold", [0.0, 20.0, 80.0])
+@pytest.mark.parametrize("kind", PRETEST_KINDS)
+def test_fast_pretest_bounds_the_score(bench_pyramid, kind, threshold):
+    """Where a polarity fails H9's cardinal pretest its arc score is <=
+    threshold, and where both fail FAST's score is: no pixel that fails
+    scores > threshold."""
+    stack = pretest_stack(kind, threshold)[0]
+    bright, dark = orb_cuda.fast_pretest(stack, threshold)
+    sb, sd = arc_scores(stack)
+    score, corner = orb.fast_score(stack, threshold)
+    assert torch.equal(torch.maximum(sb, sd), score)
+    assert not (sb[~bright] > threshold).any()
+    assert not (sd[~dark] > threshold).any()
+    assert not corner[~(bright | dark)].any()
+
+
+@pytest.mark.parametrize("threshold", [0.0, 20.0, 80.0])
+@pytest.mark.parametrize("kind", PRETEST_KINDS)
+@pytest.mark.parametrize("held", ["both-fail", "per-polarity"])
+def test_pretest_leaves_the_keys_unchanged(bench_pyramid, monkeypatch, kind,
+                                           threshold, held):
+    """``orb.corner_keys_plain`` gives the same key and fkey, bit for bit,
+    when FAST's score is held as -inf wherever both polarities fail the
+    pretest ("both-fail"), and when it is, as H9 computes it, the largest
+    arc score of the polarities that pass, -inf where none does
+    ("per-polarity")."""
+    stack, mask, dims, edge = pretest_stack(kind, threshold)
+    want = orb.corner_keys_plain(stack, mask, dims, edge, threshold, True)
+    neg_inf = float("-inf")
+    fast_score = orb.fast_score
+
+    def pretested(img, thr):
+        bright, dark = orb_cuda.fast_pretest(img, thr)
+        if held == "both-fail":
+            score = torch.where(bright | dark, fast_score(img, thr)[0],
+                                neg_inf)
+        else:
+            sb, sd = arc_scores(img)
+            score = torch.maximum(torch.where(bright, sb, neg_inf),
+                                  torch.where(dark, sd, neg_inf))
+        return score, score > thr
+
+    monkeypatch.setattr(orb, "fast_score", pretested)
+    got = orb.corner_keys_plain(stack, mask, dims, edge, threshold, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if kind.startswith(("bench", "noise")):
+        assert bool(torch.isfinite(want[0]).any())
 
 
 def test_topk_ties_go_to_lower_index():

@@ -24,7 +24,8 @@ checkouts, so ``--root`` (the checkout whose ``openvo_tpu_torch`` and
 call: run parent, change, change, parent.
 
 Last, ``detect`` in its stages, each run alone on the same frames under
-torch.profiler (kernels and device ms a frame): the pyramid (H6), FAST's
+torch.profiler (kernels and device ms a frame; for H6 and H9 also each
+device operation apart, device copies included): the pyramid (H6), FAST's
 score, the 3x3 NMS and Harris as plain PyTorch (the functions the per-pixel
 stages were built from), the per-pixel stages whole as plain PyTorch
 (``orb.corner_keys_plain``) and as H9 (``orb_cuda.corner_keys``) where the
@@ -115,8 +116,10 @@ def orb_stage_costs(detect, detect_and_compute, inputs, reps=5):
 
 
 def profiled(fn, n):
-    """(CUDA kernels, their device ms) a call of fn(i), i < n, under
-    torch.profiler, after one call to warm up."""
+    """(CUDA kernels, their device ms, {device operation: (count, device
+    ms)}) a call of fn(i), i < n, under torch.profiler, after one call to
+    warm up. The last holds device-to-device copies and memsets too; the
+    first two do not."""
     fn(0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -125,13 +128,18 @@ def profiled(fn, n):
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    kernels, us = 0, 0.0
+    kernels, us, by_name = 0, 0.0, {}
     for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(("Memcpy", "Memset"))):
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if not e.name.startswith(("Memcpy", "Memset")):
             kernels += 1
             us += e.device_time_total
-    return kernels / n, us / 1e3 / n
+        if not e.name.startswith(("Memcpy HtoD", "Memcpy DtoH")):
+            count, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, t + e.device_time_total)
+    return kernels / n, us / 1e3 / n, {
+        k: (c / n, t / 1e3 / n) for k, (c, t) in by_name.items()}
 
 
 def detect_stages(orb, orb_cuda, inputs, params):
@@ -160,9 +168,12 @@ def detect_stages(orb, orb_cuda, inputs, params):
         stages["per-pixel stages whole (H9)"] = lambda i: (
             orb_cuda.corner_keys(stacks[i], masks[i], dims, b, thr))
     stages["detect"] = lambda i: orb.detect(*inputs[i], params)
-    out = {name: dict(zip(("kernels", "device_ms"),
+    out = {name: dict(zip(("kernels", "device_ms", "by_kernel"),
                           profiled(fn, len(inputs))))
            for name, fn in stages.items()}
+    for name, c in out.items():   # each device operation of H6 and H9
+        if "H6" not in name and "H9" not in name:
+            del c["by_kernel"]
     per_pixel = ("per-pixel stages whole (H9)"
                  if "per-pixel stages whole (H9)" in out else None)
     parts = ["pyramid (H6)"] + ([per_pixel] if per_pixel else [
@@ -285,6 +296,8 @@ def main() -> int:
         print(f"[detect] {name}, a frame over {len(orb_inputs)} frames: "
               f"{c['kernels']:.1f} kernels, {c['device_ms']:.4f} ms of "
               f"kernel time")
+        for k, (n, ms) in c.get("by_kernel", {}).items():
+            print(f"[detect]   {n:.1f} x {k[:90]}: {ms:.4f} ms")
     print(json.dumps({"root": os.path.abspath(args.root),
                       "stage_median_ms": {k: float(np.median(v))
                                           for k, v in stages.items()},
