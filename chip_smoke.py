@@ -273,11 +273,13 @@ BLOCK_WALK_MS = {
     ("hsweep_wta_lr", "float32 C with the bottom-up partial apart (8 paths)"):
         1.395,
 }
-# H6's and H9's times before their redesign (their first designs: a
-# thread a pixel, one zeroed canvas and a copy beside it; a block a 32x32
-# tile of every level), a frame, on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md section 6), by (kernel, variant) of the kernel cases; logged
-# beside this run's times only
+# H6's, H9's, H7's and H8's times before their redesign (their first
+# designs: a thread a pixel, one zeroed canvas and a copy beside it; a
+# block a 32x32 tile of every level; union-find in five launches of a
+# thread a pixel; one block reduction and barrier a pick), a frame or a
+# cloud, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), by
+# (kernel, variant) of the kernel cases; logged beside this run's times
+# only (H8's two random cases: 0.377-0.410 ms between them)
 FIRST_DESIGN_MS = {
     ("resize_levels", "frame 0, 7 levels"): 0.0428,
     ("resize_levels", f"7 levels, batch of {BATCH} frames (frames "
@@ -287,6 +289,15 @@ FIRST_DESIGN_MS = {
                     "FAST-score keys (cv2.ORB's ranking)"): 0.0657,
     ("corner_keys", f"8 levels, the disparity masks, batch of {BATCH} "
                     f"frames (frames 0-{BATCH - 1})"): 0.0525,
+    ("speckle_keep", "frame 0, on-lat's disparity before the filter"):
+        0.0647,
+    ("speckle_keep", f"frames 0-{BATCH - 1} as one batch"): 0.0191,
+    ("greedy_clique", "frames 1 and 2 against frame 0, filters' threshold "
+                      "(the path's two attempts)"): 0.0973,
+    ("greedy_clique", f"{BATCH} clouds of consecutive frames as one batch"):
+        0.0069,
+    ("greedy_clique", "random clouds, 40 NaN rows"): "0.377-0.410",
+    ("greedy_clique", "random clouds, 30 exact ties"): "0.377-0.410",
 }
 
 

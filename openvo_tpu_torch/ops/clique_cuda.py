@@ -2,8 +2,9 @@
 
 JAX grows the rigid clique in a ``lax.while_loop`` on the device
 (``openvo_tpu/pose/rigid_clique.py:53-69``). H8 runs that loop in one
-launch, one block a point cloud, with no host read, so a captured CUDA
-graph holds it. Its plain version is ``pose/rigid_clique.
+launch, one block a point cloud (up to 512 points the block packs the
+matrix's columns into shared-memory bits and one warp runs the chain of
+picks), with no host read, so a captured CUDA graph holds it. Its plain version is ``pose/rigid_clique.
 greedy_clique_plain`` (the loop in batches of ``CHECK_EVERY`` steps between
 host checks); ``pose/rigid_clique.rigid_body_filter`` reaches either
 through the ``openvo_torch::greedy_clique`` operator, which takes the plain

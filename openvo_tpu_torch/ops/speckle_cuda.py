@@ -2,9 +2,10 @@
 
 JAX labels the speckle filter's components with row and column min-scans
 in a ``lax.while_loop`` that runs on the device until nothing changes
-(``openvo_tpu/ops/sgbm.py:476-488``). H7 labels them by union-find in five
-launches of one thread a pixel (init, merge, compress, size, keep), with
-no host read, so a captured CUDA graph holds it. Its plain version is
+(``openvo_tpu/ops/sgbm.py:476-488``). H7 labels them by a block-based
+union-find in four launches (32x32 tiles labelled in shared memory, the
+edges across tiles united in global memory, roots and sizes a tile at a
+time, keep), with no host read, so a captured CUDA graph holds it. Its plain version is
 ``ops/sgbm.speckle_keep_plain`` (hooking and pointer jumps until no edge
 joins two labels, then ``torch.bincount``); ``ops/sgbm.speckle_filter``
 reaches either through the ``openvo_torch::speckle_keep`` operator, which

@@ -45,6 +45,26 @@ def uniform(H, W, valid):
     return np.full((H, W), 48, np.int16), np.full((H, W), valid)
 
 
+def checkerboard(H, W, cell_h, cell_w):
+    """(disp, valid): cells of cell_h x cell_w of two disparities that no
+    edge joins, every pixel valid: each cell is a component of its own
+    (4-connected, so diagonal cells do not touch), and cells that straddle
+    the kernel's tile edges cross them in both directions."""
+    y, x = np.mgrid[:H, :W]
+    d = ((y // cell_h + x // cell_w) % 2 * 80).astype(np.int16)
+    return d, np.ones((H, W), bool)
+
+
+def staircase(H, W, step=7):
+    """(disp, valid): diagonal bands ``step`` pixels wide of three
+    disparities that no edge joins, 5% holes: long components that cross
+    the kernel's tile rows and columns alike."""
+    y, x = np.mgrid[:H, :W]
+    d = ((x + y) // step % 3 * 40).astype(np.int16)
+    holes = np.random.default_rng(H * W).random((H, W)) < 0.05
+    return d, ~holes
+
+
 def clouds(seed, B, N, valid=0.9, outliers=0.2, nan_rows=0, ties=0):
     """(prev_pts, pts, mask): B clouds of N points in a 20 m box moved by a
     rigid motion with 1 mm of noise, a share of ``outliers`` moved at

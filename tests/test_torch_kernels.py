@@ -963,13 +963,21 @@ def test_corner_keys_rejects_wrong_input(cuda):
 # rigid clique)
 # ---------------------------------------------------------------------------
 
-SPECKLE_MAPS = {
-    "spiral": lambda: loop_cases.spiral(),
-    "islands-0": lambda: loop_cases.islands(0),
-    "islands-1": lambda: loop_cases.islands(1, 75, 131),
-    "all-invalid": lambda: loop_cases.uniform(40, 70, False),
-    "one-component": lambda: loop_cases.uniform(40, 70, True),
+SPECKLE_MAPS = {   # name -> map maker of (H, W), at its own size
+    "spiral": lambda H=96, W=128: loop_cases.spiral(H, W),
+    "islands-0": lambda H=64, W=96: loop_cases.islands(0, H, W),
+    "islands-1": lambda H=75, W=131: loop_cases.islands(1, H, W),
+    "all-invalid": lambda H=40, W=70: loop_cases.uniform(H, W, False),
+    "one-component": lambda H=40, W=70: loop_cases.uniform(H, W, True),
+    # components across H7's 32x32 tile edges in every direction: tiles'
+    # own checkerboard, runs of 3x5 straddling every edge, diagonal bands
+    "checkerboard-32x32": lambda H=96, W=160: loop_cases.checkerboard(
+        H, W, 32, 32),
+    "checkerboard-3x5": lambda H=70, W=100: loop_cases.checkerboard(
+        H, W, 3, 5),
+    "staircase": lambda H=100, W=140: loop_cases.staircase(H, W),
 }
+KITTI = (376, 1242)
 
 
 def sgbm_map(dev, H=96, W=200):
@@ -998,15 +1006,19 @@ def assert_speckle_equals_plain(d, valid, window, max_diff=32, calls=5):
     return labels, keep
 
 
+@pytest.mark.parametrize("kitti", [False, True], ids=["own", "kitti"])
 @pytest.mark.parametrize("name", list(SPECKLE_MAPS) + ["sgbm"])
 @pytest.mark.parametrize("window", [0, 60])
-def test_speckle_keep_equals_plain(cuda, name, window):
+def test_speckle_keep_equals_plain(cuda, name, window, kitti):
     """H7 on the CPU tests' maps (the spiral, random islands), one
-    component, none, and a real SGBM disparity, at two windows."""
+    component, none, maps whose components cross the tile edges, and a
+    real SGBM disparity, at two windows, each map at its own size and at
+    KITTI's 1242x376, 5 calls alike."""
     if name == "sgbm":
-        d, valid = sgbm_map(cuda)
+        d, valid = sgbm_map(cuda, *(KITTI if kitti else ()))
     else:
-        d, valid = (torch.from_numpy(x).to(cuda) for x in SPECKLE_MAPS[name]())
+        d, valid = (torch.from_numpy(x).to(cuda) for x in
+                    SPECKLE_MAPS[name](*(KITTI if kitti else ())))
     labels, keep = assert_speckle_equals_plain(d, valid, window)
     if name == "one-component":
         assert int(labels.max()) == 0 and bool(keep.all())
@@ -1016,16 +1028,19 @@ def test_speckle_keep_equals_plain(cuda, name, window):
         assert not bool(keep.any())
 
 
-def test_speckle_keep_batch_equals_frames(cuda):
+@pytest.mark.parametrize("H, W", [(96, 128), (45, 70), (376, 1242)])
+def test_speckle_keep_batch_equals_frames(cuda, H, W):
     """A (B, H, W) stack is one launch and one flat index space: each
     frame's labels its own call's, offset by b*H*W; int32 disparities (as
-    the row tiles gather them) give the int16 ones' result."""
-    maps = [loop_cases.islands(s, 96, 128) for s in range(3)]
-    maps.append(loop_cases.spiral(96, 128))
+    the row tiles gather them) give the int16 ones' result. Frames whose
+    height is not a multiple of the tile's (45, 376) end in part tiles
+    that stay inside their frame."""
+    maps = [loop_cases.islands(s, H, W) for s in range(3)]
+    maps.append(loop_cases.spiral(H, W))
     d = torch.from_numpy(np.stack([m[0] for m in maps])).to(cuda)
     valid = torch.from_numpy(np.stack([m[1] for m in maps])).to(cuda)
     labels, keep = assert_speckle_equals_plain(d, valid, 60)
-    n = 96 * 128
+    n = H * W
     for b in range(len(maps)):
         one = speckle_cuda.speckle_keep(d[b].contiguous(),
                                         valid[b].contiguous(), 32, 60)
@@ -1057,6 +1072,9 @@ CLIQUE_CASES = {
     "a rig's 16": (16, 512, {}),
     "n not a multiple of 32": (3, 100, {}),
     "one point": (2, 1, {}),
+    "n a multiple of 16, not 32 (byte loads)": (2, 48, {}),
+    "n 480": (2, 480, {}),
+    "n 513, the block design": (2, 513, {}),
     "shared memory above 48 KB": (2, 700, {}),
     "cons from global memory": (2, 1500, {}),
 }
@@ -1083,10 +1101,31 @@ def test_greedy_clique_equals_plain(cuda, name):
     filt = rigid_clique.rigid_body_filter(prev, pts, mask, 0.05)
     assert torch.equal(filt.cpu(), rigid_clique.rigid_body_filter(
         prev.cpu(), pts.cpu(), mask.cpu(), 0.05))
-    if name == "one cloud":
-        assert 100 < int(got.sum()) < N
+    if name == "one cloud":   # a chain of over 300 picks at N = 512
+        assert 300 < int(got.sum()) - 1 < N
     if name == "all invalid":
         assert not bool(filt.any())
+
+
+@pytest.mark.parametrize("N", [33, 200, 512, 700])
+@pytest.mark.parametrize("counts", ["column sums", "zeros", "random"])
+def test_greedy_clique_any_matrix_equals_plain(cuda, N, counts):
+    """H8 on matrices that consistency() does not make: cons not symmetric
+    (compatible starts as row seed, then counts column hits) and num not
+    its column sums (zeros: every pick ties at 0 and the first may be a
+    member; random, negative too), against the plain version."""
+    from openvo_tpu_torch.pose import rigid_clique
+
+    rng = np.random.default_rng(N)
+    cons = torch.from_numpy(rng.random((3, N, N)) < [[[0.5]], [[0.8]],
+                                                    [[0.97]]]).to(cuda)
+    num = {"column sums": lambda: cons.sum(-2, dtype=torch.int32),
+           "zeros": lambda: torch.zeros((3, N), dtype=torch.int32,
+                                        device=cuda),
+           "random": lambda: torch.from_numpy(rng.integers(
+               -3, 6, (3, N)).astype(np.int32)).to(cuda)}[counts]()
+    got = clique_cuda.greedy_clique(cons, num)
+    assert torch.equal(got, rigid_clique.greedy_clique_plain(cons, num))
 
 
 def test_greedy_clique_rejects_wrong_input(cuda):
