@@ -31,7 +31,13 @@ Phases, in order; any failure exits non-zero before the final line:
    at KITTI size, labels and masks equal; H8 (the rigid clique's greedy
    loop) on the `filters` path's clouds of frames 1 and 2 against frame 0,
    on 16 clouds of consecutive frames as one batch, and on random clouds
-   with NaN rows, exact ties and no valid row, memberships equal; and
+   with NaN rows, exact ties and no valid row, memberships equal; the
+   small SVDs: H10 (Kabsch's 3x3 rotation) on the cross-covariances of the
+   `filters` path's clouds (a frame's two attempts, and 16 clouds as one
+   batch) and on degenerate and seeded clouds, H11 (the batched Jacobi
+   SVD) on the inputs a mono frame gives it (the five-point rows, the top
+   8 candidates, the refit's 9x9 Gram, one 3x3), all bit-equal, each also
+   timed beside one torch.linalg.svd of the same batch; and
    time block13's plain float32 cost volume alone and over the batch;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
@@ -65,8 +71,11 @@ Phases, in order; any failure exits non-zero before the final line:
 4. `mono` and `mono-own`: MonoOdometer.update on the left images of the
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
-   npz) frame by frame, then with the port's own sampler; H4, H6 and H9
-   launch once a frame and no SGBM kernel;
+   npz) frame by frame, then with the port's own sampler; each eagerly
+   (H4, H6 and H9 launch once a frame, H11 nine times, no SGBM kernel and
+   no torch.linalg.svd), then captured, each update one replayed CUDA
+   graph, equal to the eager run bit for bit with one host sync a frame
+   and none from pose/;
 5. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
    the card (a gloo group, messages staged through host memory: NCCL
    refuses two ranks on one GPU) over the 64 frames with the off-lat
@@ -210,12 +219,28 @@ BENCH_TRACKED = 63
 BENCH_ATE = 1.25
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+FP64_OPS_PER_S = 34e12      # H100 SXM float64 outside the tensor cores
 SGBM_SRC = "openvo_tpu_torch/csrc/sgbm.cu"
 WTA_SRC = "openvo_tpu_torch/csrc/sgbm_wta.cu"   # H3
 ORB_SRC = "openvo_tpu_torch/csrc/orb.cu"
 RESIZE_SRC = "openvo_tpu_torch/csrc/resize.cu"   # H6
 SPECKLE_SRC = "openvo_tpu_torch/csrc/speckle.cu"   # H7
 CLIQUE_SRC = "openvo_tpu_torch/csrc/clique.cu"     # H8
+JACOBI_SRC = "openvo_tpu_torch/csrc/jacobi.cu"     # H10, H11
+# H10's and H11's JAX counterparts: jnp.linalg.svd under jit, left to XLA
+# (no Pallas kernel)
+KABSCH_SVD_JAX = "openvo_tpu/pose/kabsch.py:49 (jnp.linalg.svd, XLA)"
+MONO_SVD_JAX = ("openvo_tpu/pose/fivepoint.py:210; openvo_tpu/pose/"
+                "ransac.py:140, :142, :273 (jnp.linalg.svd, XLA)")
+# H10's float64 operations a matrix, counted from the plain version: 5
+# sweeps of 3 rotations, each the three dot products (15), the rotation's
+# (c, s) (14) and the two 6-entry columns rotated (36); the norms (18), the
+# shift (2), u_1 and u_2 (6) and u_3 (9)
+ROTATION_OPS = 5 * 3 * (15 + 14 + 36) + 18 + 2 + 6 + 9
+# H11's SVDs a mono frame: the five-point null space, the cheirality vote
+# of the top 8, two refits of (Gram, projection, vote), the final
+# recoverPose
+MONO_SVDS = 9
 # H7's and H8's JAX counterparts: lax.while_loops left to XLA (no Pallas
 # kernel)
 SPECKLE_JAX = "openvo_tpu/ops/sgbm.py:476-488 (lax.while_loop, XLA)"
@@ -372,17 +397,22 @@ class Case:
     # what else the log line says of these inputs (H9: corners and FAST
     # pretest passes a level)
     note: str = ""
+    # the operations it must do in all, where not ops_per_elem per output
+    # element (H10, H11: float64, counted from the inputs' sweeps)
+    ops: float | None = None
+    ops_per_s: float = FP32_OPS_PER_S
 
 
 def bound(case, outs):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (each input read once, each output written once) over the HBM rate and
-    its operations over the float32 rate."""
+    its operations over the float32 rate (float64's for H10 and H11)."""
     nbytes = sum(t.numel() * t.element_size() for t in outs) + (
         sum(t.numel() * t.element_size() for t in case.inputs)
         if case.in_bytes is None else case.in_bytes)
-    ops = case.ops_per_elem * max(t.numel() for t in outs)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    ops = (case.ops_per_elem * max(t.numel() for t in outs)
+           if case.ops is None else case.ops)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / case.ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1003,6 +1033,143 @@ def loop_kernel_cases(torch, seq, cam, cfg):
     return cases
 
 
+def svd_ops(sweeps, m, n):
+    """H11's float64 operations on matrices of m x n that ran ``sweeps``
+    sweeps each (its fourth output). A sweep of an m x n matrix: every
+    pair's three dot products and test (6m + 4), and, in every sweep but a
+    done matrix's last, its rotation ((c, s), 14, and two columns of A over
+    V, 6 (m + n)); then the norms (2mn) and the sort (n^2). A wide matrix
+    (m < n) first: its float32 LQ (reflector i: its norm, beta, tau
+    and v, 3(n - i) + 8; each later row and each of Q's n columns, 4(n -
+    i) + 1), the sweeps on the m x m L, and V's first m columns (n m (2m -
+    1))."""
+    from openvo_tpu_torch.pose import kabsch
+
+    sw = sweeps.to("cpu").long()
+    extra = 0
+    if m < n:
+        extra = sum(3 * (n - i) + 8 + (m - 1 - i + n) * (4 * (n - i) + 1)
+                    for i in range(m)) + n * m * (2 * m - 1)
+        n = m
+    pairs = n * (n - 1) // 2
+    rotating = sw - (sw < kabsch.JACOBI_MAX_SWEEPS).long()
+    return float((sw * pairs * (6 * m + 4)
+                  + rotating * pairs * (14 + 6 * (m + n))).sum()
+                 + len(sw) * (2 * m * n + n * n + extra))
+
+
+def mono_svd_inputs(torch, seq, frame=1):
+    """The matrices H11 takes in mono's update of ``frame`` (JAX's draws
+    replayed, after frame 0), as the card runs it eagerly: the inputs of
+    ``pose/kabsch.svd``'s route to the operator, in call order, as the
+    operator takes them (``kabsch.jacobi_input``)."""
+    from openvo_tpu_torch import _graph
+    from openvo_tpu_torch.models.mono_odometer import MonoOdometer
+    from openvo_tpu_torch.pose import kabsch
+
+    ref = jax_reference()
+    odo = MonoOdometer(seq["K"], device=DEVICE)
+    route, seen = kabsch._svd_jacobi, []
+
+    def record(a):
+        seen.append(kabsch.jacobi_input(a))
+        return route(a)
+
+    with _graph.disable_capture():
+        for i in range(frame + 1):
+            if i == frame:
+                kabsch._svd_jacobi = record
+            try:
+                odo.update(seq["left"][i], trans_scale=SEQ["step"],
+                           u=torch.from_numpy(ref["mono_u"][i]).to(DEVICE))
+            finally:
+                kabsch._svd_jacobi = route
+    if len(seen) != MONO_SVDS:
+        raise AssertionError(f"mono: {len(seen)} SVDs in a frame, expected "
+                             f"{MONO_SVDS}")
+    return seen
+
+
+def svd_kernel_cases(torch, seq, cam, cfg):
+    """Phase 2's cases of the small SVDs against their plain versions: H10
+    on the cross-covariances of the `filters` path's clouds of frames 1
+    and 2 against frame 0 (a frame's two attempts, as every single-frame
+    stereo path batches them), of 16 clouds of consecutive frames as one
+    batch (a rig step's), of seeded clouds of every kind and of degenerate
+    matrices; H11 on what a mono frame gives it: the five-point rows (64,
+    5, 9), the cheirality vote's 8 candidates, the refit's 9x9 Gram, one
+    3x3 matrix, and seeded 5x9 rows and degenerate 3x3 matrices. Each is
+    timed beside one ``torch.linalg.svd`` of the same batch."""
+    from openvo_tpu_torch.ops import jacobi_cuda
+    from openvo_tpu_torch.pose import kabsch
+    from openvo_tpu_torch.tools import svd_cases
+
+    dev = cam.device
+
+    def h10(variant, path, H, frames=1):
+        single = None
+        if frames > 1:
+            single = lambda: [jacobi_cuda.rotation_3x3(H[i])  # noqa: E731
+                              for i in range(frames)]
+        return Case("rotation_3x3", variant, path,
+                    lambda: jacobi_cuda.rotation_3x3(H),
+                    lambda: kabsch.rotation_3x3_plain(H), KABSCH_SVD_JAX,
+                    (H,), 0, JACOBI_SRC, frames=frames, single=single,
+                    library=lambda: torch.linalg.svd(H),
+                    ops=ROTATION_OPS * H.numel() / 9,
+                    ops_per_s=FP64_OPS_PER_S)
+
+    def h11(variant, path, a):
+        a = kabsch.jacobi_input(a).to(dev).contiguous()
+        m, n = a.shape[-2:]
+        sweeps = jacobi_cuda.jacobi_svd(a, kabsch.JACOBI_TOL,
+                                        kabsch.JACOBI_MAX_SWEEPS)[3]
+        return Case("jacobi_svd", variant, path,
+                    lambda: jacobi_cuda.jacobi_svd(
+                        a, kabsch.JACOBI_TOL, kabsch.JACOBI_MAX_SWEEPS),
+                    lambda: kabsch.jacobi_svd_plain(a), MONO_SVD_JAX, (a,),
+                    0, JACOBI_SRC, library=lambda: torch.linalg.svd(a),
+                    ops=svd_ops(sweeps, m, n), ops_per_s=FP64_OPS_PER_S,
+                    note=f"{tuple(a.shape)}, sweeps a matrix "
+                         f"{sorted(set(sweeps.tolist()))}")
+
+    def covariances(clouds):
+        H = kabsch.cross_covariance(*clouds)[0]
+        return torch.where(torch.isfinite(H).all(-1).all(-1)[..., None, None],
+                           H, 0.0).contiguous()
+
+    filters_cfg = dataclasses.replace(cfg, **FILTERS)
+    two = real_clouds(torch, seq, cam, filters_cfg, [(0, 1), (0, 2)])
+    sixteen = real_clouds(torch, seq, cam, filters_cfg,
+                          [(i, i + 1) for i in range(BATCH)])
+    seeded = tuple(torch.from_numpy(x).to(dev)
+                   for x in svd_cases.clouds(0, 100))
+    five, top8, gram, one = (mono_svd_inputs(torch, seq)[i]
+                             for i in (0, 1, 2, 3))
+    return [
+        h10("frames 1 and 2 against frame 0 (a frame's two attempts)",
+            "off-lat", covariances(two)),
+        h10(f"{BATCH} clouds of consecutive frames as one batch", "rig8",
+            covariances(sixteen), frames=BATCH),
+        h10("100 seeded clouds: general, planar, 3 and 10 points, "
+            "collinear", None, covariances(seeded)),
+        h10("degenerate: rank 0-2, equal singular values, det -1, extreme "
+            "scales", None,
+            torch.from_numpy(svd_cases.degenerate_3x3()).to(dev)),
+        h11("mono frame 1: the five-point rows of 64 samples", "mono",
+            five),
+        h11("mono frame 1: the cheirality vote's top 8 candidates", None,
+            top8),
+        h11("mono frame 1: the refit's 9x9 Gram", None, gram),
+        h11("mono frame 1: one 3x3 (the refit's projection)", None, one),
+        h11("seeded five-point rows of 64 samples", None,
+            torch.from_numpy(svd_cases.five_point_rows(0, 64))),
+        h11("degenerate 3x3: rank 0-2, equal singular values, det -1, "
+            "extreme scales", None,
+            torch.from_numpy(svd_cases.degenerate_3x3())),
+    ]
+
+
 def prefiltered_pair(torch, seq, cam, shift, cap, frame=0):
     """A frame (0 unless given), rectified (and resampled by ``shift`` px),
     prefiltered."""
@@ -1024,7 +1191,8 @@ def check_kernels(torch, seq, cam, cfg):
     results = []
     cases = (kernel_cases(torch, seq, cam, cfg)
              + batched_cases(torch, seq, cam, cfg)
-             + loop_kernel_cases(torch, seq, cam, cfg))
+             + loop_kernel_cases(torch, seq, cam, cfg)
+             + svd_kernel_cases(torch, seq, cam, cfg))
     for c in cases:
         out, ref = as_tuple(c.kern()), as_tuple(c.plain())
         err = max(max_abs_err(a, b) for a, b in zip(out, ref))
@@ -1049,7 +1217,8 @@ def check_kernels(torch, seq, cam, cfg):
                         "bound_ms": bound_ms / c.frames, "bound_by": bound_by,
                         # no one PyTorch call computes an SGM scan, a fused
                         # cost + box + scan, BRIEF's sampling and packing,
-                        # connected components or a greedy clique
+                        # connected components or a greedy clique; an SVD's
+                        # is torch.linalg.svd
                         "library_ms": None if c.library is None else min(
                             time_ms(torch, c.library, 20),
                             time_ms(torch, c.library, 20)) / c.frames})
@@ -1189,7 +1358,8 @@ def time_k4_library(torch, dev, smi):
 def expected_launches(params, filters=False):
     """Each kernel's launches per frame on a single-device path: H7 with
     the speckle filter on, H8 (one launch for both attempts' clouds) with
-    the rigid clique on."""
+    the rigid clique on, H10 once for both attempts' fits (twice with the
+    outlier pass), H11 never (mono's alone)."""
     from openvo_tpu_torch.ops import sgbm
 
     f32 = sgbm.int16_sentinel(params.block_size,
@@ -1200,23 +1370,27 @@ def expected_launches(params, filters=False):
     return {"cost_hsweep": 0 if f32 else 1, "hsweep": int(f32),
             "vsweep": dirs * ways if f32 else 1, "hsweep_wta_lr": 1,
             "brief_describe": 1, "resize_levels": 1, "corner_keys": 1,
-            "speckle_keep": int(speckle), "greedy_clique": int(filters)}
+            "speckle_keep": int(speckle), "greedy_clique": int(filters),
+            "rotation_3x3": 2 if filters else 1, "jacobi_svd": 0}
 
 
 def all_kernels():
     """Every kernel wrapper of the port (each with its launch count)."""
-    from openvo_tpu_torch.ops import (clique_cuda, orb_cuda, sgbm_cuda,
-                                      speckle_cuda)
+    from openvo_tpu_torch.ops import (clique_cuda, jacobi_cuda, orb_cuda,
+                                      sgbm_cuda, speckle_cuda)
 
     return (sgbm_cuda.KERNELS + orb_cuda.KERNELS + speckle_cuda.KERNELS
-            + clique_cuda.KERNELS)
+            + clique_cuda.KERNELS + jacobi_cuda.KERNELS)
 
 
 def plain_tripwires():
-    """The plain versions of every kernel, as (module, name): a path runs
-    with each replaced by a function that fails."""
+    """The plain versions of every kernel, and torch.linalg.svd, as
+    (module, name): a path runs with each replaced by a function that
+    fails."""
+    import torch
+
     from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda
-    from openvo_tpu_torch.pose import rigid_clique
+    from openvo_tpu_torch.pose import kabsch, rigid_clique
 
     return {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
             (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
@@ -1224,7 +1398,9 @@ def plain_tripwires():
             (orb_cuda, "resize_levels_plain"),
             (orb, "corner_keys_plain"),
             (sgbm, "speckle_keep_plain"),
-            (rigid_clique, "greedy_clique_plain")}
+            (rigid_clique, "greedy_clique_plain"),
+            (kabsch, "rotation_3x3_plain"), (kabsch, "jacobi_svd_plain"),
+            (torch.linalg, "svd")}
 
 
 def tripwire(*_a, **_k):
@@ -1539,10 +1715,14 @@ def motion_gaps(poses, ref_poses):
 
 def run_mono(torch, seq, name, smi, profiled=4):
     """Phase 4: MonoOdometer.update over the left images with the plain
-    versions disabled, ``trans_scale`` the ground-truth step; `mono`
-    replays the uniforms of JAX's draws, `mono-own` draws its own. Checks
-    it against the JAX package's run and returns launch counts per kernel
-    name."""
+    versions and torch.linalg.svd disabled, ``trans_scale`` the
+    ground-truth step; `mono` replays the uniforms of JAX's draws,
+    `mono-own` draws its own. First eagerly (``_graph.disable_capture()``):
+    held to the JAX package's run, its launch counts per kernel name
+    returned; then as users run it, each update one replayed CUDA graph,
+    held to the eager run bit for bit (ok, skip code, c_T_w), one host sync
+    a frame of frames 2-63 and none from pose/."""
+    from openvo_tpu_torch import _graph
     from openvo_tpu_torch.models.mono_odometer import (MONO_SKIP_STRINGS,
                                                        MonoOdometer,
                                                        ransac_samples)
@@ -1553,41 +1733,51 @@ def run_mono(torch, seq, name, smi, profiled=4):
             MONO_ITERS, 5):
         raise AssertionError("the reference's draws do not fit the odometer")
     replay = name == "mono"
-    kernels = sgbm_cuda.KERNELS + orb_cuda.KERNELS
+    kernels = all_kernels()
     saved = {(m, n): getattr(m, n) for m, n in plain_tripwires()}
     for m, n in saved:
         setattr(m, n, tripwire)
     us = [torch.from_numpy(u).to(DEVICE) for u in ref["mono_u"]]
+
+    def update(odo, i):
+        return odo.update(seq["left"][i], trans_scale=SEQ["step"],
+                          u=us[i] if replay else None)
+
     odo = MonoOdometer(seq["K"], device=DEVICE)
-    accepted, codes, poses, lat = [], [], [], []
+    accepted, codes, poses, ctws, lat = [], [], [], [], []
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated() / 2 ** 20
     torch.cuda.reset_peak_memory_stats()
     try:
-        for k in kernels:
-            k.launches = 0
-        for i in range(N_FRAMES):
-            t0 = time.perf_counter()
-            accepted.append(odo.update(seq["left"][i],
-                                       trans_scale=SEQ["step"],
-                                       u=us[i] if replay else None))
-            lat.append(time.perf_counter() - t0)   # update() ends in a sync
-            codes.append(int(odo.last_stats["skip_code"]))
-            poses.append(odo.current_pose())
-        launches = {k.__name__: k.launches for k in kernels}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        # launches and synchronizing calls a frame, from the profiler, over
-        # frames run again outside the timed loop
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for i in range(profiled):
-                odo.update(seq["left"][i], trans_scale=SEQ["step"])
-            torch.cuda.synchronize()
-        syncs = sync_sources(torch, lambda: odo.update(
-            seq["left"][min(profiled, N_FRAMES - 1)],
-            trans_scale=SEQ["step"]))
+        with _graph.disable_capture():
+            for k in kernels:
+                k.launches = 0
+            for i in range(N_FRAMES):
+                t0 = time.perf_counter()
+                accepted.append(update(odo, i))
+                lat.append(time.perf_counter() - t0)   # ends in a sync
+                if odo.captured:
+                    raise AssertionError(f"{name}: frame {i} ran captured")
+                codes.append(int(odo.last_stats["skip_code"]))
+                ctws.append(odo.state.c_T_w.cpu().numpy())
+                poses.append(odo.current_pose())
+            launches = {k.__name__: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            # launches and synchronizing calls a frame, from the profiler,
+            # over frames run again outside the timed loop
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for i in range(profiled):
+                    odo.update(seq["left"][i], trans_scale=SEQ["step"])
+                torch.cuda.synchronize()
+            syncs = sync_sources(torch, lambda: odo.update(
+                seq["left"][min(profiled, N_FRAMES - 1)],
+                trans_scale=SEQ["step"]))
+        eager = {"ok": accepted, "causes": codes, "c_T_w": np.stack(ctws),
+                 "lat": lat}
+        run_mono_captured(torch, seq, name, smi, update, eager)
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
@@ -1606,29 +1796,31 @@ def run_mono(torch, seq, name, smi, profiled=4):
     want_acc = int(ref["mono_accept"].sum())
     log(f"[{name}] accepted {n_acc}/{N_FRAMES} (JAX {want_acc}), ATE {ate} "
         f"m (JAX {float(ref['mono_ate_m'])} m) over "
-        f"{SEQ['step'] * (N_FRAMES - 1)} m, per-frame update latency median "
-        f"{med} ms (frames 2-{N_FRAMES - 1}), min {min(lat[2:]) * 1e3} ms, "
-        f"max {max(lat[2:]) * 1e3} ms, first frame {lat[0] * 1e3} ms; "
-        f"device memory allocated {base:.1f} MiB at the start, peak "
-        f"{peak:.1f} MiB; {smi}")
+        f"{SEQ['step'] * (N_FRAMES - 1)} m, eager per-frame update latency "
+        f"median {med} ms (frames 2-{N_FRAMES - 1}), min "
+        f"{min(lat[2:]) * 1e3} ms, max {max(lat[2:]) * 1e3} ms, first frame "
+        f"{lat[0] * 1e3} ms; device memory allocated {base:.1f} MiB at the "
+        f"start, peak {peak:.1f} MiB; {smi}")
     log(f"[{name}] kernel launches: {launches} ({launches['brief_describe']}"
-        f" H4 in {N_FRAMES} frames); per frame under torch.profiler "
+        f" H4 in {N_FRAMES} frames); per eager frame under torch.profiler "
         f"({profiled} frames): {per_frame}, device time {device_ms:.3f} ms; "
-        f"synchronizing calls in one frame, by the line that made them: "
-        f"{syncs}")
+        f"synchronizing calls in one eager frame, by the line that made "
+        f"them: {syncs}")
     log(f"[{name}] skip codes where either is not 0: port "
         f"{[(i, MONO_SKIP_STRINGS[c]) for i, c in enumerate(codes) if c]}, "
         f"JAX {[(i, c) for i, c in enumerate(want_codes) if c]}")
     if not np.isfinite(poses).all():
         raise AssertionError(f"{name}: non-finite pose")
-    stray = [k for k in syncs if k.startswith("openvo_tpu_torch/pose/")
-             and k != svd_line()]
+    stray = [k for k in syncs if k.startswith("openvo_tpu_torch/pose/")]
     if stray:
         raise AssertionError(f"{name}: host syncs in RANSAC at {stray}")
-    if any(launches[k.__name__] != N_FRAMES for k in orb_cuda.KERNELS) or any(
-            launches[k.__name__] for k in sgbm_cuda.KERNELS):
+    if (any(launches[k.__name__] != N_FRAMES for k in orb_cuda.KERNELS)
+            or any(launches[k.__name__] for k in sgbm_cuda.KERNELS)
+            or launches["jacobi_svd"] != MONO_SVDS * N_FRAMES
+            or launches["rotation_3x3"]):
         raise AssertionError(f"{name}: launches {launches}, expected H4, "
-                             f"H6 and H9 once a frame and no SGBM kernel")
+                             f"H6 and H9 once a frame, H11 {MONO_SVDS} "
+                             f"times, no SGBM kernel and no H10")
     if replay:
         ref_poses = np.linalg.inv(ref["mono_c_T_w"].astype(np.float64))
         rot, ang = motion_gaps(poses, ref_poses)
@@ -1669,17 +1861,44 @@ def run_mono(torch, seq, name, smi, profiled=4):
     return launches
 
 
-def svd_line():
-    """file:line of the torch.linalg.svd call in pose/kabsch.py: the one
-    host sync RANSAC makes on purpose (torch checks the SVD's convergence
-    on the host)."""
-    import inspect
+def run_mono_captured(torch, seq, name, smi, update, eager):
+    """A mono path as users run it: a new odometer (its generator seeded
+    as the eager run's), each update one replayed CUDA graph; ok, skip
+    code and c_T_w equal to the ``eager`` run's at every frame, one host
+    sync a frame of frames 2-63, none of them in pose/; the replay's
+    kernels and kernel time under torch.profiler."""
+    from openvo_tpu_torch.models.mono_odometer import MonoOdometer
 
-    from openvo_tpu_torch.pose import kabsch
-
-    lines, first = inspect.getsourcelines(kabsch.svd)
-    at = next(i for i, line in enumerate(lines) if "torch.linalg.svd(" in line)
-    return f"openvo_tpu_torch/pose/kabsch.py:{first + at}"
+    odo = MonoOdometer(seq["K"], device=DEVICE)
+    oks, codes, ctws, lat, syncs = [], [], [], [], []
+    for i in range(N_FRAMES):
+        ok, n, secs = count_syncs(torch, lambda: update(odo, i))
+        if not odo.captured:
+            raise AssertionError(f"{name}: frame {i} ran eagerly")
+        oks.append(ok)
+        lat.append(secs)
+        syncs.append(n)
+        codes.append(int(odo.last_stats["skip_code"]))
+        ctws.append(odo.state.c_T_w.cpu().numpy())
+    pose_syncs = sync_sources(torch, lambda: update(odo, N_FRAMES - 1))
+    replay_profile(torch, name, lambda: update(odo, N_FRAMES - 1))
+    if len(odo._graphs) != 1:
+        raise AssertionError(f"{name}: {len(odo._graphs)} graphs captured")
+    step = next(iter(odo._graphs.values()))
+    log_captured(name, step, float(np.median(eager["lat"][2:])) * 1e3,
+                 float(np.median(lat[2:])) * 1e3,
+                 f"{sum(syncs[2:]) / (N_FRAMES - 2)} a frame of frames 2-"
+                 f"{N_FRAMES - 1} (frame 0, capturing: {syncs[0]}); in one "
+                 f"captured frame, by line: {pose_syncs}", "update latency",
+                 smi)
+    held_bit_equal(name, oks, codes, ctws, eager)
+    if set(syncs[2:]) != {1}:
+        raise AssertionError(f"{name}: captured frames' host syncs "
+                             f"{syncs[2:]}, expected 1 a frame")
+    stray = [k for k in pose_syncs if k.startswith("openvo_tpu_torch/pose/")]
+    if stray:
+        raise AssertionError(f"{name}: captured host syncs in pose/ at "
+                             f"{stray}")
 
 
 def sync_sources(torch, fn):
@@ -1886,15 +2105,20 @@ def count_launches(torch, fn):
 
 
 def batched_path_kernels(launches, name, want, base="off-lat",
-                         filters=False):
+                         filters=False, steps=None):
     """Fail unless each kernel launched ``want`` times what a frame of the
     single-frame path ``base`` launches, on a batched path: H1-H4 ``want``
     times and H5 not at all at off-lat's parameters (H1, ``cost_hsweep``,
     is its two kernels bt_box and hwalk); H5, H3 and H4 ``want`` times, the
     float32 H2 three times that and H1 not at all at block13's; H7 ``want``
-    times at on-lat's; H8 ``want`` times with ``filters``."""
+    times at on-lat's; H8 ``want`` times with ``filters``; H10 what a frame
+    launches times the state machine's ``steps`` (``want`` unless given: a
+    stream steps frame by frame)."""
     expected = {k: n * want for k, n in expected_launches(
         path_params(base), filters).items()}
+    expected["rotation_3x3"] = expected_launches(
+        path_params(base), filters)["rotation_3x3"] * (
+        want if steps is None else steps)
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expected}")
@@ -2050,7 +2274,7 @@ def run_stream(torch, seq, smi, name, ref):
                              or causes[40] != "bigdist"):
         raise AssertionError(f"off-tp: {tracked} tracked, frame 40 "
                              f"{causes[40]!r}")
-    batched_path_kernels(launches, name, chunks, single)
+    batched_path_kernels(launches, name, chunks, single, steps=N_FRAMES)
     return launches, {"ok": ok, "causes": causes, "c_T_w": ctw,
                       "ms": secs * 1e3 / N_FRAMES}
 

@@ -36,8 +36,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
+_P, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_double)
 # C entry points of csrc/*.cu: name -> argument types. Each returns the
 # cudaError_t of its launch.
 SIGNATURES = {
@@ -69,6 +69,11 @@ SIGNATURES = {
     "ovo_speckle_keep": (_P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),
     # cons, num, out, clouds, N, stream
     "ovo_greedy_clique": (_P, _P, _P, _I, _I, _P),
+    # H, V, Ut, B, stream
+    "ovo_rotation_3x3": (_P, _P, _P, _I, _P),
+    # a (float32 where m < n, else float64), S, V, U (or NULL), sweeps, B,
+    # m, n, tol, max sweeps, stream
+    "ovo_jacobi_svd": (_P,) * 5 + (_I, _I, _I, _D, _I, _P),
 }
 
 

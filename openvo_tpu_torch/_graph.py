@@ -22,6 +22,13 @@ and replays it. Each later call copies its inputs into the static buffers
 (and the state, unless it is the static one the last call returned) and
 replays the graph: one launch for the whole step, no host sync.
 
+A ``torch.Generator`` in the state (the mono odometer's sampler) is not
+copied: the graph registers it (``CUDAGraph.register_generator_state``),
+so each replay draws the numbers the next eager call would draw and
+advances it as that call would; the warm-up's draws are undone (its state
+saved and restored around the warm-up), and a state passed in with
+another generator hands its state over (``set_state``).
+
 Donation: the state a call returns is the static buffers, and its other
 outputs live in the graph's memory pool. Both are valid until the next call
 of the same step, as JAX's donated state is invalid once it is passed on. A
@@ -64,6 +71,16 @@ def _signature(inputs):
     return tuple((tuple(x.shape), x.dtype) for x in inputs)
 
 
+def _is_generator(leaf) -> bool:
+    return isinstance(leaf, torch.Generator)
+
+
+def _static(leaf):
+    """A static buffer for a state leaf: a clone of a tensor; a generator
+    stays itself (the graph registers it)."""
+    return leaf if _is_generator(leaf) else torch.clone(leaf)
+
+
 class CapturedStep:
     """``fn`` captured on its first call on the card and replayed after
     (see the module docstring). ``capture_s`` (warm-up plus capture, host
@@ -91,7 +108,10 @@ class CapturedStep:
                              f", called with {_signature(inputs)}")
         elif state is not self.state:
             for dst, src in zip(tree_leaves(self.state), tree_leaves(state)):
-                dst.copy_(src)
+                if not _is_generator(dst):
+                    dst.copy_(src)
+                elif src is not dst:
+                    dst.set_state(src.get_state())
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
@@ -101,20 +121,26 @@ class CapturedStep:
         dev = (torch.device(self.device) if self.device is not None
                else tree_leaves(state)[0].device)
         t0 = time.perf_counter()
-        self.state = tree_map(torch.clone, state)
+        self.state = tree_map(_static, state)
+        gens = [g for g in tree_leaves(self.state) if _is_generator(g)]
         self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev)
                        for x in inputs]
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
+        drawn = [g.get_state() for g in gens]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.fn(self.state, *self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
+        for g, st in zip(gens, drawn):   # the warm-up draws nothing
+            g.set_state(st)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
         with torch.cuda.graph(graph):
             new_state, *outs = self.fn(self.state, *self.inputs)
             static, spec = tree_flatten(self.state)
@@ -122,10 +148,14 @@ class CapturedStep:
             if new_spec != spec:
                 raise TypeError(f"the step returned a state of another "
                                 f"structure: {new_spec} for {spec}")
+            if any(_is_generator(d) and s is not d
+                   for s, d in zip(new, static)):
+                raise TypeError("the step returned another generator than "
+                                "its state's")
             # a leaf that aliases a static buffer is copied before any
             # buffer is written
-            ptrs = {t.data_ptr() for t in static}
-            new = [s if s.data_ptr() not in ptrs or s is d else s.clone()
+            ptrs = {t.data_ptr() for t in static if not _is_generator(t)}
+            new = [s if s is d or s.data_ptr() not in ptrs else s.clone()
                    for s, d in zip(new, static)]
             for dst, src in zip(static, new):
                 if src is not dst:

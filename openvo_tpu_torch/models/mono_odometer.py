@@ -12,7 +12,15 @@ JAX splits a PRNG key every frame; here the state holds a
 (iters, 5) uniforms every frame, the first included, so the two chains
 stay aligned frame for frame. A caller may pass the uniforms instead
 (``update(..., u=...)``), for example JAX's own, to replay its samples.
-The step reads nothing back to the host; ``update`` reads its stats once.
+
+The step reads nothing back to the host (its SVDs are the kernel H11 on the
+card, ``pose/kabsch.svd``); ``update`` reads its stats once. JAX compiles
+the step into one program with ``trans_scale`` a traced float32 input
+(``openvo_tpu/models/mono_odometer.py:155-166``); on the card
+``MonoOdometer.update`` replays it as one CUDA graph (``_graph.capture``),
+one per input signature (the image's shape and type, and whether ``u`` is
+given), with ``trans_scale`` a 0-d float32 input and the state's generator
+registered with the graph, so a replay draws what the eager step draws.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.geometry.se3 import rt_to_T
 from openvo_tpu_torch.ops._dispatch import target_device
@@ -85,9 +94,9 @@ def ransac_samples(ransac_iters: int) -> int:
 def make_step(K, cfg: OdometerConfig, ransac_iters: int = 256,
               inlier_px: float = 1.0, min_inliers: int = 15):
     """(state, img, trans_scale, u=None) -> (state', accept, stats). ``K``
-    is the 3x3 intrinsic matrix; images are (H, W) grayscale; ``u`` the
-    frame's (iters, 5) uniforms, drawn from the state's generator when
-    None."""
+    is the 3x3 intrinsic matrix; images are (H, W) grayscale;
+    ``trans_scale`` a number or a 0-d float32 tensor; ``u`` the frame's
+    (iters, 5) uniforms, drawn from the state's generator when None."""
     K = np.asarray(K, dtype=np.float64)
     fx, fy, cx, cy = (float(v) for v in (K[0, 0], K[1, 1], K[0, 2], K[1, 2]))
     # Sampson threshold in normalized coords ~ (px / f)^2
@@ -173,12 +182,18 @@ class MonoOdometer:
         self._state = init_state(config.orb.max_keypoints, self.device)
         self._step = make_step(K, config, ransac_iters, inlier_px,
                                min_inliers)
+        self._graphs = {}       # input signature -> captured step (card)
+        self.captured = None    # how the last update ran
         self.skipped_frames = 0
         self.skip_cause = ""
         self.last_stats = {}
 
     @property
     def state(self) -> MonoState:
+        """The odometer's state. On a captured odometer it is the graph's
+        static buffers (and its registered generator), which the next
+        update overwrites, as JAX's donated state is invalid after the next
+        step: copy what you keep."""
         return self._state
 
     @state.setter
@@ -189,10 +204,23 @@ class MonoOdometer:
     def update(self, img, trans_scale: float = 1.0, u=None) -> bool:
         """Process one (H, W) grayscale frame; True iff it was accepted
         (the first frame, or tracked). ``u``: the frame's (iters, 5)
-        uniforms in place of the generator's draw."""
-        img = torch.as_tensor(img, device=self.device)
-        self._state, accept, stats = self._step(self._state, img,
-                                                trans_scale, u)
+        uniforms in place of the generator's draw. On the card (unless
+        ``_graph.disable_capture()``) one replayed CUDA graph; its one host
+        sync is the copy of the results."""
+        scale = torch.as_tensor(trans_scale, dtype=torch.float32)
+        inputs = (img, scale) if u is None else (img, scale, u)
+        self.captured = self.device.type == "cuda" and capture_enabled()
+        if self.captured:
+            inputs = tuple(torch.as_tensor(x) for x in inputs)
+            key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+            if key not in self._graphs:
+                self._graphs[key] = capture(self._step)
+            step = self._graphs[key]
+        else:
+            # a CPU 0-d trans_scale multiplies as a scalar on the card too
+            inputs = (torch.as_tensor(img, device=self.device),) + inputs[1:]
+            step = self._step
+        self._state, accept, stats = step(self._state, *inputs)
         names = list(stats)
         vals = torch.stack([accept.to(torch.int32), self._state.skipped]
                            + [stats[k].to(torch.int32) for k in names]).cpu()

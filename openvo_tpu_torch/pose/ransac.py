@@ -16,8 +16,9 @@ same uniforms (:func:`sample_indices`), so a caller holding JAX's uniforms
 replays JAX's samples. An empty mask draws index 0, as JAX does, with no
 raise (``torch.multinomial`` would raise, or assert on the card).
 
-Everything is static-shape with no host read; ``torch.linalg.svd`` checks
-its own convergence on the card, one sync per call.
+Everything is static-shape with no host read: on the card every SVD is
+the Jacobi kernel H11 (``pose/kabsch.svd``), so the mono step is captured
+as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 from openvo_tpu_torch.ops._dispatch import device_constant
 from openvo_tpu_torch.pose.fivepoint import (epipolar_rows,
                                              five_point_candidates)
-from openvo_tpu_torch.pose.kabsch import kabsch, row_norm, svd
+from openvo_tpu_torch.pose.kabsch import (det3, jacobi_route, kabsch,
+                                          row_norm, svd)
 
 # base length of XLA:CPU's blocked cumulative sum (ReduceWindowRewriter)
 _SCAN_BASE = 16
@@ -179,8 +181,15 @@ def _masked_eight_point(x1, x2, w):
     """Least-squares essential matrix from all correspondences weighted by
     the 0/1 mask ``w``, projected to the essential manifold (the inlier
     refit). For N >= 9 the thin SVD has the same V as JAX's full one,
-    without its N x N U."""
+    without its N x N U; on the card's route the SVD is H11's of the
+    float64 Gram."""
     a = epipolar_rows(x1, x2) * w[:, None].to(x1.dtype)
+    if jacobi_route(a):
+        # H11 takes 9 rows at most: the float64 Gram A^T A has A's right
+        # singular vectors, its least one last
+        a = a.to(torch.float64)
+        _, _, vt = svd(a.T @ a)
+        return _project_essential(vt[-1].reshape(3, 3).to(x1.dtype))
     _, _, vt = svd(a, full_matrices=a.shape[0] < 9)
     return _project_essential(vt[-1].reshape(3, 3))
 
@@ -275,8 +284,8 @@ def recover_pose(E, x1, x2, mask):
     (``cv2.recoverPose``). Returns (R, unit t, support mask)."""
     u, _, vt = svd(E)
     # proper rotations
-    u = u * torch.sign(torch.linalg.det(u))[..., None, None]
-    vt = vt * torch.sign(torch.linalg.det(vt))[..., None, None]
+    u = u * torch.sign(det3(u))[..., None, None]
+    vt = vt * torch.sign(det3(vt))[..., None, None]
     w = device_constant(_W, E.device)
     R1, R2 = u @ w @ vt, u @ w.T @ vt
     t = u[..., :, 2]

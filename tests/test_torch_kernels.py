@@ -4,6 +4,7 @@ present. Run on a machine with one (``--noconftest``: the JAX-free
 machine cannot import tests/conftest.py): ``python -m pytest
 tests/test_torch_kernels.py -q --noconftest``."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -11,9 +12,10 @@ import pytest
 import torch
 
 from openvo_tpu_torch.config import SGBMParams
-from openvo_tpu_torch.ops import (clique_cuda, orb_cuda, sgbm, sgbm_cuda,
-                                  speckle_cuda)
-from openvo_tpu_torch.tools import loop_cases
+from openvo_tpu_torch.ops import (clique_cuda, jacobi_cuda, orb_cuda, sgbm,
+                                  sgbm_cuda, speckle_cuda)
+from openvo_tpu_torch.pose import kabsch
+from openvo_tpu_torch.tools import loop_cases, svd_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -507,11 +509,15 @@ def test_wrappers_reject_wrong_input(cuda):
 
 def test_mono_odometer_on_the_card_equals_cpu(cuda):
     """MonoOdometer over 5 frames of the 320x240 corridor on the card and
-    on the CPU with the same uniforms: H4 launches once a frame; the
-    accept and skip codes, keypoint and match counts equal; each frame's
-    motion within 5e-3 rad and its direction within 0.1 rad (cuSOLVER and
-    LAPACK give other null-space bases, as tests/test_torch_mono.py
-    explains for JAX's)."""
+    on the CPU with the same uniforms: on the card eagerly
+    (``_graph.disable_capture()``), H4 launches once a frame, and as users
+    run it, each update one replayed CUDA graph, equal to the eager run bit
+    for bit; the accept and skip codes, keypoint and match counts equal to
+    the CPU's; each frame's motion within 5e-3 rad and its direction within
+    0.1 rad (the card's SVD is H11, with JAX's LAPACK basis of the
+    five-point null space, the CPU's torch's LAPACK, as
+    tests/test_torch_mono.py explains for JAX's)."""
+    from openvo_tpu_torch import _graph
     from openvo_tpu_torch.io.synthetic import render_stereo_sequence
     from openvo_tpu_torch.models.mono_odometer import (MonoOdometer,
                                                        ransac_samples)
@@ -523,19 +529,27 @@ def test_mono_odometer_on_the_card_equals_cpu(cuda):
     us = [torch.rand((ransac_samples(256), 5), generator=gen)
           for _ in range(5)]
     runs = []
-    for dev in (cuda, torch.device("cpu")):
+    for dev, captured in ((cuda, False), (cuda, True),
+                          (torch.device("cpu"), False)):
         odo = MonoOdometer(seq["K"], nfeatures=300, device=dev)
         n0 = orb_cuda.brief_describe.launches
         run = []
-        for i in range(5):
-            img = np.clip(seq["left"][i], 0, 255).astype(np.uint8)
-            ok = odo.update(img, trans_scale=0.3, u=us[i])
-            run.append((ok, dict(odo.last_stats), odo.current_pose()))
-        if dev.type == "cuda":
+        with contextlib.nullcontext() if captured else \
+                _graph.disable_capture():
+            for i in range(5):
+                img = np.clip(seq["left"][i], 0, 255).astype(np.uint8)
+                ok = odo.update(img, trans_scale=0.3, u=us[i])
+                assert odo.captured == captured
+                run.append((ok, dict(odo.last_stats), odo.current_pose()))
+        if dev.type == "cuda" and not captured:
             assert orb_cuda.brief_describe.launches == n0 + 5
         runs.append(run)
+    eager, replayed, cpu = runs
+    for e, r in zip(eager, replayed):
+        assert e[0] == r[0] and np.array_equal(e[2], r[2])
+        assert all(np.array_equal(e[1][k], r[1][k]) for k in e[1])
     prev = (np.eye(4), np.eye(4))
-    for i, (g, w) in enumerate(zip(*runs)):
+    for i, (g, w) in enumerate(zip(eager, cpu)):
         assert g[0] == w[0] and w[0]
         for k in ("skip_code", "n_kps", "n_matches"):
             assert int(g[1][k]) == int(w[1][k]), (i, k)
@@ -1138,6 +1152,153 @@ def test_greedy_clique_rejects_wrong_input(cuda):
     big = torch.zeros((4097, 4097), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="points"):
         clique_cuda.greedy_clique(big, big.sum(0, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the small SVDs: H10 (Kabsch's 3x3 rotation) and H11 (the batched Jacobi
+# SVD of the mono path). Bit-equal to their plain versions on the card,
+# whose float64 sqrt is correctly rounded as the kernels' (torch's on the
+# CPU is not always: an ulp apart on about 0.7% of values).
+# ---------------------------------------------------------------------------
+
+
+def cross_covariances(dev, count=100, seed=0):
+    src, dst, mask = (torch.from_numpy(x).to(dev)
+                      for x in svd_cases.clouds(seed, count))
+    return kabsch.cross_covariance(src, dst, mask)[0]
+
+
+def assert_rotation_equals_plain(H):
+    n0 = jacobi_cuda.rotation_3x3.launches
+    got = jacobi_cuda.rotation_3x3(H)
+    assert jacobi_cuda.rotation_3x3.launches == n0 + 1
+    for a, b in zip(got, kabsch.rotation_3x3_plain(H)):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("case", ["clouds", "degenerate", "random"])
+def test_rotation_3x3_equals_plain(cuda, case):
+    """H10 on the cross-covariances of general, planar, 3-point, 10-point
+    and collinear clouds, on matrices of rank 0-2, equal singular values,
+    determinant -1 and extreme scales, and on random ones."""
+    if case == "clouds":
+        H = cross_covariances(cuda)
+    elif case == "degenerate":
+        H = torch.from_numpy(svd_cases.degenerate_3x3()).to(cuda)
+    else:
+        H = torch.from_numpy(np.random.default_rng(3).normal(
+            size=(300, 3, 3))).to(cuda)
+    V, Ut = assert_rotation_equals_plain(H)
+    R = torch.ops.openvo_torch.rotation_3x3(H)
+    assert torch.equal(R, V @ Ut)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (2,), (16,), (2, 8)])
+def test_rotation_3x3_at_the_paths_shapes(cuda, shape):
+    """The batches the paths give H10 (one fit; a frame's two attempts;
+    a rig's 8 cameras' two; a stream's frame), a batch against single
+    launches."""
+    n = int(np.prod(shape, dtype=int))
+    H = cross_covariances(cuda, max(n, 1), seed=n)[:n].reshape(shape
+                                                               + (3, 3))
+    V, Ut = assert_rotation_equals_plain(H)
+    flat = H.reshape(-1, 3, 3)
+    for i in range(len(flat)):
+        v, u = jacobi_cuda.rotation_3x3(flat[i])
+        assert torch.equal(v, V.reshape(-1, 3, 3)[i])
+        assert torch.equal(u, Ut.reshape(-1, 3, 3)[i])
+
+
+def jacobi_inputs(name):
+    rng = np.random.default_rng(7)
+    if name == "five-point rows":
+        return svd_cases.five_point_rows(0, 64)
+    if name == "essential":
+        return svd_cases.essentials(1, 8)
+    if name == "gram":
+        a = svd_cases.epipolar_rows(*svd_cases.two_view(rng, 300))
+        return (a.T @ a)[None]
+    if name == "degenerate 3x3":
+        return svd_cases.degenerate_3x3()
+    if name == "zeros 5x9":
+        return np.zeros((3, 5, 9))
+    if name == "equal singular values 9x9":
+        q = np.linalg.qr(rng.normal(size=(9, 9)))[0]
+        return np.stack([np.eye(9), 3.0 * q, np.diag([2.0] * 5 + [1.0] * 4)])
+    if name == "rank 3 of 9x9":
+        b = rng.normal(size=(4, 9, 3))
+        return b @ rng.normal(size=(4, 3, 9))
+    m, n = (int(x) for x in name.split()[-1].split("x"))
+    return rng.normal(size=(17, m, n))
+
+
+JACOBI_CASES = ["five-point rows", "essential", "gram", "degenerate 3x3",
+                "zeros 5x9", "equal singular values 9x9", "rank 3 of 9x9",
+                "random 8x9", "random 2x9", "random 9x4", "random 7x7",
+                "random 1x1", "random 9x1", "random 1x9"]
+
+
+def assert_svd_equals_plain(a):
+    n0 = jacobi_cuda.jacobi_svd.launches
+    got = jacobi_cuda.jacobi_svd(a, kabsch.JACOBI_TOL,
+                                 kabsch.JACOBI_MAX_SWEEPS)
+    assert jacobi_cuda.jacobi_svd.launches == n0 + 1
+    for x, y in zip(got, kabsch.jacobi_svd_plain(a)):
+        assert torch.equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize("name", JACOBI_CASES)
+def test_jacobi_svd_equals_plain(cuda, name):
+    """H11 on the mono path's shapes ((64, 5, 9) five-point rows, a 9x9
+    Gram, (8, 3, 3) essential matrices), degenerate and random matrices of
+    1-9 rows and columns (float32 where wide, LAPACK's LQ path): S, V, U
+    and the sweeps equal, and each member of the batch equal to its own
+    launch."""
+    a = kabsch.jacobi_input(torch.from_numpy(jacobi_inputs(name))).to(cuda)
+    got = assert_svd_equals_plain(a)
+    for i in range(min(len(a), 8)):
+        one = jacobi_cuda.jacobi_svd(a[i:i + 1], kabsch.JACOBI_TOL,
+                                     kabsch.JACOBI_MAX_SWEEPS)
+        for x, y in zip(got, one):
+            assert torch.equal(x[i], y[0])
+    torch.cuda.synchronize()
+
+
+def test_svd_on_the_card_runs_h11_and_no_torch_svd(cuda, monkeypatch):
+    """``kabsch.svd`` of CUDA tensors launches H11 once a call, never
+    ``torch.linalg.svd``; NaN matrices give NaN."""
+    def tripwire(*_a, **_k):
+        raise AssertionError("torch.linalg.svd ran on the card")
+
+    monkeypatch.setattr(torch.linalg, "svd", tripwire)
+    a = torch.from_numpy(svd_cases.five_point_rows(3, 4)).to(cuda).float()
+    a[1, 0, 0] = float("nan")
+    n0 = jacobi_cuda.jacobi_svd.launches
+    U, S, Vh = kabsch.svd(a)
+    assert jacobi_cuda.jacobi_svd.launches == n0 + 1 and U is None
+    assert torch.isnan(S[1]).all() and torch.isfinite(S[0]).all()
+    assert S.shape == (4, 5) and Vh.shape == (4, 9, 9)
+
+
+def test_jacobi_kernels_reject_wrong_input(cuda):
+    a = torch.zeros((2, 3, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        jacobi_cuda.rotation_3x3(a.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        jacobi_cuda.rotation_3x3(a.float())
+    with pytest.raises(ValueError, match="shape"):
+        jacobi_cuda.rotation_3x3(a[..., :2])
+    with pytest.raises(ValueError, match="rows and columns"):
+        jacobi_cuda.jacobi_svd(torch.zeros((1, 10, 3), dtype=torch.float64,
+                                           device=cuda), 1e-14, 12)
+    with pytest.raises(TypeError, match="dtype"):
+        jacobi_cuda.jacobi_svd(a.float(), 1e-14, 12)
+    with pytest.raises(TypeError, match="dtype"):   # wide: float32 only
+        jacobi_cuda.jacobi_svd(torch.zeros((1, 5, 9), dtype=torch.float64,
+                                           device=cuda), 1e-14, 12)
 
 
 def test_compute_3d_is_captured_and_returns_copies(cuda):

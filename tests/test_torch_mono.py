@@ -17,6 +17,7 @@ import torch
 from openvo_tpu.io.synthetic import render_stereo_sequence
 from openvo_tpu.models import mono_odometer as jmono
 from openvo_tpu_torch.models import mono_odometer as mono
+from openvo_tpu_torch.pose import kabsch
 
 N = 6
 CARRY_AT = 3
@@ -130,6 +131,21 @@ def test_poses_match_jax(seq, jax_run, port_run):
     pose, gt = port_run[-1]["pose"], seq["T_wc"][N - 1]
     assert np.linalg.norm(pose[:3, 3] - gt[:3, 3]) < 0.45
     np.testing.assert_allclose(pose[:3, :3], gt[:3, :3], atol=0.05)
+
+
+def test_card_svd_route_matches_jax(seq, jax_run):
+    """The same run with every SVD as the card runs it (``pose/kabsch.
+    card_svd_route``: the Jacobi SVD H11's plain version in float64, the
+    refit on the Gram): JAX's accept and skip codes at every frame, and
+    each frame's motion within the tolerances above."""
+    want, _ = jax_run
+    odo = mono.MonoOdometer(seq["K"], nfeatures=300, device="cpu")
+    with kabsch.card_svd_route():
+        got = run_port(odo, seq, want, range(N))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g["ok"], g["cause"]) == (w["ok"], w["cause"]), i
+        assert g["stats"]["skip_code"] == w["stats"]["skip_code"], i
+    assert_motions_match(got, want)
 
 
 def test_state_from_jax_leaves_continues_jax(seq, jax_run):

@@ -10,7 +10,7 @@ draws (tools/jax_mono_reference.npz) in three runs:
 
 - ``cpu``: the port on the CPU; every SVD by torch's LAPACK;
 - ``cuda``: the port on the card, as the smoke's `mono` runs it; every SVD
-  by cuSOLVER;
+  by the Jacobi kernel H11 (``pose/kabsch.svd``);
 - ``cuda-cpu-svd``: the port on the card with every SVD of ``pose/`` (the
   five-point null space, the 8-point refit, recoverPose's decomposition of
   E) computed by the CPU's LAPACK and copied back.
@@ -28,7 +28,9 @@ Then, on the card, each stage of a frame (ORB's ``detect_and_compute``,
 the ratio-test match, 5-point RANSAC, recoverPose, the rest) over 8
 frames: its kernel launches, copies and synchronizing calls a frame under
 torch.profiler ranges, and its ms a frame on the host clock with the card
-synchronized around each stage (a separate pass). The last line is a JSON
+synchronized around each stage (a separate pass). The card's runs are
+eager (``_graph.disable_capture()``): a captured update is one graph
+replay, with no stages to time and no host SVD. The last line is a JSON
 object of all of it. Needs one card; ~5 min.
 """
 
@@ -48,6 +50,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from openvo_tpu_torch import _graph  # noqa: E402
 from openvo_tpu_torch.models import mono_odometer as mono  # noqa: E402
 from openvo_tpu_torch.pose import fivepoint, kabsch, ransac  # noqa: E402
 
@@ -202,14 +205,15 @@ def main() -> int:
     cs.log(smi)
     ref = cs.jax_reference()
     seq = cs.render_sequence()
-    runs = {"gt": np.asarray(seq["T_wc"], np.float64),
-            "jax": np.linalg.inv(ref["mono_c_T_w"][:cs.N_FRAMES].astype(
-                np.float64)),
-            "cpu": replay(seq, ref, "cpu"),
-            "cuda": replay(seq, ref, DEVICE),
-            "cuda-cpu-svd": replay_with_cpu_svd(seq, ref)}
-    result = compare(runs)
-    result["stages"] = stage_costs(seq, ref)
+    with _graph.disable_capture():
+        runs = {"gt": np.asarray(seq["T_wc"], np.float64),
+                "jax": np.linalg.inv(ref["mono_c_T_w"][:cs.N_FRAMES].astype(
+                    np.float64)),
+                "cpu": replay(seq, ref, "cpu"),
+                "cuda": replay(seq, ref, DEVICE),
+                "cuda-cpu-svd": replay_with_cpu_svd(seq, ref)}
+        result = compare(runs)
+        result["stages"] = stage_costs(seq, ref)
     result["device"] = smi
     print(json.dumps(result), flush=True)
     return 0
