@@ -32,12 +32,12 @@ Phases, in order; any failure exits non-zero before the final line:
    loop) on the `filters` path's clouds of frames 1 and 2 against frame 0,
    on 16 clouds of consecutive frames as one batch, and on random clouds
    with NaN rows, exact ties and no valid row, memberships equal; the
-   small SVDs: H10 (Kabsch's 3x3 rotation) on the cross-covariances of the
-   `filters` path's clouds (a frame's two attempts, and 16 clouds as one
-   batch) and on degenerate and seeded clouds, H11 (the batched Jacobi
-   SVD) on the inputs a mono frame gives it (the five-point rows, the top
-   8 candidates, the refit's 9x9 Gram, one 3x3), all bit-equal, each also
-   timed beside one torch.linalg.svd of the same batch; and
+   pose fits: H10 (the whole Kabsch fit) on the `filters` path's clouds
+   (a frame's two attempts, and 16 clouds as one batch) and on degenerate
+   and seeded clouds, H11 (the batched Jacobi SVD) on the inputs a mono
+   frame gives it (the five-point rows, the top 8 candidates, the refit's
+   9x9 Gram, one 3x3), all bit-equal, each H11 case also timed beside one
+   torch.linalg.svd of the same batch; and
    time block13's plain float32 cost volume alone and over the batch;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
@@ -227,16 +227,17 @@ RESIZE_SRC = "openvo_tpu_torch/csrc/resize.cu"   # H6
 SPECKLE_SRC = "openvo_tpu_torch/csrc/speckle.cu"   # H7
 CLIQUE_SRC = "openvo_tpu_torch/csrc/clique.cu"     # H8
 JACOBI_SRC = "openvo_tpu_torch/csrc/jacobi.cu"     # H10, H11
-# H10's and H11's JAX counterparts: jnp.linalg.svd under jit, left to XLA
-# (no Pallas kernel)
-KABSCH_SVD_JAX = "openvo_tpu/pose/kabsch.py:49 (jnp.linalg.svd, XLA)"
+# H10's and H11's JAX counterparts: the Kabsch fit and jnp.linalg.svd under
+# jit, left to XLA (no Pallas kernel)
+KABSCH_JAX = ("openvo_tpu/pose/kabsch.py:22-60 (the fit; its jnp.linalg.svd "
+              ":49, XLA)")
 MONO_SVD_JAX = ("openvo_tpu/pose/fivepoint.py:210; openvo_tpu/pose/"
                 "ransac.py:140, :142, :273 (jnp.linalg.svd, XLA)")
-# H10's float64 operations a matrix, counted from the plain version: 5
+# H10's float64 operations on a fit's H, counted from the plain version: 5
 # sweeps of 3 rotations, each the three dot products (15), the rotation's
 # (c, s) (14) and the two 6-entry columns rotated (36); the norms (18), the
-# shift (2), u_1 and u_2 (6) and u_3 (9)
-ROTATION_OPS = 5 * 3 * (15 + 14 + 36) + 18 + 2 + 6 + 9
+# shift (2), u_1 and u_2 (6), u_3 (9); R = V U^T (45) and t (18)
+ROTATION_OPS = 5 * 3 * (15 + 14 + 36) + 18 + 2 + 6 + 9 + 45 + 18
 # H11's SVDs a mono frame: the five-point null space, the cheirality vote
 # of the top 8, two refits of (Gram, projection, vote), the final
 # recoverPose
@@ -323,6 +324,13 @@ FIRST_DESIGN_MS = {
         0.0069,
     ("greedy_clique", "random clouds, 40 NaN rows"): "0.377-0.410",
     ("greedy_clique", "random clouds, 30 exact ties"): "0.377-0.410",
+    # H11's first design, one thread a matrix in cyclic order (PERF.md
+    # section 6)
+    ("jacobi_svd", "mono frame 1: the five-point rows of 64 samples"): 0.102,
+    ("jacobi_svd", "mono frame 1: the cheirality vote's top 8 candidates"):
+        0.042,
+    ("jacobi_svd", "mono frame 1: the refit's 9x9 Gram"): 0.231,
+    ("jacobi_svd", "mono frame 1: one 3x3 (the refit's projection)"): 0.041,
 }
 
 
@@ -353,17 +361,19 @@ def as_tuple(x):
 
 
 def max_abs_err(a, b):
-    """The largest |a - b|; where either holds infinities (H9's keys are
-    -inf off the corners), over the elements finite in both, and inf
-    unless the others are the same values in the same places."""
+    """The largest |a - b|; where either holds infinities or NaN (H9's
+    keys are -inf off the corners, a degenerate Kabsch fit NaN), over the
+    elements finite in both, and inf unless the others are the same values
+    (NaN beside NaN) in the same places."""
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
                              f"{tuple(b.shape)} {b.dtype}")
     if a.is_floating_point():
         off_a, off_b = ~a.isfinite(), ~b.isfinite()
         if bool(off_a.any()) or bool(off_b.any()):
+            x, y = a[off_a], b[off_b]
             if not (bool((off_a == off_b).all())
-                    and bool((a[off_a] == b[off_b]).all())):
+                    and bool(((x == y) | (x.isnan() & y.isnan())).all())):
                 return float("inf")
             a, b = a.masked_fill(off_a, 0), b.masked_fill(off_b, 0)
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -1090,34 +1100,50 @@ def mono_svd_inputs(torch, seq, frame=1):
     return seen
 
 
+def fit_ops(mask):
+    """H10's float64 operations on clouds whose valid rows the (B, N)
+    ``mask`` marks, counted from the plain version over the V valid rows
+    of each fit (invalid rows add nothing): the 6 masked sums (6 (V - 1)),
+    the means (6), the centring (6 V), the 9 products (9 V) and their sums
+    (9 (V - 1)), then ROTATION_OPS on H, where V >= 3."""
+    v = mask.sum(-1).to("cpu").long()
+    sums = 15 * (v - 1).clamp_min(0) + 6 + 15 * v
+    return float((sums + (v >= 3).long() * ROTATION_OPS).sum())
+
+
 def svd_kernel_cases(torch, seq, cam, cfg):
-    """Phase 2's cases of the small SVDs against their plain versions: H10
-    on the cross-covariances of the `filters` path's clouds of frames 1
-    and 2 against frame 0 (a frame's two attempts, as every single-frame
-    stereo path batches them), of 16 clouds of consecutive frames as one
-    batch (a rig step's), of seeded clouds of every kind and of degenerate
-    matrices; H11 on what a mono frame gives it: the five-point rows (64,
-    5, 9), the cheirality vote's 8 candidates, the refit's 9x9 Gram, one
-    3x3 matrix, and seeded 5x9 rows and degenerate 3x3 matrices. Each is
-    timed beside one ``torch.linalg.svd`` of the same batch."""
+    """Phase 2's cases of the Kabsch fit and the small SVDs against their
+    plain versions: H10 on the `filters` path's clouds of frames 1 and 2
+    against frame 0 (a frame's two attempts, as every single-frame stereo
+    path batches them), on 16 clouds of consecutive frames as one batch (a
+    rig step's), on seeded clouds of every kind and on degenerate clouds
+    (``svd_cases.degenerate_clouds``); H11 on what a mono frame gives it:
+    the five-point rows (64, 5, 9), the cheirality vote's 8 candidates,
+    the refit's 9x9 Gram, one 3x3 matrix, and seeded 5x9 rows and
+    degenerate 3x3 matrices. Each H11 case is timed beside one
+    ``torch.linalg.svd`` of the same batch; no one PyTorch call computes a
+    Kabsch fit."""
     from openvo_tpu_torch.ops import jacobi_cuda
     from openvo_tpu_torch.pose import kabsch
     from openvo_tpu_torch.tools import svd_cases
 
     dev = cam.device
 
-    def h10(variant, path, H, frames=1):
+    def h10(variant, path, clouds, frames=1):
+        src, dst, mask = (x.to(dev).contiguous() for x in clouds)
         single = None
         if frames > 1:
-            single = lambda: [jacobi_cuda.rotation_3x3(H[i])  # noqa: E731
-                              for i in range(frames)]
-        return Case("rotation_3x3", variant, path,
-                    lambda: jacobi_cuda.rotation_3x3(H),
-                    lambda: kabsch.rotation_3x3_plain(H), KABSCH_SVD_JAX,
-                    (H,), 0, JACOBI_SRC, frames=frames, single=single,
-                    library=lambda: torch.linalg.svd(H),
-                    ops=ROTATION_OPS * H.numel() / 9,
-                    ops_per_s=FP64_OPS_PER_S)
+            single = lambda: [jacobi_cuda.kabsch_fit(  # noqa: E731
+                src[i:i + 1], dst[i:i + 1], mask[i:i + 1])[0]
+                for i in range(frames)]
+        return Case("kabsch_fit", variant, path,
+                    lambda: jacobi_cuda.kabsch_fit(src, dst, mask),
+                    lambda: kabsch.kabsch_fit_plain(src, dst, mask),
+                    KABSCH_JAX, (src, dst, mask), 0, JACOBI_SRC,
+                    frames=frames, single=single, ops=fit_ops(mask),
+                    ops_per_s=FP64_OPS_PER_S,
+                    note=f"{tuple(src.shape)}, valid rows "
+                         f"{mask.sum(-1).tolist()}")
 
     def h11(variant, path, a):
         a = kabsch.jacobi_input(a).to(dev).contiguous()
@@ -1133,29 +1159,23 @@ def svd_kernel_cases(torch, seq, cam, cfg):
                     note=f"{tuple(a.shape)}, sweeps a matrix "
                          f"{sorted(set(sweeps.tolist()))}")
 
-    def covariances(clouds):
-        H = kabsch.cross_covariance(*clouds)[0]
-        return torch.where(torch.isfinite(H).all(-1).all(-1)[..., None, None],
-                           H, 0.0).contiguous()
-
     filters_cfg = dataclasses.replace(cfg, **FILTERS)
     two = real_clouds(torch, seq, cam, filters_cfg, [(0, 1), (0, 2)])
     sixteen = real_clouds(torch, seq, cam, filters_cfg,
                           [(i, i + 1) for i in range(BATCH)])
-    seeded = tuple(torch.from_numpy(x).to(dev)
-                   for x in svd_cases.clouds(0, 100))
-    five, top8, gram, one = (mono_svd_inputs(torch, seq)[i]
-                             for i in (0, 1, 2, 3))
+    five, top8, gram, one = mono_svd_inputs(torch, seq)[:4]
     return [
         h10("frames 1 and 2 against frame 0 (a frame's two attempts)",
-            "off-lat", covariances(two)),
+            "off-lat", two),
         h10(f"{BATCH} clouds of consecutive frames as one batch", "rig8",
-            covariances(sixteen), frames=BATCH),
+            sixteen, frames=BATCH),
         h10("100 seeded clouds: general, planar, 3 and 10 points, "
-            "collinear", None, covariances(seeded)),
-        h10("degenerate: rank 0-2, equal singular values, det -1, extreme "
-            "scales", None,
-            torch.from_numpy(svd_cases.degenerate_3x3()).to(dev)),
+            "collinear", None,
+            tuple(torch.from_numpy(x) for x in svd_cases.clouds(0, 100))),
+        h10("degenerate clouds: 2 valid rows, NaN in a valid row, inf and "
+            "NaN in invalid rows, planar, 3 points, collinear, none valid",
+            None, tuple(torch.from_numpy(x)
+                        for x in svd_cases.degenerate_clouds())),
         h11("mono frame 1: the five-point rows of 64 samples", "mono",
             five),
         h11("mono frame 1: the cheirality vote's top 8 candidates", None,
@@ -1217,8 +1237,8 @@ def check_kernels(torch, seq, cam, cfg):
                         "bound_ms": bound_ms / c.frames, "bound_by": bound_by,
                         # no one PyTorch call computes an SGM scan, a fused
                         # cost + box + scan, BRIEF's sampling and packing,
-                        # connected components or a greedy clique; an SVD's
-                        # is torch.linalg.svd
+                        # connected components, a greedy clique or a Kabsch
+                        # fit; an SVD's is torch.linalg.svd
                         "library_ms": None if c.library is None else min(
                             time_ms(torch, c.library, 20),
                             time_ms(torch, c.library, 20)) / c.frames})
@@ -1371,7 +1391,7 @@ def expected_launches(params, filters=False):
             "vsweep": dirs * ways if f32 else 1, "hsweep_wta_lr": 1,
             "brief_describe": 1, "resize_levels": 1, "corner_keys": 1,
             "speckle_keep": int(speckle), "greedy_clique": int(filters),
-            "rotation_3x3": 2 if filters else 1, "jacobi_svd": 0}
+            "kabsch_fit": 2 if filters else 1, "jacobi_svd": 0}
 
 
 def all_kernels():
@@ -1399,7 +1419,8 @@ def plain_tripwires():
             (orb, "corner_keys_plain"),
             (sgbm, "speckle_keep_plain"),
             (rigid_clique, "greedy_clique_plain"),
-            (kabsch, "rotation_3x3_plain"), (kabsch, "jacobi_svd_plain"),
+            (kabsch, "kabsch_fit_plain"), (kabsch, "rotation_3x3_plain"),
+            (kabsch, "jacobi_svd_plain"),
             (torch.linalg, "svd")}
 
 
@@ -1817,7 +1838,7 @@ def run_mono(torch, seq, name, smi, profiled=4):
     if (any(launches[k.__name__] != N_FRAMES for k in orb_cuda.KERNELS)
             or any(launches[k.__name__] for k in sgbm_cuda.KERNELS)
             or launches["jacobi_svd"] != MONO_SVDS * N_FRAMES
-            or launches["rotation_3x3"]):
+            or launches["kabsch_fit"]):
         raise AssertionError(f"{name}: launches {launches}, expected H4, "
                              f"H6 and H9 once a frame, H11 {MONO_SVDS} "
                              f"times, no SGBM kernel and no H10")
@@ -2116,8 +2137,8 @@ def batched_path_kernels(launches, name, want, base="off-lat",
     stream steps frame by frame)."""
     expected = {k: n * want for k, n in expected_launches(
         path_params(base), filters).items()}
-    expected["rotation_3x3"] = expected_launches(
-        path_params(base), filters)["rotation_3x3"] * (
+    expected["kabsch_fit"] = expected_launches(
+        path_params(base), filters)["kabsch_fit"] * (
         want if steps is None else steps)
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected "

@@ -69,8 +69,8 @@ SIGNATURES = {
     "ovo_speckle_keep": (_P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),
     # cons, num, out, clouds, N, stream
     "ovo_greedy_clique": (_P, _P, _P, _I, _I, _P),
-    # H, V, Ut, B, stream
-    "ovo_rotation_3x3": (_P, _P, _P, _I, _P),
+    # src, dst, mask, T, B, N, stream
+    "ovo_kabsch_fit": (_P, _P, _P, _P, _I, _I, _P),
     # a (float32 where m < n, else float64), S, V, U (or NULL), sweeps, B,
     # m, n, tol, max sweeps, stream
     "ovo_jacobi_svd": (_P,) * 5 + (_I, _I, _I, _D, _I, _P),

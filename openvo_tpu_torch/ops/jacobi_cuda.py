@@ -1,25 +1,29 @@
-"""The small SVDs of the pose fits as kernels H10 and H11
-(``csrc/jacobi.cu``).
+"""The pose fits' kernels H10 and H11 (``csrc/jacobi.cu``).
 
-JAX leaves these SVDs to ``jnp.linalg.svd`` under jit, which XLA runs as
-an iterative device algorithm on the TPU (no Pallas kernel):
+JAX leaves the Kabsch fit and its SVDs to XLA under jit (no Pallas kernel):
 
-- H10 ``rotation_3x3``: Kabsch's 3x3 SVD (``openvo_tpu/pose/kabsch.py:49``)
-  as the port runs it, JACOBI_SWEEPS sweeps of one-sided Jacobi and the
-  cyclic shift of the least column (``pose/kabsch.rotation_3x3_plain``),
-  one thread a matrix, one launch in place of about 400 elementwise ones;
+- H10 ``kabsch_fit``: the whole Kabsch fit (``openvo_tpu/pose/kabsch.py:
+  22-60``, its ``jnp.linalg.svd`` ``:49``), one block a fit: the masked
+  sums as fixed pairwise trees over the points (threads over the points,
+  then shared memory and shuffles), then on one thread JACOBI_SWEEPS
+  sweeps of one-sided Jacobi on H, the cyclic shift of the least column,
+  R = V U^T, t and the float32 4x4 (plain version
+  ``pose/kabsch.kabsch_fit_plain``); one launch in place of the fit's ~30;
 - H11 ``jacobi_svd``: a batched one-sided Jacobi SVD in float64 of
   matrices up to 9x9 (``openvo_tpu/pose/fivepoint.py:210``;
-  ``ransac.py:140``, ``:142``, ``:273``), one thread a matrix, each
-  stopping when a sweep rotates nothing (plain version
+  ``ransac.py:140``, ``:142``, ``:273``), a group of n lanes a matrix,
+  each lane a column in registers, the pairs in the round-robin order of
+  ``pose/kabsch.jacobi_rounds`` (disjoint pairs rotated at once), each
+  matrix stopping when a sweep rotates nothing (plain version
   ``pose/kabsch.jacobi_svd_plain``, which runs every sweep); a wide
   float32 matrix first through LAPACK's float32 LQ as JAX's SVD runs it on
-  the CPU, so the five-point null space is JAX's basis bit for bit.
-  ``torch.linalg.svd`` on the card checks its convergence on the host; H11
-  reads nothing back, so the mono step can be captured as one CUDA graph.
+  the CPU, a lane a row, so the five-point null space is JAX's basis bit
+  for bit. ``torch.linalg.svd`` on the card checks its convergence on the
+  host; H11 reads nothing back, so the mono step can be captured as one
+  CUDA graph.
 
 ``pose/kabsch`` reaches both through the operators
-``openvo_torch::rotation_3x3`` and ``openvo_torch::jacobi_svd``, which take
+``openvo_torch::kabsch_fit`` and ``openvo_torch::jacobi_svd``, which take
 the plain versions on a CPU tensor and these kernels on a CUDA one.
 """
 
@@ -30,7 +34,10 @@ import torch
 from openvo_tpu_torch import _build
 from openvo_tpu_torch.ops._dispatch import check_cuda_input, stream_handle
 
-MAX_DIM = 9   # rows and columns a thread's matrix holds (csrc/jacobi.cu)
+MAX_DIM = 9   # rows and columns of H11's matrices (csrc/jacobi.cu kMaxDim)
+# H10's points a fit: 256 threads of up to 64 points each (csrc/jacobi.cu
+# kFitThreads, kFitMaxLogK)
+MAX_FIT_POINTS = 256 << 6
 
 
 def _on_card(t, name):
@@ -39,30 +46,36 @@ def _on_card(t, name):
                          f"{t.device}")
 
 
-def rotation_3x3(H):
-    """H10: the factors (V, U^T) of the Kabsch rotation of finite float64
-    (..., 3, 3) cross-covariances ``H``, each (..., 3, 3), bit-equal to
-    ``pose/kabsch.rotation_3x3_plain``. Raises on a CPU tensor (the
-    operator routes those to the plain version)."""
-    _on_card(H, "rotation_3x3")
-    if H.ndim < 2 or tuple(H.shape[-2:]) != (3, 3):
-        raise ValueError(f"H: shape {tuple(H.shape)}, expected (..., 3, 3)")
-    lead = tuple(H.shape[:-2])
-    flat = H.reshape((-1, 3, 3))
-    B = flat.shape[0]
-    check_cuda_input(flat, torch.float64, (B, 3, 3), "H")
-    V = torch.empty((B, 3, 3), dtype=torch.float64, device=H.device)
-    Ut = torch.empty_like(V)
+def kabsch_fit(src, dst, mask):
+    """H10: the (B, 4, 4) float32 Kabsch fits of float32 clouds ``src`` to
+    ``dst`` (B, N, 3) over the rows where the bool ``mask`` (B, N) holds,
+    one block a fit, bit-equal to ``pose/kabsch.kabsch_fit_plain``. N at
+    most MAX_FIT_POINTS. Raises on a CPU tensor (the operator routes those
+    to the plain version)."""
+    _on_card(src, "kabsch_fit")
+    if src.ndim != 3 or src.shape[-1] != 3:
+        raise ValueError(f"src: shape {tuple(src.shape)}, expected "
+                         f"(B, N, 3)")
+    B, N, _ = src.shape
+    if N > MAX_FIT_POINTS:
+        raise ValueError(f"kabsch_fit: {N} points, the kernel takes at most "
+                         f"{MAX_FIT_POINTS}")
+    check_cuda_input(src, torch.float32, (B, N, 3), "src")
+    check_cuda_input(dst, torch.float32, (B, N, 3), "dst")
+    check_cuda_input(mask, torch.bool, (B, N), "mask")
+    if dst.device != src.device or mask.device != src.device:
+        raise ValueError("kabsch_fit: src, dst and mask on one card")
+    T = torch.empty((B, 4, 4), dtype=torch.float32, device=src.device)
     if B:
-        err = _build.library().ovo_rotation_3x3(
-            flat.data_ptr(), V.data_ptr(), Ut.data_ptr(), B,
-            stream_handle(H.device))
-        rotation_3x3.launches += 1
-        _build.check_launch(err, "rotation_3x3")
-    return V.reshape(lead + (3, 3)), Ut.reshape(lead + (3, 3))
+        err = _build.library().ovo_kabsch_fit(
+            src.data_ptr(), dst.data_ptr(), mask.data_ptr(), T.data_ptr(),
+            B, N, stream_handle(src.device))
+        kabsch_fit.launches += 1
+        _build.check_launch(err, "kabsch_fit")
+    return T
 
 
-rotation_3x3.launches = 0
+kabsch_fit.launches = 0
 
 
 def jacobi_svd(a, tol: float, max_sweeps: int):
@@ -99,4 +112,4 @@ def jacobi_svd(a, tol: float, max_sweeps: int):
 
 jacobi_svd.launches = 0
 
-KERNELS = (rotation_3x3, jacobi_svd)
+KERNELS = (kabsch_fit, jacobi_svd)

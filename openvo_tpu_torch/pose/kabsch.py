@@ -5,11 +5,12 @@ pass's residual and the small SVDs of the pose fits, PyTorch port of
 R from the SVD of the masked cross-covariance with the determinant-sign
 fix, t = mean(dst) - R mean(src). With fewer than 3 valid points the result
 is all NaN on purpose, and so is the fit of a NaN or inf valid row: the
-odometer's NaN gate catches it. The fit's 3x3 SVD is a fixed count of
-Jacobi sweeps that never reads the host (the operator
-``openvo_torch::rotation_3x3``: the kernel H10 on the card, its plain
-version :func:`rotation_3x3_plain` on the CPU), so the odometer's step can
-be captured as one CUDA graph.
+odometer's NaN gate catches it. The whole fit is the operator
+``openvo_torch::kabsch_fit``: the kernel H10 on the card (a block a fit:
+the masked sums as fixed pairwise trees, then a fixed count of Jacobi
+sweeps), its plain version :func:`kabsch_fit_plain` on the CPU. It never
+reads the host, so the odometer's step can be captured as one CUDA
+graph.
 
 :func:`svd` serves RANSAC and the five-point solver. On the card it is the
 batched one-sided Jacobi SVD H11 (the operator ``openvo_torch::jacobi_svd``,
@@ -45,12 +46,13 @@ def row_norm(v):
 
 
 JACOBI_SWEEPS = 5   # H10: cyclic sweeps of the rotations (0, 1), (0, 2), (1, 2)
-# H11: the rotation of columns p, q is skipped where |g_pq| <= JACOBI_TOL *
-# sqrt(g_pp g_qq) (g = A^T A over the columns, the Gram); a matrix whose
-# sweep made no rotation is done (a later sweep would skip every rotation
-# again), the others stop after JACOBI_MAX_SWEEPS. The refit's 9x9 Grams
-# converge by sweep 8-9 and the five-point rows' 5x5 L by sweep 5-7 (the
-# bench corridor's frames 28 and 61). A column of rounding noise never
+# H11: a sweep rotates the column pairs in the round-robin order of
+# jacobi_rounds; the rotation of columns p, q is skipped where |g_pq| <=
+# JACOBI_TOL * sqrt(g_pp g_qq) (g = A^T A over the columns, the Gram); a
+# matrix whose sweep made no rotation is done (a later sweep would skip
+# every rotation again), the others stop after JACOBI_MAX_SWEEPS. On the
+# bench corridor's frame 1 the refit's 9x9 Gram converges by sweep 7 and the
+# five-point rows' 5x5 L by sweep 4-5 (chip_smoke.py's phase 2). A column of rounding noise never
 # passes the test; a wide matrix's null columns would be such columns, but
 # it is reduced to its square L first (LAPACK's path, jacobi_svd_plain).
 # The wide path's float32 LQ is LAPACK's: with a Jacobi basis of the null
@@ -136,6 +138,40 @@ def _chain_sum(p):
     return acc
 
 
+def _tree_sum(x):
+    """The sums over axis 1 of (B, N, Q) ``x`` as H10 adds them: a fixed
+    pairwise tree over N padded to a power of two with -0.0 (which leaves
+    every sum as it is, so a wider padding gives the same bits), element i
+    plus element i + h, h halving down to 1. (B, Q)."""
+    width = 1 << max(x.shape[1] - 1, 0).bit_length()
+    if width > x.shape[1]:
+        pad = x.new_full((x.shape[0], width - x.shape[1], x.shape[2]), -0.0)
+        x = torch.cat([x, pad], dim=1)
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0]
+
+
+def jacobi_rounds(n):
+    """H11's order of the column pairs (p, q), p < q, of a sweep over n
+    columns: the round-robin (circle) schedule of n' = n rounded up to even
+    columns, n' - 1 rounds of n'/2 disjoint pairs, the pairs holding the
+    pad column n dropped. Round r pairs x = n' - 2 - r with n' - 1 and x +
+    k with x - k (mod n' - 1); for n = 3 that is the cyclic (0, 1), (0, 2),
+    (1, 2). A list of rounds, each a list of pairs."""
+    n2 = n + (n & 1)
+    m1 = n2 - 1
+    rounds = []
+    for r in range(m1):
+        x = m1 - 1 - r
+        pairs = [(x, n2 - 1)] + [((x + k) % m1, (x - k) % m1)
+                                 for k in range(1, n2 // 2)]
+        rounds.append(sorted((min(p), max(p)) for p in pairs
+                             if max(p) < n))
+    return rounds
+
+
 def _rotate(x, y, g_pp, g_qq, g_pq):
     """(c x - s y, s x + c y): the plane rotation of the columns ``x``,
     ``y`` (..., L) that zeroes their dot product ``g_pq``, with t = s / c
@@ -204,30 +240,6 @@ def rotation_3x3_plain(H):
     idx = order[..., None, :].expand(lead + (3, 3))
     A, V, norm = A.gather(-1, idx), V.gather(-1, idx), norm.gather(-1, order)
     return V, _left_3x3(A, V, norm)
-
-
-def _rotation_3x3(H):
-    """The Kabsch rotation ``V U^T`` of :func:`rotation_3x3_plain`'s
-    factors: the CPU kernel of ``openvo_torch::rotation_3x3``."""
-    V, Ut = rotation_3x3_plain(H)
-    return V @ Ut
-
-
-@torch.library.custom_op("openvo_torch::rotation_3x3", mutates_args=(),
-                         device_types="cpu")
-def _rotation_3x3_op(H: torch.Tensor) -> torch.Tensor:
-    return _rotation_3x3(H)
-
-
-@_rotation_3x3_op.register_kernel("cuda")
-def _(H):
-    V, Ut = jacobi_cuda.rotation_3x3(H.contiguous())
-    return V @ Ut
-
-
-@_rotation_3x3_op.register_fake
-def _(H):
-    return H.new_empty(H.shape)
 
 
 def _slapy2(x, y):
@@ -306,25 +318,30 @@ def _lapack_lq(a):
 
 def _hestenes(a):
     """:func:`jacobi_svd_plain`'s one-sided Jacobi on (B, m, n) ``a``
-    directly: (S (B, n), V (B, n, n), U (B, 3, 3) or (B, 0, 0), sweeps)."""
+    directly: (S (B, n), V (B, n, n), U (B, 3, 3) or (B, 0, 0), sweeps).
+    Each round of :func:`jacobi_rounds` rotates its disjoint pairs as one
+    batched step, as H11's lanes rotate them at once."""
     B, m, n = a.shape
     eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(B, n, n)
     cols = list(torch.cat([a, eye], dim=-2).unbind(-1))   # A over V
     done = torch.zeros(B, dtype=torch.bool, device=a.device)
     sweeps = torch.zeros(B, dtype=torch.int32, device=a.device)
+    rounds = [r for r in jacobi_rounds(n) if r]
     for _ in range(JACOBI_MAX_SWEEPS):
         rotated = torch.zeros_like(done)
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                x, y = cols[p], cols[q]
-                xa, ya = x[:, :m], y[:, :m]
-                g_pp, g_qq, g_pq = _chain_sum(torch.stack(
-                    [xa * xa, ya * ya, xa * ya], dim=1)).unbind(-1)
-                rot = ~(g_pq.abs() <= JACOBI_TOL * torch.sqrt(g_pp * g_qq))
-                x2, y2 = _rotate(x, y, g_pp, g_qq, g_pq)
-                cols[p] = torch.where(rot[:, None], x2, x)
-                cols[q] = torch.where(rot[:, None], y2, y)
-                rotated = rotated | rot
+        for pairs in rounds:
+            x = torch.stack([cols[p] for p, _ in pairs], dim=1)   # (B, k, L)
+            y = torch.stack([cols[q] for _, q in pairs], dim=1)
+            xa, ya = x[..., :m], y[..., :m]
+            g_pp, g_qq, g_pq = _chain_sum(torch.stack(
+                [xa * xa, ya * ya, xa * ya], dim=2)).unbind(-1)
+            rot = ~(g_pq.abs() <= JACOBI_TOL * torch.sqrt(g_pp * g_qq))
+            x2, y2 = _rotate(x, y, g_pp, g_qq, g_pq)
+            x2 = torch.where(rot[..., None], x2, x).unbind(1)
+            y2 = torch.where(rot[..., None], y2, y).unbind(1)
+            for (p, q), xp, yq in zip(pairs, x2, y2):
+                cols[p], cols[q] = xp, yq
+            rotated = rotated | rot.any(-1)
         sweeps = sweeps + (~done).to(torch.int32)
         done = done | ~rotated
     M = torch.stack(cols, dim=-1)
@@ -359,12 +376,13 @@ def jacobi_svd_plain(a):
     the rows Q[m:]: JAX's basis of the null space, bit for bit, which the
     float32 five-point solver's candidates depend on.
 
-    A sweep rotates the column pairs (p, q), p < q, in cyclic order,
-    skipping a pair by JACOBI_TOL's test; it runs JACOBI_MAX_SWEEPS sweeps
-    over the batch (a matrix done is left as it is, bit for bit), with
-    every sum a left-to-right chain and every operation correctly rounded,
-    so the kernel, which stops each matrix when it is done, gives the same
-    bits."""
+    A sweep rotates the column pairs (p, q), p < q, in the round-robin
+    order of :func:`jacobi_rounds` (each round's pairs are disjoint, so
+    they rotate at once), skipping a pair by JACOBI_TOL's test; it runs
+    JACOBI_MAX_SWEEPS sweeps over the batch (a matrix done is left as it
+    is, bit for bit), with every sum a left-to-right chain and every
+    operation correctly rounded, so the kernel, which stops each matrix
+    when it is done, gives the same bits."""
     B, m, n = a.shape
     want = torch.float32 if m < n else torch.float64
     if a.dtype != want:
@@ -403,42 +421,80 @@ def _(a):
 
 
 def cross_covariance(src, dst, mask):
-    """(H, mu_s, mu_d) of the Kabsch fit in float64: the masked means and
-    the cross-covariance H = X^T Y of the centred valid rows (invalid rows
-    zeroed first), (..., 3, 3)."""
-    w = mask.to(torch.float64)[..., None]
-    n = torch.clamp_min(w.sum(-2), 1.0)
-    src_c = torch.where(w > 0, src.to(torch.float64), 0.0)
-    dst_c = torch.where(w > 0, dst.to(torch.float64), 0.0)
-    mu_s = src_c.sum(-2) / n
-    mu_d = dst_c.sum(-2) / n
-    X = (src_c - mu_s[..., None, :]) * w
-    Y = (dst_c - mu_d[..., None, :]) * w
-    return X.transpose(-1, -2) @ Y, mu_s, mu_d
+    """(H, mu_s, mu_d, count) of the Kabsch fit of (B, N, 3) clouds in
+    float64 as H10 computes them: the valid count, the masked sums of the
+    valid rows (invalid rows 0), the means (over max(count, 1)), then H =
+    X^T Y of the centred valid rows (invalid rows 0), every sum a
+    :func:`_tree_sum` over the points. H (B, 3, 3), count (B,) int64."""
+    src = src.to(torch.float64)
+    dst = dst.to(torch.float64)
+    valid = mask[..., None]
+    count = mask.to(torch.int64).sum(-1)
+    sums = _tree_sum(torch.where(valid, torch.cat([src, dst], -1), 0.0))
+    mu = sums / count.clamp_min(1).to(torch.float64)[:, None]
+    mu_s, mu_d = mu[:, :3], mu[:, 3:]
+    X = torch.where(valid, src - mu_s[:, None], 0.0)
+    Y = torch.where(valid, dst - mu_d[:, None], 0.0)
+    P = (X[..., :, None] * Y[..., None, :]).flatten(-2)   # X_k Y_l at 3k + l
+    return _tree_sum(P).reshape(-1, 3, 3), mu_s, mu_d, count
+
+
+def kabsch_fit_plain(src, dst, mask):
+    """H10's plain version: the (B, 4, 4) float32 Kabsch fits of ``src``
+    to ``dst`` (B, N, 3) float32 over the rows where ``mask`` (B, N) holds.
+    :func:`cross_covariance`, then where H is finite
+    :func:`rotation_3x3_plain`'s factors, R = V U^T and t = mu_d - R mu_s,
+    each entry a left-to-right chain, rounded once to float32; R and t NaN
+    where H is not, and the whole T NaN where fewer than 3 rows are
+    valid."""
+    H, mu_s, mu_d, count = cross_covariance(src, dst, mask)
+    finite = torch.isfinite(H).all(-1).all(-1)
+    V, Ut = rotation_3x3_plain(torch.where(finite[:, None, None], H, 0.0))
+    R = _chain_sum(V[..., :, None, :] * Ut.transpose(-1, -2)[..., None, :, :])
+    R = torch.where(finite[:, None, None], R, float("nan"))
+    t = mu_d - _chain_sum(R * mu_s[:, None, :])
+    T = rt_to_T(R, t).to(torch.float32)
+    return torch.where((count < 3)[:, None, None], float("nan"), T)
+
+
+@torch.library.custom_op("openvo_torch::kabsch_fit", mutates_args=(),
+                         device_types="cpu")
+def _kabsch_fit_op(src: torch.Tensor, dst: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    return kabsch_fit_plain(src, dst, mask)
+
+
+@_kabsch_fit_op.register_kernel("cuda")
+def _(src, dst, mask):
+    return jacobi_cuda.kabsch_fit(src.contiguous(), dst.contiguous(),
+                                  mask.contiguous())
+
+
+@_kabsch_fit_op.register_fake
+def _(src, dst, mask):
+    return src.new_empty((src.shape[0], 4, 4))
 
 
 def kabsch(src, dst, mask):
     """Best-fit rigid (4, 4) float32 transform mapping ``src`` (N, 3) ->
     ``dst`` over the rows where ``mask`` holds. Invalid rows may hold
     anything (inf, NaN): they are zeroed before the reduction; NaNs in
-    valid rows poison the fit on purpose. A batch, (B, N, 3) with a
-    (B, N) mask, gives (B, 4, 4).
+    valid rows poison the fit on purpose. A batch, (..., N, 3) with a
+    (..., N) mask, gives (..., 4, 4).
 
-    The fit runs in float64 and rounds once to float32 at the end: the
-    products of float32 values are exact and the sums round near 1e-16, so
-    a batched call gives each member its own call's float32 bits whatever
-    order the batched sums and products take. The 3x3 SVD is the
-    operator ``openvo_torch::rotation_3x3`` (H10's Jacobi sweeps on the
-    card, :func:`_rotation_3x3` on the CPU), which makes no host sync (the
-    fit runs inside a captured CUDA graph); a non-finite H gives NaN, as
-    LAPACK under JAX."""
-    H, mu_s, mu_d = cross_covariance(src, dst, mask)
-    finite = torch.isfinite(H).all(dim=-1).all(dim=-1)[..., None, None]
-    R = torch.where(finite, torch.ops.openvo_torch.rotation_3x3(
-        torch.where(finite, H, 0.0)), float("nan"))
-    t = mu_d - (R @ mu_s[..., None])[..., 0]
-    few = (mask.sum(-1) < 3)[..., None, None]
-    return torch.where(few, float("nan"), rt_to_T(R, t).to(torch.float32))
+    The points are taken in float32, as the JAX package fits them. The fit
+    runs in float64 and rounds once to float32 at the end: the products of
+    float32 values are exact and the sums round near 1e-16. Every sum is a
+    fixed pairwise tree over the points, so a batched call gives each
+    member its own call's bits. The fit is the operator
+    ``openvo_torch::kabsch_fit`` (H10 on the card, :func:`kabsch_fit_plain`
+    on the CPU), which makes no host sync (the fit runs inside a captured
+    CUDA graph); a non-finite H gives NaN, as LAPACK under JAX."""
+    lead, n = mask.shape[:-1], mask.shape[-1]
+    T = torch.ops.openvo_torch.kabsch_fit(
+        src.to(torch.float32).reshape((-1, n, 3)),
+        dst.to(torch.float32).reshape((-1, n, 3)), mask.reshape((-1, n)))
+    return T.reshape(lead + (4, 4))
 
 
 def residuals_relative(T, src, dst, mask):

@@ -1,9 +1,12 @@
-"""Seeded inputs of the small SVDs (H10 ``rotation_3x3``, H11
-``jacobi_svd``), as numpy arrays: the tests on the CPU and on the card and
-``chip_smoke.py``'s kernel phase build their cases from these.
+"""Seeded inputs of the Kabsch fit and the small SVDs (H10 ``kabsch_fit``,
+H11 ``jacobi_svd``), as numpy arrays: the tests on the CPU and on the card
+and ``chip_smoke.py``'s kernel phase build their cases from these.
 
 - :func:`clouds`: Kabsch's point clouds of several kinds (general, planar,
-  3 and 10 valid points, collinear), whose cross-covariances H10 takes;
+  3 and 10 valid points, collinear), which H10 fits;
+- :func:`degenerate_clouds`: clouds where the fit meets its edge cases
+  (fewer than 3 valid rows, NaN in a valid row, inf and NaN in invalid
+  rows, planar, 3 points, no valid row);
 - :func:`degenerate_3x3`: 3x3 matrices of rank 0-2, with equal singular
   values, negative determinants and extreme scales;
 - :func:`five_point_rows`, :func:`essentials`: the five-point solver's
@@ -51,6 +54,26 @@ def clouds(seed, count, points=64):
             m[rng.choice(points, 3 if kind == "three" else 10,
                          replace=False)] = True
         mask[i] = m
+    return src, dst, mask
+
+
+def degenerate_clouds(seed=0, points=64):
+    """(src, dst, mask) of 7 clouds of :func:`clouds`' kinds made
+    degenerate, in this order: 2 valid rows, NaN in a valid row, inf in
+    src's and NaN in dst's invalid rows, planar (z constant), 3 valid
+    rows, collinear, no valid row."""
+    src, dst, mask = clouds(seed, 7, points)
+    mask[0] = False
+    mask[0, :2] = True
+    src[1, np.flatnonzero(mask[1])[0], 1] = np.nan
+    src[2][~mask[2]] = np.inf
+    dst[2][~mask[2]] = np.nan
+    src[3, :, 2] = np.float32(7.0)
+    mask[4] = False
+    mask[4, 5:8] = True
+    src[5] = np.outer(np.arange(points, dtype=np.float32) - 20.0,
+                      np.float32([0.3, -0.5, 0.8]))
+    mask[6] = False
     return src, dst, mask
 
 

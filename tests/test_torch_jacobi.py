@@ -9,7 +9,10 @@ against JAX's, on the CPU:
   samples), (8, 3, 3) rank-2 essential matrices, the refit's 9x9 Grams of
   the bench corridor's matches (tests/data/mono_stages.npz), zero and NaN
   matrices;
-- the operators ``openvo_torch::rotation_3x3`` (H10) and
+- the round-robin order of H11's sweeps (``kabsch.jacobi_rounds``): every
+  pair once a sweep, in disjoint rounds, and on 3x3 matrices the bits of
+  the cyclic order (a reference kept here);
+- the operators ``openvo_torch::kabsch_fit`` (H10) and
   ``openvo_torch::jacobi_svd`` (H11) on the CPU: their plain versions;
 - ``kabsch.svd`` on the card's route (``card_svd_route``) and the mono
   step traced by ``make_fx`` on it, with no host read.
@@ -196,20 +199,96 @@ def test_a_done_matrix_is_left_as_it_is(monkeypatch, case):
 
 
 def test_rotation_operator_on_the_cpu_is_the_plain_fit():
+    """The operators on CPU tensors: ``openvo_torch::kabsch_fit`` is
+    ``kabsch_fit_plain`` (seeded and degenerate clouds), its rotation
+    ``rotation_3x3_plain`` of the cross-covariance; ``jacobi_svd`` is
+    ``jacobi_svd_plain``."""
     rng = np.random.default_rng(0)
     cs = [tk.cloud(rng, tk.KINDS[i % len(tk.KINDS)]) for i in range(200)]
     src, dst, mask = (torch.from_numpy(np.stack(x)) for x in zip(*cs))
-    H, _, _ = kabsch.cross_covariance(src, dst, mask)
-    H = torch.where(torch.isfinite(H).all(-1).all(-1)[:, None, None], H, 0.0)
-    H = torch.cat([H, torch.from_numpy(svd_cases.degenerate_3x3())])
-    got = torch.ops.openvo_torch.rotation_3x3(H)
-    assert torch.equal(got, kabsch._rotation_3x3(H))
-    V, Ut = kabsch.rotation_3x3_plain(H)
-    assert torch.equal(got, V @ Ut)
+    deg = [torch.from_numpy(x) for x in svd_cases.degenerate_clouds()]
+    src, dst, mask = (torch.cat([x, y]) for x, y in zip((src, dst, mask),
+                                                        deg))
+    got = torch.ops.openvo_torch.kabsch_fit(src, dst, mask)
+    assert tk.same_bits(got, kabsch.kabsch_fit_plain(src, dst, mask)).all()
+    H, _, _, count = kabsch.cross_covariance(src, dst, mask)
+    ok = torch.isfinite(H).all(-1).all(-1) & (count >= 3)
+    V, Ut = kabsch.rotation_3x3_plain(H[ok])
+    torch.testing.assert_close(got[ok][:, :3, :3],
+                               (V @ Ut).to(torch.float32), rtol=0,
+                               atol=1e-6)
     a = torch.from_numpy(svd_cases.five_point_rows(4, 3).astype(np.float32))
     for got, want in zip(torch.ops.openvo_torch.jacobi_svd(a),
                          kabsch.jacobi_svd_plain(a)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 9])
+def test_round_robin_rotates_every_pair_once_a_sweep(n):
+    """H11's order: every pair p < q once a sweep, each round's pairs
+    disjoint, n' - 1 rounds (n' = n rounded up to even), and for n = 3 the
+    cyclic order (0, 1), (0, 2), (1, 2)."""
+    rounds = kabsch.jacobi_rounds(n)
+    assert len(rounds) == n + (n & 1) - 1
+    pairs = [p for r in rounds for p in r]
+    assert sorted(pairs) == [(p, q) for p in range(n)
+                             for q in range(p + 1, n)]
+    for r in rounds:
+        cols = [c for p in r for c in p]
+        assert len(set(cols)) == len(cols) and all(p < q for p, q in r)
+        assert len(r) == n // 2
+    if n == 3:
+        assert pairs == [(0, 1), (0, 2), (1, 2)]
+
+
+def hestenes_cyclic(a):
+    """H11's one-sided Jacobi as it ran before the round-robin order: the
+    pairs (p, q) one at a time in cyclic order (0, 1), (0, 2), ..., (n-2,
+    n-1); otherwise ``kabsch._hestenes``."""
+    B, m, n = a.shape
+    eye = torch.eye(n, dtype=a.dtype).expand(B, n, n)
+    cols = list(torch.cat([a, eye], dim=-2).unbind(-1))
+    done = torch.zeros(B, dtype=torch.bool)
+    sweeps = torch.zeros(B, dtype=torch.int32)
+    for _ in range(kabsch.JACOBI_MAX_SWEEPS):
+        rotated = torch.zeros_like(done)
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                x, y = cols[p], cols[q]
+                xa, ya = x[:, :m], y[:, :m]
+                g_pp, g_qq, g_pq = kabsch._chain_sum(torch.stack(
+                    [xa * xa, ya * ya, xa * ya], dim=1)).unbind(-1)
+                rot = ~(g_pq.abs()
+                        <= kabsch.JACOBI_TOL * torch.sqrt(g_pp * g_qq))
+                x2, y2 = kabsch._rotate(x, y, g_pp, g_qq, g_pq)
+                cols[p] = torch.where(rot[:, None], x2, x)
+                cols[q] = torch.where(rot[:, None], y2, y)
+                rotated = rotated | rot
+        sweeps = sweeps + (~done).to(torch.int32)
+        done = done | ~rotated
+    M = torch.stack(cols, dim=-1)
+    A, V = M[:, :m, :], M[:, m:, :]
+    norm = torch.sqrt(kabsch._chain_sum((A * A).transpose(-1, -2)))
+    S, order = torch.sort(norm, dim=-1, descending=True, stable=True)
+    A = A.gather(-1, order[:, None, :].expand(B, m, n))
+    V = V.gather(-1, order[:, None, :].expand(B, n, n))
+    return S, V, kabsch._left_3x3(A, V, S).transpose(-1, -2), sweeps
+
+
+@pytest.mark.parametrize("case", ["essential", "degenerate", "random"])
+def test_3x3_bits_equal_the_cyclic_order(case):
+    """On 3x3 matrices the round-robin order is the cyclic one: S, V, U and
+    the sweeps bit for bit as before."""
+    if case == "essential":
+        a = svd_cases.essentials(3, 16)
+    elif case == "degenerate":
+        a = svd_cases.degenerate_3x3()
+    else:
+        a = np.random.default_rng(4).normal(size=(64, 3, 3))
+        a[5, 1, 1] = np.nan
+    a = torch.from_numpy(a)
+    for got, want in zip(kabsch.jacobi_svd_plain(a), hestenes_cyclic(a)):
+        assert tk.same_bits(got, want).all()
 
 
 @pytest.mark.parametrize("shape", [(5, 9), (8, 9), (3, 3), (9, 9)])

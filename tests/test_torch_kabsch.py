@@ -1,9 +1,11 @@
-"""The port's Kabsch fit, whose 3x3 SVD is a fixed count of Jacobi sweeps
-with no host check (``openvo_tpu_torch/pose/kabsch.py``), against the fit
-it replaces (``torch.linalg.svd`` and ``torch.linalg.det``, kept here as
-the oracle and the plain reference) and against JAX's fit, on
-seeded clouds: general, planar, with inf and NaN in the rows the mask
-drops, and masked down to 3 and to 10 points."""
+"""The port's Kabsch fit, whose sums are fixed pairwise trees and whose 3x3
+SVD is a fixed count of Jacobi sweeps with no host check
+(``openvo_tpu_torch/pose/kabsch.py``, H10's plain version
+``kabsch_fit_plain``), against the fit it replaces (``torch.linalg.svd``
+and ``torch.linalg.det``, kept here as the oracle and the plain reference)
+and against JAX's fit, on seeded clouds: general, planar, with inf and NaN
+in the rows the mask drops, masked down to 3 and to 10 points, with NaN in
+a valid row and with fewer than 3 valid rows."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 from openvo_tpu.pose import kabsch as jkabsch
 from openvo_tpu_torch.geometry.se3 import rt_to_T
 from openvo_tpu_torch.pose import kabsch
+from openvo_tpu_torch.tools import svd_cases
 
 N_CLOUDS = 2000
 N_POINTS = 64
@@ -151,3 +154,69 @@ def test_fewer_than_three_points_gives_nan():
     T = kabsch.kabsch(torch.from_numpy(src), torch.from_numpy(dst),
                       torch.from_numpy(mask))
     assert torch.isnan(T).all()
+
+
+def fit_cases(case):
+    """(src, dst, mask) of ``case``: svd_cases' seeded clouds of every kind
+    but collinear (a rank-1 H: the rotation about the line is set by the
+    noise alone, and two SVDs part there by 1e-5), or their degenerate
+    ones, by what makes them so."""
+    if case == "seeded":
+        src, dst, mask = svd_cases.clouds(3, 40)
+        keep = [i for i in range(40) if svd_cases.CLOUD_KINDS[
+            i % len(svd_cases.CLOUD_KINDS)] != "collinear"]
+        return src[keep], dst[keep], mask[keep]
+    src, dst, mask = svd_cases.degenerate_clouds(5)
+    i = {"NaN in a valid row": 1, "inf and NaN in invalid rows": 2,
+         "planar": 3, "3 points": 4, "fewer than 3": [0, 6]}[case]
+    i = [i] if isinstance(i, int) else i
+    return src[i], dst[i], mask[i]
+
+
+@pytest.mark.parametrize("case", ["seeded", "NaN in a valid row",
+                                  "inf and NaN in invalid rows", "planar",
+                                  "3 points", "fewer than 3"])
+def test_kabsch_fit_plain_matches_jax(case):
+    """H10's plain version against JAX's fit of the same float32 clouds run
+    in float64 (the port's precision): within 1e-5, NaN where JAX's is
+    (a NaN valid row: R and t; fewer than 3 rows: all of T)."""
+    src, dst, mask = (torch.from_numpy(x) for x in fit_cases(case))
+    got = kabsch.kabsch_fit_plain(src, dst, mask).numpy()
+    want = jax_fit(src, dst, mask, True).astype(np.float32)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("points", [16, 64, 300])
+def test_kabsch_fit_plain_batch_is_one_call_per_cloud(points):
+    """Each fit of a batch has its own call's bits, at powers of two and
+    between two (the tree's padding), degenerate clouds too."""
+    src, dst, mask = (torch.from_numpy(np.concatenate([x, y])) for x, y in
+                      zip(svd_cases.clouds(points, 12, points),
+                          svd_cases.degenerate_clouds(1, points)))
+    batched = kabsch.kabsch_fit_plain(src, dst, mask)
+    for i in range(len(src)):
+        one = kabsch.kabsch_fit_plain(src[i:i + 1], dst[i:i + 1],
+                                      mask[i:i + 1])
+        assert same_bits(batched[i], one[0]).all(), i
+
+
+def test_tree_sum_padding_leaves_the_sums_as_they_are():
+    """The tree padded further with -0.0 (as H10's 256 threads pad N) gives
+    the same bits, -0.0 sums included; its order is element i plus element
+    i + h."""
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(3, 37, 5)) * 10.0 ** np.arange(-4, 6)[:5])
+    x[1, :, 2] = -0.0
+    x[2, :, 4] = 0.0
+    want = kabsch._tree_sum(x)
+    for width in (64, 256, 1024):
+        pad = torch.full((3, width - 37, 5), -0.0, dtype=x.dtype)
+        assert same_bits(kabsch._tree_sum(torch.cat([x, pad], 1)),
+                         want).all()
+    assert torch.equal(torch.signbit(want[1, 2]), torch.tensor(True))
+    y = torch.arange(4.0)[None, :, None] * torch.tensor([1.0, 1e16, 1.0, -1e16]
+                                                        )[None, :, None]
+    # (y0 + y2) + (y1 + y3) = (0 + 2) + (1e16 - 3e16)
+    assert kabsch._tree_sum(y)[0, 0] == 2.0 + (1e16 - 3e16)

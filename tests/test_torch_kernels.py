@@ -1155,60 +1155,78 @@ def test_greedy_clique_rejects_wrong_input(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the small SVDs: H10 (Kabsch's 3x3 rotation) and H11 (the batched Jacobi
-# SVD of the mono path). Bit-equal to their plain versions on the card,
-# whose float64 sqrt is correctly rounded as the kernels' (torch's on the
-# CPU is not always: an ulp apart on about 0.7% of values).
+# the pose fits: H10 (the whole Kabsch fit) and H11 (the batched Jacobi SVD
+# of the mono path). Bit-equal to their plain versions on the card, whose
+# float64 sqrt is correctly rounded as the kernels' (torch's on the CPU is
+# not always: an ulp apart on about 0.7% of values).
 # ---------------------------------------------------------------------------
 
 
-def cross_covariances(dev, count=100, seed=0):
-    src, dst, mask = (torch.from_numpy(x).to(dev)
-                      for x in svd_cases.clouds(seed, count))
-    return kabsch.cross_covariance(src, dst, mask)[0]
+def same_bits(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def assert_rotation_equals_plain(H):
-    n0 = jacobi_cuda.rotation_3x3.launches
-    got = jacobi_cuda.rotation_3x3(H)
-    assert jacobi_cuda.rotation_3x3.launches == n0 + 1
-    for a, b in zip(got, kabsch.rotation_3x3_plain(H)):
-        assert torch.equal(a, b)
+def assert_fit_equals_plain(src, dst, mask):
+    n0 = jacobi_cuda.kabsch_fit.launches
+    got = jacobi_cuda.kabsch_fit(src, dst, mask)
+    assert jacobi_cuda.kabsch_fit.launches == n0 + 1
+    assert same_bits(got, kabsch.kabsch_fit_plain(src, dst, mask))
     return got
 
 
-@pytest.mark.parametrize("case", ["clouds", "degenerate", "random"])
-def test_rotation_3x3_equals_plain(cuda, case):
-    """H10 on the cross-covariances of general, planar, 3-point, 10-point
-    and collinear clouds, on matrices of rank 0-2, equal singular values,
-    determinant -1 and extreme scales, and on random ones."""
+def fit_inputs(case, dev):
     if case == "clouds":
-        H = cross_covariances(cuda)
+        clouds = svd_cases.clouds(0, 100)
     elif case == "degenerate":
-        H = torch.from_numpy(svd_cases.degenerate_3x3()).to(cuda)
-    else:
-        H = torch.from_numpy(np.random.default_rng(3).normal(
-            size=(300, 3, 3))).to(cuda)
-    V, Ut = assert_rotation_equals_plain(H)
-    R = torch.ops.openvo_torch.rotation_3x3(H)
-    assert torch.equal(R, V @ Ut)
+        clouds = svd_cases.degenerate_clouds()
+    elif case == "random masks, 1,000 points":
+        rng = np.random.default_rng(3)
+        src = rng.normal(0, 4, (6, 1000, 3)).astype(np.float32)
+        dst = (src @ svd_cases.rotation(rng.normal(0, 0.2, 3)).T
+               + rng.normal(0, 0.1, src.shape)).astype(np.float32)
+        clouds = (src, dst, rng.random((6, 1000)) < rng.random((6, 1)))
+    else:   # the most points a block folds, and one point
+        big = svd_cases.clouds(4, 2, 16384)
+        clouds = (big[0], big[1], big[2])
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in clouds)
+
+
+@pytest.mark.parametrize("case", ["clouds", "degenerate",
+                                  "random masks, 1,000 points",
+                                  "16,384 points"])
+def test_kabsch_fit_equals_plain(cuda, case):
+    """H10 on general, planar, 3-point, 10-point and collinear clouds; on
+    degenerate ones (2 valid rows, NaN in a valid row, inf and NaN in
+    invalid rows, planar, 3 points, collinear, none valid); on random masks
+    over 1,000 points (4 points a thread) and at MAX_FIT_POINTS; and
+    through the operator, as ``kabsch.kabsch`` calls it."""
+    src, dst, mask = fit_inputs(case, cuda)
+    T = assert_fit_equals_plain(src, dst, mask)
+    assert torch.equal(torch.ops.openvo_torch.kabsch_fit(src, dst, mask)
+                       .nan_to_num(7.0), T.nan_to_num(7.0))
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape", [(), (1,), (2,), (16,), (2, 8)])
-def test_rotation_3x3_at_the_paths_shapes(cuda, shape):
-    """The batches the paths give H10 (one fit; a frame's two attempts;
-    a rig's 8 cameras' two; a stream's frame), a batch against single
-    launches."""
+def test_kabsch_fit_at_the_paths_shapes(cuda, shape):
+    """The batches the paths give H10 (one fit; a frame's two attempts; a
+    rig's 8 cameras' two; a stream's frame) through ``kabsch.kabsch``,
+    each fit equal to its own launch."""
     n = int(np.prod(shape, dtype=int))
-    H = cross_covariances(cuda, max(n, 1), seed=n)[:n].reshape(shape
-                                                               + (3, 3))
-    V, Ut = assert_rotation_equals_plain(H)
-    flat = H.reshape(-1, 3, 3)
-    for i in range(len(flat)):
-        v, u = jacobi_cuda.rotation_3x3(flat[i])
-        assert torch.equal(v, V.reshape(-1, 3, 3)[i])
-        assert torch.equal(u, Ut.reshape(-1, 3, 3)[i])
+    src, dst, mask = (torch.from_numpy(x[:n]).to(cuda)
+                      for x in svd_cases.clouds(n, max(n, 1), 512))
+    src, dst = src.reshape(shape + (512, 3)), dst.reshape(shape + (512, 3))
+    mask = mask.reshape(shape + (512,))
+    n0 = jacobi_cuda.kabsch_fit.launches
+    T = kabsch.kabsch(src, dst, mask)
+    assert jacobi_cuda.kabsch_fit.launches == n0 + 1
+    assert T.shape == shape + (4, 4)
+    flat = [x.reshape((-1,) + x.shape[len(shape):]) for x in (src, dst, mask)]
+    assert same_bits(T.reshape(-1, 4, 4), kabsch.kabsch_fit_plain(*flat))
+    for i in range(n):
+        one = jacobi_cuda.kabsch_fit(*(x[i:i + 1] for x in flat))
+        assert same_bits(one[0], T.reshape(-1, 4, 4)[i])
 
 
 def jacobi_inputs(name):
@@ -1222,6 +1240,22 @@ def jacobi_inputs(name):
         return (a.T @ a)[None]
     if name == "degenerate 3x3":
         return svd_cases.degenerate_3x3()
+    if name == "one 3x3":
+        return svd_cases.essentials(2, 1)
+    if name == "NaN and inf 3x3":
+        a = rng.normal(size=(12, 3, 3))
+        a[1, 0, 0], a[4, 2, 1], a[7] = np.nan, np.inf, np.nan
+        return a
+    if name == "NaN 9x9":
+        a = rng.normal(size=(5, 9, 9))
+        a[2, 4, 4] = np.nan
+        return a
+    if name == "done beside running 9x9":
+        # the identity and a diagonal are done after one sweep, the Grams
+        # run 7-9: each stops on its own
+        g = svd_cases.epipolar_rows(*svd_cases.two_view(rng, 200))
+        return np.stack([np.eye(9), g.T @ g, np.diag(np.arange(9.0, 0, -1)),
+                         rng.normal(size=(9, 9))])
     if name == "zeros 5x9":
         return np.zeros((3, 5, 9))
     if name == "equal singular values 9x9":
@@ -1235,9 +1269,12 @@ def jacobi_inputs(name):
 
 
 JACOBI_CASES = ["five-point rows", "essential", "gram", "degenerate 3x3",
-                "zeros 5x9", "equal singular values 9x9", "rank 3 of 9x9",
-                "random 8x9", "random 2x9", "random 9x4", "random 7x7",
-                "random 1x1", "random 9x1", "random 1x9"]
+                "one 3x3", "NaN and inf 3x3", "NaN 9x9",
+                "done beside running 9x9", "zeros 5x9",
+                "equal singular values 9x9", "rank 3 of 9x9", "random 8x9",
+                "random 2x9", "random 9x4", "random 7x7", "random 1x1",
+                "random 9x1", "random 1x9", "random 5x9", "random 9x9",
+                "random 3x3"]
 
 
 def assert_svd_equals_plain(a):
@@ -1246,24 +1283,25 @@ def assert_svd_equals_plain(a):
                                  kabsch.JACOBI_MAX_SWEEPS)
     assert jacobi_cuda.jacobi_svd.launches == n0 + 1
     for x, y in zip(got, kabsch.jacobi_svd_plain(a)):
-        assert torch.equal(x, y)
+        assert same_bits(x, y)
     return got
 
 
 @pytest.mark.parametrize("name", JACOBI_CASES)
 def test_jacobi_svd_equals_plain(cuda, name):
     """H11 on the mono path's shapes ((64, 5, 9) five-point rows, a 9x9
-    Gram, (8, 3, 3) essential matrices), degenerate and random matrices of
-    1-9 rows and columns (float32 where wide, LAPACK's LQ path): S, V, U
-    and the sweeps equal, and each member of the batch equal to its own
-    launch."""
+    Gram, (8, 3, 3) essential matrices, one 3x3), degenerate, NaN, done
+    (beside running) and random matrices of 1-9 rows and columns (float32
+    where wide, LAPACK's LQ path; the 5x9, 9x9 and 3x3 instances and the
+    generic one): S, V, U and the sweeps equal, and each member of the
+    batch equal to its own launch."""
     a = kabsch.jacobi_input(torch.from_numpy(jacobi_inputs(name))).to(cuda)
     got = assert_svd_equals_plain(a)
     for i in range(min(len(a), 8)):
         one = jacobi_cuda.jacobi_svd(a[i:i + 1], kabsch.JACOBI_TOL,
                                      kabsch.JACOBI_MAX_SWEEPS)
         for x, y in zip(got, one):
-            assert torch.equal(x[i], y[0])
+            assert same_bits(x[i], y[0])
     torch.cuda.synchronize()
 
 
@@ -1284,13 +1322,20 @@ def test_svd_on_the_card_runs_h11_and_no_torch_svd(cuda, monkeypatch):
 
 
 def test_jacobi_kernels_reject_wrong_input(cuda):
-    a = torch.zeros((2, 3, 3), dtype=torch.float64, device=cuda)
+    pts = torch.zeros((2, 5, 3), device=cuda)
+    mask = torch.ones((2, 5), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="CUDA"):
-        jacobi_cuda.rotation_3x3(a.cpu())
+        jacobi_cuda.kabsch_fit(pts.cpu(), pts.cpu(), mask.cpu())
     with pytest.raises(TypeError, match="dtype"):
-        jacobi_cuda.rotation_3x3(a.float())
+        jacobi_cuda.kabsch_fit(pts.double(), pts, mask)
+    with pytest.raises(TypeError, match="dtype"):
+        jacobi_cuda.kabsch_fit(pts, pts, mask.int())
     with pytest.raises(ValueError, match="shape"):
-        jacobi_cuda.rotation_3x3(a[..., :2])
+        jacobi_cuda.kabsch_fit(pts, pts, mask[:, :4])
+    big = torch.zeros((1, jacobi_cuda.MAX_FIT_POINTS + 1, 3), device=cuda)
+    with pytest.raises(ValueError, match="points"):
+        jacobi_cuda.kabsch_fit(big, big, big[..., 0] > 0)
+    a = torch.zeros((2, 3, 3), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="rows and columns"):
         jacobi_cuda.jacobi_svd(torch.zeros((1, 10, 3), dtype=torch.float64,
                                            device=cuda), 1e-14, 12)

@@ -3,6 +3,7 @@
 
     python3 tools/replay_kernels.py [--root CHECKOUT] [--paths a,b,...]
                                     [--frames N] [--cache DIR]
+                                    [--kernels name,name,...]
 
 For each path of ``chip_smoke.PATHS`` named (``mono`` and ``mono-own``:
 MonoOdometer on the left images, with JAX's draws replayed or its own),
@@ -10,7 +11,9 @@ builds the odometer as ``chip_smoke.py`` does, runs the bench corridor's
 first N frames captured (each update one replayed CUDA graph), and
 reports the median host-clock ``update`` latency of frames 2..N-1, then
 four more updates under torch.profiler: CUDA kernels a replay and their
-device ms, and that time over the host clock (the card's busy share).
+device ms, and that time over the host clock (the card's busy share);
+with ``--kernels``, also the launches and device ms a replay of the
+kernels whose names hold each given name (say ``jacobi_svd``).
 ``--root`` picks the checkout whose ``openvo_tpu_torch`` and
 ``chip_smoke`` run (this one by default), so one call can compare commits
 in turns: parent, change, change, parent. A path the checkout does not
@@ -33,9 +36,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def profile(torch, fn, calls=4):
-    """(kernels a call, kernel ms a call, busy share) of fn() under
-    torch.profiler, as chip_smoke.replay_profile counts them."""
+def profile(torch, fn, calls=4, names=()):
+    """(kernels a call, kernel ms a call, busy share, {name: (launches a
+    call, device ms a call)} of the kernels whose names hold each of
+    ``names``) of fn() under torch.profiler, as
+    chip_smoke.replay_profile counts them."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -46,15 +51,21 @@ def profile(torch, fn, calls=4):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, device_us = 0, 0.0
+    by = {n: [0, 0.0] for n in names}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.name.startswith(("Memcpy", "Memset"))):
             kernels += 1
             device_us += e.device_time_total
-    return kernels / calls, device_us / 1e3 / calls, device_us / 1e6 / wall
+            for n in names:
+                if n in e.name:
+                    by[n][0] += 1
+                    by[n][1] += e.device_time_total
+    return (kernels / calls, device_us / 1e3 / calls, device_us / 1e6 / wall,
+            {n: (c / calls, us / 1e3 / calls) for n, (c, us) in by.items()})
 
 
-def run_path(torch, cs, seq, name, frames):
+def run_path(torch, cs, seq, name, frames, names=()):
     """Median captured update ms of frames 2..frames-1, then the profile of
     four more updates; None where the path does not run captured."""
     if name in ("mono", "mono-own"):
@@ -85,9 +96,10 @@ def run_path(torch, cs, seq, name, frames):
         lat.append((time.perf_counter() - t0) * 1e3)
         if not getattr(odo, "captured", False):
             return None
-    kernels, kernel_ms, busy = profile(torch, lambda: update(frames - 1))
+    kernels, kernel_ms, busy, by = profile(
+        torch, lambda: update(frames - 1), names=names)
     return {"update_ms": float(np.median(lat[2:])), "kernels": kernels,
-            "kernel_ms": kernel_ms, "busy": busy}
+            "kernel_ms": kernel_ms, "busy": busy, "by_kernel": by}
 
 
 def main() -> int:
@@ -97,6 +109,8 @@ def main() -> int:
     ap.add_argument("--paths", default="off-lat,filters,mono,mono-own")
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--cache", default=os.path.join(ROOT, ".bench_cache"))
+    ap.add_argument("--kernels", default="", help="comma-separated names: "
+                    "each one's launches and device ms a replay")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -119,14 +133,18 @@ def main() -> int:
     seq = cs.get_sequence(cache_dir=args.cache)
     out = {"root": root, "card": smi, "paths": {}}
     for name in args.paths.split(","):
-        r = run_path(torch, cs, seq, name, args.frames)
+        names = tuple(n for n in args.kernels.split(",") if n)
+        r = run_path(torch, cs, seq, name, args.frames, names)
         out["paths"][name] = r
         print(f"[{root}] {name}: "
               + ("not captured" if r is None else
                  f"update {r['update_ms']:.3f} ms (median of frames 2-"
                  f"{args.frames - 1}), {r['kernels']} kernels and "
                  f"{r['kernel_ms']:.3f} ms of kernel time a replay, busy "
-                 f"{r['busy']:.2f}"), flush=True)
+                 f"{r['busy']:.2f}" + "".join(
+                     f"; {n} {c:g} launches, {ms:.4f} ms"
+                     for n, (c, ms) in r["by_kernel"].items())),
+              flush=True)
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
