@@ -1586,10 +1586,17 @@ def held_bit_equal(name, ok, causes, ctws, ref):
                              f"eager one at frames {bad}")
 
 
-def log_captured(name, step, eager_ms, captured_ms, syncs, unit, smi):
+def log_captured(name, eager_ms, captured_ms, syncs, unit, smi):
+    """Log a captured path's medians and syncs, with the seconds of the
+    last graph's warm-up and capture (the trace's last ``ovo.capture``
+    span: the path's own, captured on its first call)."""
+    from openvo_tpu_torch import trace
+
+    caps = [r for r in trace.records() if r.name == "ovo.capture"]
+    capture_s = (caps[-1].end - caps[-1].start) / 1e9 if caps else None
     log(f"[{name} captured] median {unit} eager {eager_ms} ms, captured "
-        f"{captured_ms} ms; warm-up + capture {step.capture_s} s, graph "
-        f"pool {step.pool_mib} MiB; host syncs {syncs}; {smi}")
+        f"{captured_ms} ms; warm-up + capture {capture_s} s; host syncs "
+        f"{syncs}; {smi}")
 
 
 def replay_profile(torch, name, fn, calls=4, unit="a frame", per_call=1):
@@ -1658,8 +1665,7 @@ def run_captured(torch, seq, name, smi, ref):
             setattr(m, n, fn)
     replay_profile(torch, name, lambda: odo.update(seq["left"][-1],
                                                    seq["right"][-1]))
-    step = cam._step_cache[(odo.config, False)]
-    log_captured(name, step, float(np.median(ref["lat"][2:])) * 1e3,
+    log_captured(name, float(np.median(ref["lat"][2:])) * 1e3,
                  float(np.median(lat[2:])) * 1e3,
                  f"{sum(syncs[2:]) / (N_FRAMES - 2)} a frame of frames 2-"
                  f"{N_FRAMES - 1} (frame 0, capturing: {syncs[0]})",
@@ -1905,8 +1911,7 @@ def run_mono_captured(torch, seq, name, smi, update, eager):
     replay_profile(torch, name, lambda: update(odo, N_FRAMES - 1))
     if len(odo._graphs) != 1:
         raise AssertionError(f"{name}: {len(odo._graphs)} graphs captured")
-    step = next(iter(odo._graphs.values()))
-    log_captured(name, step, float(np.median(eager["lat"][2:])) * 1e3,
+    log_captured(name, float(np.median(eager["lat"][2:])) * 1e3,
                  float(np.median(lat[2:])) * 1e3,
                  f"{sum(syncs[2:]) / (N_FRAMES - 2)} a frame of frames 2-"
                  f"{N_FRAMES - 1} (frame 0, capturing: {syncs[0]}); in one "
@@ -2344,7 +2349,7 @@ def run_captured_stream(torch, seq, smi, name, ref):
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
-    log_captured(name, stream.graphs[BATCH], ref["ms"],
+    log_captured(name, ref["ms"],
                  secs * 1e3 / N_FRAMES, f"{syncs} in a call over "
                  f"{N_FRAMES} frames", "ms a frame (host clock, a call over"
                  " the frames and the copies of its results)", smi)
@@ -2490,7 +2495,7 @@ def run_captured_rig(torch, seq, smi, name, ref):
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
     syncs = got["syncs"]
-    log_captured(name, rig.graph, float(np.median(ref["lat"][2:])) * 1e3,
+    log_captured(name, float(np.median(ref["lat"][2:])) * 1e3,
                  float(np.median(got["lat"][2:])) * 1e3,
                  f"{sum(syncs[2:]) / (N_FRAMES - 2)} a step of steps 2-"
                  f"{N_FRAMES - 1} (step 0, capturing: {syncs[0]})",

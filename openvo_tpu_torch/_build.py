@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from openvo_tpu_torch import trace
+
 # Imported by every kernel wrapper module: the port's exactness contracts
 # (exact float32 products in the matcher, the remap and the pose fit) hold
 # only without TF32.
@@ -74,6 +76,8 @@ SIGNATURES = {
     # a (float32 where m < n, else float64), S, V, U (or NULL), sweeps, B,
     # m, n, tol, max sweeps, stream
     "ovo_jacobi_svd": (_P,) * 5 + (_I, _I, _I, _D, _I, _P),
+    # events (anchor, then a replay's marks), their count, ms out
+    "ovo_event_times": (_P, _I, _P),
 }
 
 
@@ -136,12 +140,18 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    """The loaded kernel library (built on first use). Traced, recorded
+    always: the span ``ovo.library`` and the counter
+    ``ovo.library_builds``, 1 where this process ran nvcc, 0 where it
+    loaded the library built before."""
+    with trace.span("ovo.library", always=True):
+        built = not library_path().exists()
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        trace.count("ovo.library_builds", int(built), always=True)
     return lib
 
 

@@ -39,17 +39,26 @@ it is captured (CUDA refuses it): nothing falls back to the eager run on
 its own. :func:`disable_capture`, the counterpart of ``jax.disable_jit()``,
 runs the steps eagerly on the card, so that a captured run can be held
 against the eager one; on the CPU every step runs eagerly.
+
+Tracing (``openvo_tpu_torch/trace.py``): a call records the spans
+``ovo.upload`` (the copies into the static buffers) and ``ovo.launch``
+(the replay); the first call's warm-up and capture are ``ovo.capture``,
+with ``ovo.warmup`` and ``ovo.graph_capture`` inside, recorded always. A
+step places the device's stage marks in its graph with :func:`mark`; the
+capture adds a last ``state`` mark after the static-buffer copies.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
+from openvo_tpu_torch import trace
+
 _disabled = 0
+_marks = None   # the (stage, event) list of the graph being captured
 
 
 @contextlib.contextmanager
@@ -65,6 +74,19 @@ def disable_capture():
 
 def capture_enabled() -> bool:
     return _disabled == 0
+
+
+def mark(stage: str) -> None:
+    """End the device stage ``stage`` of the step being captured, begun at
+    the mark before it (the step's first mark, ``start``, begins none): a
+    timing event recorded on the capture stream, an event-record node of
+    the graph (``openvo_tpu_torch/trace.py`` reads it after a replay).
+    Outside a graph's capture (the CPU, the warm-up, ``disable_capture``,
+    ``make_fx``) nothing."""
+    if _marks is not None:
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        _marks.append((stage, event))
 
 
 def _signature(inputs):
@@ -83,9 +105,8 @@ def _static(leaf):
 
 class CapturedStep:
     """``fn`` captured on its first call on the card and replayed after
-    (see the module docstring). ``capture_s`` (warm-up plus capture, host
-    clock) and ``pool_mib`` (device memory the graph's pool reserved) are
-    set by the first call."""
+    (see the module docstring). ``marks`` holds the graph's stage marks
+    (``trace.Marks``), or None where ``fn`` places none."""
 
     def __init__(self, fn, device=None):
         self.fn = fn
@@ -96,31 +117,37 @@ class CapturedStep:
         self.state = None      # the static state buffers
         self.inputs = None     # the static input buffers
         self.outs = None
-        self.capture_s = None
-        self.pool_mib = None
+        self.marks = None
 
     def __call__(self, state, *inputs):
         inputs = [torch.as_tensor(x) for x in inputs]
-        if self.graph is None:
-            self._capture(state, inputs)
+        first = self.graph is None
+        if first:
+            with trace.span("ovo.capture", always=True):
+                self._capture(state, inputs)
         elif _signature(inputs) != _signature(self.inputs):
             raise ValueError(f"captured for inputs {_signature(self.inputs)}"
                              f", called with {_signature(inputs)}")
-        elif state is not self.state:
-            for dst, src in zip(tree_leaves(self.state), tree_leaves(state)):
-                if not _is_generator(dst):
-                    dst.copy_(src)
-                elif src is not dst:
-                    dst.set_state(src.get_state())
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src, non_blocking=True)
-        self.graph.replay()
+        with trace.span("ovo.upload"):
+            if not first and state is not self.state:
+                for dst, src in zip(tree_leaves(self.state),
+                                    tree_leaves(state)):
+                    if not _is_generator(dst):
+                        dst.copy_(src)
+                    elif src is not dst:
+                        dst.set_state(src.get_state())
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src, non_blocking=True)
+        with trace.span("ovo.launch"):
+            trace.launched(self.marks, self.device)
+            self.graph.replay()
         return (self.state, *self.outs)
 
     def _capture(self, state, inputs):
-        dev = (torch.device(self.device) if self.device is not None
-               else tree_leaves(state)[0].device)
-        t0 = time.perf_counter()
+        global _marks
+        dev = self.device = (torch.device(self.device)
+                             if self.device is not None
+                             else tree_leaves(state)[0].device)
         self.state = tree_map(_static, state)
         gens = [g for g in tree_leaves(self.state) if _is_generator(g)]
         self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev)
@@ -130,41 +157,52 @@ class CapturedStep:
         drawn = [g.get_state() for g in gens]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with trace.span("ovo.warmup", always=True), torch.cuda.stream(side):
             self.fn(self.state, *self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         for g, st in zip(gens, drawn):   # the warm-up draws nothing
             g.set_state(st)
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         for g in gens:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
-            new_state, *outs = self.fn(self.state, *self.inputs)
-            static, spec = tree_flatten(self.state)
-            new, new_spec = tree_flatten(new_state)
-            if new_spec != spec:
-                raise TypeError(f"the step returned a state of another "
-                                f"structure: {new_spec} for {spec}")
-            if any(_is_generator(d) and s is not d
-                   for s, d in zip(new, static)):
-                raise TypeError("the step returned another generator than "
-                                "its state's")
-            # a leaf that aliases a static buffer is copied before any
-            # buffer is written
-            ptrs = {t.data_ptr() for t in static if not _is_generator(t)}
-            new = [s if s is d or s.data_ptr() not in ptrs else s.clone()
-                   for s, d in zip(new, static)]
-            for dst, src in zip(static, new):
-                if src is not dst:
-                    dst.copy_(src)
+        marks = _marks = []
+        try:
+            with trace.span("ovo.graph_capture", always=True), \
+                    torch.cuda.graph(graph):
+                self._record(marks)
+        finally:
+            _marks = None
         torch.cuda.synchronize(dev)
-        self.outs = outs
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
-        self.pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+        self.marks = trace.Marks(marks) if marks else None
+
+    def _record(self, marks):
+        """The captured body: the step, then the new state copied into
+        the static buffers, then (where the step placed marks) the last
+        ``state`` mark."""
+        new_state, *outs = self.fn(self.state, *self.inputs)
+        static, spec = tree_flatten(self.state)
+        new, new_spec = tree_flatten(new_state)
+        if new_spec != spec:
+            raise TypeError(f"the step returned a state of another "
+                            f"structure: {new_spec} for {spec}")
+        if any(_is_generator(d) and s is not d
+               for s, d in zip(new, static)):
+            raise TypeError("the step returned another generator than "
+                            "its state's")
+        # a leaf that aliases a static buffer is copied before any
+        # buffer is written
+        ptrs = {t.data_ptr() for t in static if not _is_generator(t)}
+        new = [s if s is d or s.data_ptr() not in ptrs else s.clone()
+               for s, d in zip(new, static)]
+        for dst, src in zip(static, new):
+            if src is not dst:
+                dst.copy_(src)
+        if marks:
+            mark("state")
+        self.outs = outs
 
 
 def capture(fn, device=None) -> CapturedStep:

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from openvo_tpu_torch import trace
 from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.geometry.se3 import rt_to_T
@@ -206,29 +207,44 @@ class MonoOdometer:
         (the first frame, or tracked). ``u``: the frame's (iters, 5)
         uniforms in place of the generator's draw. On the card (unless
         ``_graph.disable_capture()``) one replayed CUDA graph; its one host
-        sync is the copy of the results."""
-        scale = torch.as_tensor(trans_scale, dtype=torch.float32)
-        inputs = (img, scale) if u is None else (img, scale, u)
-        self.captured = self.device.type == "cuda" and capture_enabled()
-        if self.captured:
-            inputs = tuple(torch.as_tensor(x) for x in inputs)
-            key = tuple((tuple(x.shape), x.dtype) for x in inputs)
-            if key not in self._graphs:
-                self._graphs[key] = capture(self._step)
-            step = self._graphs[key]
-        else:
-            # a CPU 0-d trans_scale multiplies as a scalar on the card too
-            inputs = (torch.as_tensor(img, device=self.device),) + inputs[1:]
-            step = self._step
-        self._state, accept, stats = step(self._state, *inputs)
-        names = list(stats)
-        vals = torch.stack([accept.to(torch.int32), self._state.skipped]
-                           + [stats[k].to(torch.int32) for k in names]).cpu()
-        self.skipped_frames = int(vals[1])
-        self.last_stats = {k: vals[2 + i].numpy() for i, k in
-                           enumerate(names)}
-        self.skip_cause = MONO_SKIP_STRINGS[int(self.last_stats["skip_code"])]
-        return bool(vals[0])
+        sync is the copy of the results. Traced as ``ovo.update``
+        (``openvo_tpu_torch/trace.py``)."""
+        with trace.span("ovo.update"):
+            with trace.span("ovo.prepare"):
+                scale = torch.as_tensor(trans_scale, dtype=torch.float32)
+                inputs = (img, scale) if u is None else (img, scale, u)
+                self.captured = (self.device.type == "cuda"
+                                 and capture_enabled())
+                if self.captured:
+                    inputs = tuple(torch.as_tensor(x) for x in inputs)
+                    key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+                    if key not in self._graphs:
+                        self._graphs[key] = capture(self._step)
+                    step = self._graphs[key]
+                else:
+                    step = self._step
+            if self.captured:
+                self._state, accept, stats = step(self._state, *inputs)
+            else:
+                with trace.span("ovo.upload"):
+                    # a CPU 0-d trans_scale multiplies as a scalar on the
+                    # card too
+                    inputs = ((torch.as_tensor(img, device=self.device),)
+                              + inputs[1:])
+                with trace.span("ovo.launch"):
+                    self._state, accept, stats = step(self._state, *inputs)
+            names = list(stats)
+            with trace.span("ovo.wait"):
+                vals = torch.stack(
+                    [accept.to(torch.int32), self._state.skipped]
+                    + [stats[k].to(torch.int32) for k in names]).cpu()
+            with trace.span("ovo.unpack"):
+                self.skipped_frames = int(vals[1])
+                self.last_stats = {k: vals[2 + i].numpy() for i, k in
+                                   enumerate(names)}
+                self.skip_cause = MONO_SKIP_STRINGS[
+                    int(self.last_stats["skip_code"])]
+                return bool(vals[0])
 
     def current_pose(self):
         """camera-in-world pose = inv(c_T_w), float64 numpy."""

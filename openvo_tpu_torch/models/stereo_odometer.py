@@ -55,7 +55,9 @@ from openvo_tpu_torch.config import (
     SKIP_RIGIDITY,
     OdometerConfig,
 )
-from openvo_tpu_torch._graph import CapturedStep, capture, capture_enabled
+from openvo_tpu_torch import trace
+from openvo_tpu_torch._graph import (CapturedStep, capture, capture_enabled,
+                                     mark)
 from openvo_tpu_torch.geometry.se3 import rotation_magnitude
 from openvo_tpu_torch.ops._dispatch import target_device
 from openvo_tpu_torch.ops.hamming import ratio_test_match
@@ -192,9 +194,11 @@ def make_pipeline_fns(camera, cfg: OdometerConfig, color: bool):
 
     def extract(img_left, img_right) -> FrameFeatures:
         xyz, disp, img = compute3d(img_left, img_right)
+        mark("depth")
         fmask = ((disp >= cfg.min_valid_disparity)
                  & (disp <= cfg.max_valid_disparity)).to(torch.uint8)
         feats = detect_and_compute(img, fmask, cfg.orb)
+        mark("orb")
         return FrameFeatures(img=img, xyz=xyz, disp=disp, kp_xy=feats["xy"],
                              desc=feats["desc"], kp_valid=feats["valid"])
 
@@ -216,9 +220,11 @@ def make_pipeline_fns(camera, cfg: OdometerConfig, color: bool):
     def attempt(fa, fb, skipped, skip_code_in):
         """One matching + fit attempt with the 'matches' gate."""
         pts_a, pts_b, mok, enough, n = point_clouds(fa, fb)
+        mark("match")
         T, ok, code_t = point_cloud_transform(pts_a, pts_b, mok, skipped,
                                               skip_code_in)
         code_out = torch.where(enough, code_t, SKIP_MATCHES).to(torch.int32)
+        mark("pose")
         return T, ok & enough, code_out, n
 
     return {
@@ -315,7 +321,9 @@ def make_feats_step(cfg: OdometerConfig, attempt):
             "ok1": ok1,
             "ok2": use2 & ok2,
             "skip_code": new_state.skip_code,
+            "use2": use2,
         }
+        mark("state")
         return new_state, success, stats
 
     return step_feats
@@ -332,23 +340,53 @@ def make_step(camera, cfg: OdometerConfig, color: bool):
     return step
 
 
-STAT_NAMES = ("n_kps", "n_matches", "ok1", "ok2", "skip_code")
+# use2: the fallback's result was taken (trace counter ``ovo.fallback``)
+STAT_NAMES = ("n_kps", "n_matches", "ok1", "ok2", "skip_code", "use2")
 
 
 def make_update_fn(camera, cfg: OdometerConfig, color: bool):
     """The step with its results packed for the host: (state, imgL, imgR)
     -> (state', vals), vals int32 (3 + len(STAT_NAMES)[, B]) of ok, skipped,
     skip_code and STAT_NAMES' stats, which an update copies to the host in
-    its one sync."""
+    its one sync. Captured, its graph begins with the ``start`` mark."""
     step = make_step(camera, cfg, color)
 
     def update(state: OdomState, img_left, img_right):
+        mark("start")
         state, ok, stats = step(state, img_left, img_right)
         return state, torch.stack(
             [ok.to(torch.int32), state.skipped, state.skip_code]
             + [stats[k].to(torch.int32) for k in STAT_NAMES])
 
     return update
+
+
+def run_update(step, state, inputs, device):
+    """One call of an update function, the captured one (a
+    :class:`CapturedStep`, which records its own upload and launch spans)
+    or the eager one: (state', vals on the host). The copy of vals is the
+    call's one sync; the trace's marks are read after it."""
+    if not isinstance(step, CapturedStep):
+        with trace.span("ovo.upload"):
+            inputs = [torch.as_tensor(x, device=device) for x in inputs]
+        with trace.span("ovo.launch"):
+            state, vals = step(state, *inputs)
+    else:
+        state, vals = step(state, *inputs)
+    with trace.span("ovo.wait"):
+        vals = vals.cpu()
+    trace.settle(device)
+    return state, vals
+
+
+def unpack_stats(vals) -> dict:
+    """STAT_NAMES' rows of an update's vals (numpy, on the host); counts
+    the camera-steps that took the fallback's result
+    (``ovo.fallback``)."""
+    stats = {k: vals[3 + i, ...] for i, k in enumerate(STAT_NAMES)}
+    if trace.recording():
+        trace.count("ovo.fallback", int(stats["use2"].sum()))
+    return stats
 
 
 class StereoOdometer:
@@ -438,23 +476,24 @@ class StereoOdometer:
 
     def update(self, img_left, img_right) -> bool:
         """Process one stereo pair; True iff tracking succeeded. Its one
-        host sync is the copy of the results."""
-        ndim = (img_left.ndim if torch.is_tensor(img_left)
-                else np.ndim(img_left))
-        step = self._update_fn(ndim == 3)
-        self.captured = isinstance(step, CapturedStep)
-        if self.captured:
-            self._claim(step)
-        else:
-            img_left = torch.as_tensor(img_left, device=self.device)
-            img_right = torch.as_tensor(img_right, device=self.device)
-        self._state, vals = step(self._state, img_left, img_right)
-        vals = vals.cpu()
-        self.skipped_frames = int(vals[1])
-        self.skip_cause = SKIP_CAUSE_STRINGS[int(vals[2])]
-        self.last_stats = {k: vals[3 + i].numpy() for i, k in
-                           enumerate(STAT_NAMES)}
-        return bool(vals[0])
+        host sync is the copy of the results. Traced as ``ovo.update``
+        (``openvo_tpu_torch/trace.py``)."""
+        with trace.span("ovo.update"):
+            with trace.span("ovo.prepare"):
+                ndim = (img_left.ndim if torch.is_tensor(img_left)
+                        else np.ndim(img_left))
+                step = self._update_fn(ndim == 3)
+                self.captured = isinstance(step, CapturedStep)
+                if self.captured:
+                    self._claim(step)
+            self._state, vals = run_update(step, self._state,
+                                           (img_left, img_right), self.device)
+            with trace.span("ovo.unpack"):
+                vals = vals.numpy()
+                self.skipped_frames = int(vals[1])
+                self.skip_cause = SKIP_CAUSE_STRINGS[int(vals[2])]
+                self.last_stats = unpack_stats(vals)
+                return bool(vals[0])
 
     def current_pose(self):
         """camera-in-world pose = inv(c_T_w), float64 numpy."""

@@ -20,15 +20,16 @@ package.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from openvo_tpu_torch import trace
 from openvo_tpu_torch._graph import capture, capture_enabled
 from openvo_tpu_torch.config import OdometerConfig
-from openvo_tpu_torch.models.stereo_odometer import (STAT_NAMES,
-                                                     FrameFeatures,
+from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
                                                      OdomState,
                                                      init_state, make_step,
-                                                     make_update_fn)
+                                                     make_update_fn,
+                                                     run_update,
+                                                     unpack_stats)
 
 
 def make_rig_step(camera, cfg: OdometerConfig, color: bool = False):
@@ -81,18 +82,19 @@ class RigOdometer:
     def update(self, imgs_left, imgs_right):
         """imgs_*: (N, H, W). Returns per-camera success flags (N,) bool;
         ``last_stats`` holds each camera's step statistics. Its one host
-        sync is the copy of the results."""
-        self.captured = self.graph is not None and capture_enabled()
-        if self.captured:
-            self._state, vals = self.graph(self._state, imgs_left, imgs_right)
-        else:
-            self._state, vals = self._update(
-                self._state, torch.as_tensor(imgs_left, device=self.device),
-                torch.as_tensor(imgs_right, device=self.device))
-        vals = vals.cpu()
-        self.last_stats = {k: vals[3 + i].numpy() for i, k in
-                           enumerate(STAT_NAMES)}
-        return vals[0].numpy().astype(bool)
+        sync is the copy of the results. Traced as ``ovo.update``
+        (``openvo_tpu_torch/trace.py``)."""
+        with trace.span("ovo.update"):
+            with trace.span("ovo.prepare"):
+                self.captured = self.graph is not None and capture_enabled()
+                step = self.graph if self.captured else self._update
+            self._state, vals = run_update(step, self._state,
+                                           (imgs_left, imgs_right),
+                                           self.device)
+            with trace.span("ovo.unpack"):
+                vals = vals.numpy()
+                self.last_stats = unpack_stats(vals)
+                return vals[0].astype(bool)
 
     def current_poses(self):
         """(N, 4, 4) float64 camera-in-world poses, inv(c_T_w)."""

@@ -33,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from openvo_tpu_torch._graph import capture, capture_enabled
+from openvo_tpu_torch import trace
+from openvo_tpu_torch._graph import capture, capture_enabled, mark
 from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.models.stereo_odometer import (FrameFeatures,
                                                      make_pipeline_fns)
@@ -56,7 +57,10 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
     ``stream.captured`` says how the last call ran), and the state
     returned is the graph's static buffers, valid until the next call
     with that size, as JAX's donated state.
-    ``stream.skip_codes`` holds each frame's skip code of the last call."""
+    ``stream.skip_codes`` holds each frame's skip code of the last call.
+    A call is traced as ``ovo.stream`` (``openvo_tpu_torch/trace.py``); a
+    chunk's graph marks ``depth`` and ``orb`` once and ``match``, ``pose``
+    and ``state`` once a frame."""
     fns = make_pipeline_fns(camera, cfg, color)
     extract, step_feats = fns["extract"], fns["step_feats"]
     dev = camera.device
@@ -65,6 +69,7 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
     def run_chunk(state, lefts, rights):
         """One chunk: (state, (n, H, W) pairs) -> (state', ok (n,),
         c_T_w (n, 4, 4), skip code (n,))."""
+        mark("start")
         feats = extract(lefts, rights)
         oks, poses, codes = [], [], []
         for i in range(lefts.shape[0]):
@@ -76,26 +81,35 @@ def make_stream_fn(camera, cfg: OdometerConfig, color: bool = False,
         return state, torch.stack(oks), torch.stack(poses), torch.stack(codes)
 
     def stream(state, lefts, rights):
-        lefts = torch.as_tensor(lefts, device=dev)
-        rights = torch.as_tensor(rights, device=dev)
-        b = lefts.shape[0]
-        size = b if chunk is None or chunk >= b else chunk
-        if b % size:
-            raise ValueError(f"frame count {b} not divisible by {chunk=}")
-        stream.captured = dev.type == "cuda" and capture_enabled()
-        if stream.captured and size not in graphs:
-            graphs[size] = capture(run_chunk)
-        outs = []
-        for start in range(0, b, size):
-            cut = slice(start, start + size)
-            if stream.captured:
-                state, *out = graphs[size](state, lefts[cut], rights[cut])
-                out = [x.clone() for x in out]
-            else:
-                state, *out = run_chunk(state, lefts[cut], rights[cut])
-            outs.append(out)
-        ok, pose, stream.skip_codes = (torch.cat(x) for x in zip(*outs))
-        return state, (ok, pose)
+        with trace.span("ovo.stream"):
+            with trace.span("ovo.upload"):
+                lefts = torch.as_tensor(lefts, device=dev)
+                rights = torch.as_tensor(rights, device=dev)
+            trace.settle(dev)
+            b = lefts.shape[0]
+            size = b if chunk is None or chunk >= b else chunk
+            if b % size:
+                raise ValueError(f"frame count {b} not divisible by "
+                                 f"{chunk=}")
+            stream.captured = dev.type == "cuda" and capture_enabled()
+            if stream.captured and size not in graphs:
+                graphs[size] = capture(run_chunk)
+            outs = []
+            for start in range(0, b, size):
+                cut = slice(start, start + size)
+                if stream.captured:
+                    state, *out = graphs[size](state, lefts[cut], rights[cut])
+                    with trace.span("ovo.unpack"):
+                        out = [x.clone() for x in out]
+                else:
+                    with trace.span("ovo.launch"):
+                        state, *out = run_chunk(state, lefts[cut],
+                                                rights[cut])
+                outs.append(out)
+            with trace.span("ovo.unpack"):
+                ok, pose, stream.skip_codes = (torch.cat(x)
+                                               for x in zip(*outs))
+            return state, (ok, pose)
 
     stream.graphs = graphs
     stream.captured = None

@@ -1,0 +1,11 @@
+"""depth_dev_ms.replay (ms/frame), layer "depth kernels": the ``depth`` stage
+inside the captured step: rectify, SGBM, reprojection (``extract``'s
+``compute3d``), by the graph's timing events
+(``openvo_tpu_torch/trace.py``), over the traced chunks' frames. Moves
+frames_per_s."""
+
+from vobench.harness import program_trace
+
+
+def read(ctx):
+    return program_trace.device_ms(ctx, "depth", per_frame=True)

@@ -1,0 +1,11 @@
+"""state_dev_ms.replay (ms/frame), layer "state": the ``state`` stage inside
+the captured step: the state machine's selects, the packed results and the
+static-buffer copies, by the graph's timing events
+(``openvo_tpu_torch/trace.py``), over the traced chunks' frames. Moves
+frames_per_s."""
+
+from vobench.harness import program_trace
+
+
+def read(ctx):
+    return program_trace.device_ms(ctx, "state", per_frame=True)
