@@ -1214,7 +1214,8 @@ def check_kernels(torch, seq, cam, cfg):
              + loop_kernel_cases(torch, seq, cam, cfg)
              + svd_kernel_cases(torch, seq, cam, cfg))
     for c in cases:
-        out, ref = as_tuple(c.kern()), as_tuple(c.plain())
+        out, h2 = h2_kernels(c.kern)
+        out, ref = as_tuple(out), as_tuple(c.plain())
         err = max(max_abs_err(a, b) for a, b in zip(out, ref))
         err_single = None
         if c.single is not None:
@@ -1225,6 +1226,7 @@ def check_kernels(torch, seq, cam, cfg):
             f"{[tuple(o.shape) for o in out]}, max_abs_err vs plain {err}"
             + ("" if err_single is None else
                f", vs {c.frames} single-frame launches {err_single}")
+            + (f"; H2 launches by kernel {h2}" if any(h2.values()) else "")
             + (f"; {c.note}" if c.note else ""))
         if err != 0.0 or err_single:
             raise AssertionError(f"{c.name} [{c.variant}] differs from its "
@@ -1244,6 +1246,8 @@ def check_kernels(torch, seq, cam, cfg):
                             time_ms(torch, c.library, 20)) / c.frames})
         if c.frames > 1:
             results[-1]["frames"] = c.frames
+        if any(h2.values()):
+            results[-1]["h2_kernels"] = h2
     # times: plain, kernel, kernel, plain, each by CUDA events
     for r, c in zip(results, cases):
         reps_plain = {"brief_describe": 20, "corner_keys": 5}.get(c.name, 1)
@@ -1387,11 +1391,69 @@ def expected_launches(params, filters=False):
     dirs = 1 if params.num_paths == 4 else 3
     ways = 1 if params.num_paths == 5 else 2
     speckle = params.speckle_window_size > 0 and params.speckle_range > 0
+    # H2: one launch a direction over float32 C; over int16 C one launch
+    # for every line, or the trio walk's one a direction of travel
+    trio = h2_design(params, 1) == "trio"
     return {"cost_hsweep": 0 if f32 else 1, "hsweep": int(f32),
-            "vsweep": dirs * ways if f32 else 1, "hsweep_wta_lr": 1,
+            "vsweep": dirs * ways if f32 else (ways if trio else 1),
+            "hsweep_wta_lr": 1,
             "brief_describe": 1, "resize_levels": 1, "corner_keys": 1,
             "speckle_keep": int(speckle), "greedy_clique": int(filters),
             "kabsch_fit": 2 if filters else 1, "jacobi_svd": 0}
+
+
+def h2_design(params, frames):
+    """The H2 kernel ``ops/sgbm_cuda.vsweep_design`` gives a path's calls:
+    ``frames`` frames a call at the path's SGBM parameters, at IMG_SIZE."""
+    import torch
+
+    from openvo_tpu_torch.ops import sgbm, sgbm_cuda
+
+    f32 = sgbm.int16_sentinel(params.block_size,
+                              max(params.pre_filter_cap, 15) | 1) is None
+    return sgbm_cuda.vsweep_design(
+        torch.float32 if f32 else torch.int16, params.num_paths != 4, False,
+        True, params.num_disparities, IMG_SIZE[0], frames)
+
+
+def h2_kernels(call):
+    """``call()``, an untimed call, recorded by the trace from an empty
+    ring, and its H2 launches by kernel from their trace counters
+    (``ovo.vsweep_trio``: the trio walk, ``ovo.vsweep``: the line walk);
+    recording is left on or off as it was."""
+    from openvo_tpu_torch import trace
+
+    was = trace.recording()
+    trace.clear()
+    trace.enable()
+    try:
+        out = call()
+        got = {"trio": 0, "lines": 0}
+        for r in trace.records():
+            if r.name in ("ovo.vsweep_trio", "ovo.vsweep"):
+                got["trio" if r.name == "ovo.vsweep_trio" else "lines"] += r.n
+    finally:
+        if not was:
+            trace.disable()
+    return out, got
+
+
+def check_h2_designs(name, params, frames, call):
+    """Run ``call``, one more call of a path outside its timed run, log
+    how many of its H2 launches took each kernel (:func:`h2_kernels`) and
+    fail unless every one took the kernel :func:`h2_design` gives the
+    path."""
+    from openvo_tpu_torch.ops import sgbm_cuda
+
+    n0 = sgbm_cuda.vsweep.launches
+    _, got = h2_kernels(call)
+    launched = sgbm_cuda.vsweep.launches - n0
+    want = h2_design(params, frames)
+    log(f"[{name}] H2 launches by kernel: {got} (vsweep_design: {want} for "
+        f"{frames} frames a call)")
+    if not launched or got[want] != launched or sum(got.values()) != launched:
+        raise AssertionError(f"{name}: H2's {launched} launches took {got}, "
+                             f"expected the {want} kernel")
 
 
 def all_kernels():
@@ -1487,10 +1549,12 @@ def run_path(torch, seq, name, smi):
             launches = {k.__name__: k.launches for k in kernels}
             syncs = sgbm.speckle_filter.syncs
             clique_syncs = rigid_clique.rigid_body_filter.syncs
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            check_h2_designs(name, params, 1, lambda: odo.update(
+                seq["left"][0], seq["right"][0]))
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
     poses = np.stack(poses)
     gt = np.asarray(seq["T_wc"], np.float64)
     ate = float(np.mean(np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3],
@@ -2211,7 +2275,8 @@ def run_stream(torch, seq, smi, name, ref):
         setattr(m, n, tripwire)
     try:
         with _graph.disable_capture():
-            chunk0()   # first-call costs outside the timed run
+            # first-call costs outside the timed run
+            check_h2_designs(name, path_params(single), BATCH, chunk0)
             gc.collect()
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated() / 2 ** 20
@@ -2394,10 +2459,12 @@ def run_rig8(torch, seq, smi, name, ref):
             record = drive_rig(torch, rig, steps, name)
             launches = {k.__name__: k.launches for k in kernels}
             clique_syncs = rigid_clique.rigid_body_filter.syncs
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            check_h2_designs(name, path_params(single), RIG_CAMERAS,
+                             lambda: rig.update(*steps[-1]))
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
     oks, causes, lat = record["ok"], record["causes"], record["lat"]
     poses = np.linalg.inv(record["c_T_w"].astype(np.float64))
     secs = sum(lat)

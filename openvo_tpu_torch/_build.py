@@ -50,6 +50,11 @@ SIGNATURES = {
     # (float32: sv = L), init carry (or NULL), carry out (or NULL), frames,
     # a frame's carry elements, stream
     "ovo_vsweep": (_P, _I, _P) + (_I,) * 10 + (_P, _P, _I, _LL, _P),
+    # C (int16), s1, H, W, D, P1, P2, up, frames, scratch, its bytes,
+    # stream
+    "ovo_vsweep_trio": (_P, _P) + (_I,) * 7 + (_P, _LL, _P),
+    # (no arguments) the scratch's bytes on the current device
+    "ovo_vsweep_trio_scratch": (),
     # C, out, H, W, D, P1, P2, stream
     "ovo_hsweep": (_P, _P, _I, _I, _I, _I, _I, _P),
     # C, C is float32, s1, sv, svu (or NULL), disp16, H, W, D, P1, P2,

@@ -51,6 +51,7 @@ capture adds a last ``state`` mark after the static-buffer copies.
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
@@ -168,12 +169,19 @@ class CapturedStep:
         for g in gens:
             graph.register_generator_state(g)
         marks = _marks = []
+        # The collector must not run inside the capture: a graph it frees
+        # there (a dead cycle of an earlier step's) destroys its executable,
+        # which invalidates the capture under way.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with trace.span("ovo.graph_capture", always=True), \
                     torch.cuda.graph(graph):
                 self._record(marks)
         finally:
             _marks = None
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(dev)
         self.graph = graph
         self.marks = trace.Marks(marks) if marks else None

@@ -24,7 +24,9 @@
 //                        box sum) then hwalk (the left-to-right scan)
 //   H2 vsweep         <- sgbm_pallas.sweep_v (K2): one or three vertical
 //                        directions, top-down and/or bottom-up, with its
-//                        init_carry / return_carry (sgbm_pallas.py:478-557)
+//                        init_carry / return_carry (sgbm_pallas.py:478-557);
+//                        the trio over int16 C of a batch of frames is
+//                        csrc/sgbm_trio.cu's row-synchronous walk instead
 //   H5 hsweep         <- sgbm_pallas.sweep_h (K6), float32: hwalk over F32
 //   H3 hsweep_wta_lr  <- sgbm_pallas.sweep_hw_wta (K3), and over float32
 //                        costs sweep_h_wta (K7); + lr_lookup (K4) and the
@@ -63,7 +65,11 @@
 //     warp stages 4 pixels' L in shared memory and sends each with one bulk
 //     reduce-add (cp.reduce.async.bulk .add.s32, applied in L2 per element
 //     atomically, so exact in any order). Those adds, not the walk, bound
-//     it: the same walk with plain stores takes about half the time. Over
+//     it: the same walk with plain stores takes about half the time. So the
+//     trio of a batch, the paths' H2, is a walk of its own that sums the
+//     three directions on the SM and writes s1 once (csrc/sgbm_trio.cu,
+//     bound by those bytes); this kernel keeps the straight line alone, the
+//     carries, float32 C, a single frame and the scalar fallback. Over
 //     int16 C the sum is H1's s1 itself, so no zeroed volume is written and
 //     H3 reads one volume fewer. H3 keeps the argmin's redux, the
 //     uniqueness vote and the right-view ring (a register shift of packed

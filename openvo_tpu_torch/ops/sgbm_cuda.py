@@ -35,7 +35,9 @@ tensor launches the kernel or raises):
   of a whole image or of a row band with halo rows (K1's ``band_halo``).
 - H2 :func:`vsweep`: the vertical scans (straight, or with both
   diagonals), over int16 or float32 C, with an optional carry in and out
-  (K2's ``init_carry``/``return_carry``).
+  (K2's ``init_carry``/``return_carry``): a warp a scan line
+  (``csrc/sgbm.cu``), or for a batch of the int16 trio a row-synchronous
+  walk (``csrc/sgbm_trio.cu``), as :func:`vsweep_design` chooses.
 - H5 :func:`hsweep`: the left-to-right scan over a float32 cost volume.
 - H3 :func:`hsweep_wta_lr`: right-to-left scan, WTA, uniqueness, subpixel,
   left-right check and the invalid encoding, to the final int16 disparity;
@@ -72,7 +74,7 @@ from __future__ import annotations
 
 import torch
 
-from openvo_tpu_torch import _build
+from openvo_tpu_torch import _build, trace
 from openvo_tpu_torch.ops._dispatch import (check_cuda_input, device_of,
                                             stream_handle)
 
@@ -481,6 +483,53 @@ def cost_hsweep(lp, rp, min_disp: int, num_disp: int, block_size: int,
     return C, s1
 
 
+# The trio walk (csrc/sgbm_trio.cu) takes D a multiple of 8 up to 128 (a
+# lane's slots in 16-byte rows, 4 slots a lane at most), frames of at most
+# TRIO_MAX_W columns (each block walks a strip of them; the card holds every
+# strip of a frame at once), and at least TRIO_MIN_FRAMES frames a launch:
+# a row takes it 3-5 us however few frames share it, so on the H100 1 or 2
+# KITTI frames take longer than in vsweep_kernel (1.18 and 0.59 ms a frame
+# against 0.46 and 0.46) and 3 frames shorter (0.40 against 0.48;
+# tools/probe_warp_walk.cu, PERF.md section 6).
+TRIO_MAX_D = 128
+TRIO_MAX_W = 4096
+TRIO_MIN_FRAMES = 3
+
+
+def vsweep_design(dtype, diagonals: bool, carry: bool, aligned: bool,
+                  D: int, W: int, frames: int) -> str:
+    """Which H2 kernel a :func:`vsweep` call over a C of ``dtype`` takes:
+    ``"trio"``, the row-synchronous walk of the trio into the sum
+    (``csrc/sgbm_trio.cu``, one launch a direction of travel), for int16 C
+    with both diagonals, no carry in or out, 16-byte aligned volumes, D a
+    multiple of 8 up to :data:`TRIO_MAX_D`, W up to :data:`TRIO_MAX_W` and
+    at least :data:`TRIO_MIN_FRAMES` frames; else ``"lines"``, a warp a
+    scan line (``csrc/sgbm.cu``'s ``vsweep_kernel``): the straight line
+    alone, the carries, float32 C, a single frame and the scalar
+    fallback."""
+    if (dtype == torch.int16 and diagonals and not carry and aligned
+            and D % 8 == 0 and D <= TRIO_MAX_D and W <= TRIO_MAX_W
+            and frames >= TRIO_MIN_FRAMES):
+        return "trio"
+    return "lines"
+
+
+_TRIO_SCRATCH_BYTES = {}
+
+
+def _trio_scratch(dev):
+    """A scratch of the trio walk's own for one call on ``dev``, from the
+    caching allocator on the current stream: the launch zeroes the part it
+    uses on that stream before its blocks hand their edges on through it, so
+    calls on other streams, in flight at once, share none of it."""
+    n = _TRIO_SCRATCH_BYTES.get(dev)
+    if n is None:
+        with torch.cuda.device(dev):
+            n = _TRIO_SCRATCH_BYTES[dev] = (
+                _build.library().ovo_vsweep_trio_scratch())
+    return torch.empty(n, dtype=torch.uint8, device=dev)
+
+
 def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
            up: bool = False, init_carry=None, return_carry: bool = False,
            acc=None):
@@ -489,8 +538,8 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     out. The sum of the vertical scans (straight, or with both diagonals)
     walked top-down and/or bottom-up, as :func:`vsweep_plain`: int32 over
     int16 C (5 paths take the top-down trio, 8 paths both trios, 4 paths
-    the straight line both ways, each in one launch), float32 over float32
-    C (one direction of travel a call).
+    the straight line both ways), float32 over float32 C (one direction of
+    travel a call).
 
     ``init_carry``/``return_carry`` continue a sweep across a row-tile
     boundary (``parallel/tiling.py``): a line that starts on the first row
@@ -501,30 +550,45 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
     tiles add their bottom-up sweep into the top-down one (exact in any
     order); over float32 C the partials stay apart for the sum order.
 
-    One warp per scan line, with :func:`cost_hsweep`'s lane layout: lane l
-    holds disparities VPL*l .. VPL*l + VPL - 1, the neighbours d +- 1 come
-    by one shuffle each way and min L' by one ``redux.sync``, so no block
-    barrier and no shared memory is on the walk's chain. Each direction
-    has W vertical lines and a diagonal W+H-1; each warp loads its line's
-    pixels 4 steps ahead into registers with vector loads (a pixel's D
-    values are contiguous, the next pixel's W*D +- D elements further on).
-    Over int16 C every line of every direction runs in one launch, 32 lines
-    an SM at once (64 registers), the directions' lines interleaved so that
-    their adds into a row meet in L2; each warp stages 4 pixels' L in
-    shared memory and sends each with one bulk reduce-add
-    (``cp.reduce.async.bulk .add.s32``), exact in any order. The sum is a
-    zeroed int32 volume, or ``acc``: the SGBM passes H1's s1, so no zeroed
-    volume is written. Over float32 C there is one launch per direction,
-    in the order 0, +1, -1: every pixel lies on one line of a direction, so
-    each step sets ``acc = acc + L`` (``acc = L`` in the first launch, which
-    needs no zeroed volume), which keeps the JAX package's float32 sum
-    order. Bound on the H100 by the adds (the top-down trio at KITTI size
-    takes about 0.47 ms, its walk with plain stores 0.26) and, over float32
-    C, by the three launches' reads and writes of the sum.
+    Two kernels, chosen by :func:`vsweep_design` from the call. The sum is
+    a zeroed int32 volume, or ``acc``: the SGBM passes H1's s1, so no
+    zeroed volume is written.
+
+    - The trio walk (``csrc/sgbm_trio.cu``; trace counter
+      ``ovo.vsweep_trio``, one a launch) over int16 C, one launch a
+      direction of travel (8 paths: down, then up), each on a scratch of its
+      own that it zeroes on its stream (about 1 MB for 8 KITTI frames). A frame's width is cut
+      into strips, a block a strip, and the block walks the rows in the
+      order of travel: each warp holds its 5 columns' previous-row L of
+      all three directions in registers (lane l holds disparities VPL*l ..
+      VPL*l + VPL - 1: the neighbours d +- 1 by one shuffle each way, min L'
+      by one ``redux.sync``, 15 lines a row interleaved), takes the
+      diagonals' L across warps through shared memory and across blocks
+      through L2, and adds each pixel's three L into the sum. C and the
+      sum's rows come into a ring in shared memory by TMA bulk copies and
+      the summed rows go back the same way, so it moves the trio's bytes
+      once (C read, the sum read and written: 0.178 ms a KITTI frame at
+      3.35 TB/s; 0.209 measured at 8 and 16 frames) and no atomic. A
+      cooperative launch: every block resident, frames beyond what the
+      card holds walked in turn.
+    - A warp a scan line (``csrc/sgbm.cu``'s ``vsweep_kernel``; trace
+      counter ``ovo.vsweep``), every line of every direction asked for in
+      one launch over int16 C, one launch per direction over float32 C,
+      with :func:`cost_hsweep`'s lane layout and no block barrier or
+      shared memory on the walk's chain; each warp loads its line's pixels
+      4 steps ahead into registers with vector loads. Over int16 C each
+      warp stages 4 pixels' L in shared memory and sends each with one
+      bulk reduce-add (``cp.reduce.async.bulk .add.s32``) into L2, exact
+      in any order: those adds bound it (the top-down trio of a KITTI frame
+      about 0.46 ms, its walk with plain stores 0.26). Over float32 C the
+      launches go in the order 0, +1, -1: every pixel lies on one line of a
+      direction, so each step sets ``acc = acc + L`` (``acc = L`` in the
+      first launch), which keeps the JAX package's float32 sum order;
+      bound by the three launches' reads and writes of the sum.
 
     A (B, H, W, D) C (with (B, ndirs, W, D) carries and a (B, H, W, D)
-    ``acc``) walks every line of every frame in each launch: a line's
-    frame moves only its base offsets."""
+    ``acc``) walks every frame in each launch: a frame moves only base
+    offsets."""
     dev = device_of(*(t for t in (C, init_carry, acc) if t is not None))
     _check_ways(C, [False] * down + [True] * up,
                 init_carry is not None or return_carry)
@@ -548,15 +612,48 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
         check_cuda_input(init_carry, acc_t, lead + (nd, W, D), "init_carry")
     if acc is not None:
         check_cuda_input(acc, acc_t, lead + (H, W, D), "acc")
+        sv = acc
+    elif C.dtype == torch.float32:    # the first launch sets it
+        sv = torch.empty(lead + (H, W, D), dtype=acc_t, device=dev)
+    else:        # the walks add into it
+        sv = torch.zeros(lead + (H, W, D), dtype=acc_t, device=dev)
+    carry_io = init_carry is not None or return_carry
+    aligned = C.data_ptr() % 16 == 0 and sv.data_ptr() % 16 == 0
+    if vsweep_design(C.dtype, diagonals, carry_io, aligned, D, W,
+                     _count(lead)) == "trio":
+        return _vsweep_trio(C, sv, p1, p2, down, up)
+    return _vsweep_lines(C, sv, p1, p2, nd, down, up, init_carry,
+                         return_carry)
+
+
+def _vsweep_trio(C, sv, p1: int, p2: int, down: bool, up: bool):
+    """The trio walk over int16 C into sv (checked by :func:`vsweep`), one
+    launch a direction of travel."""
+    lead, (H, W, D) = _lead(C, 3, "C")
+    dev = C.device
+    lib = _build.library()
+    scratch = _trio_scratch(dev)
+    for way_up in [False] * down + [True] * up:
+        err = lib.ovo_vsweep_trio(C.data_ptr(), sv.data_ptr(), H, W, D, p1,
+                                  p2, int(way_up), _count(lead),
+                                  scratch.data_ptr(), scratch.numel(),
+                                  stream_handle(dev))
+        vsweep.launches += 1
+        trace.count("ovo.vsweep_trio")
+        _build.check_launch(err, "vsweep (trio)")
+    return sv
+
+
+def _vsweep_lines(C, sv, p1: int, p2: int, nd: int, down: bool, up: bool,
+                  init_carry=None, return_carry: bool = False):
+    """A warp a scan line over C into sv (checked by :func:`vsweep`), with
+    the carries: one launch over int16 C, one a direction over float32 C
+    (the first setting sv)."""
+    lead, (H, W, D) = _lead(C, 3, "C")
+    dev = C.device
     lib = _build.library()
     f32 = C.dtype == torch.float32
-    if acc is not None:
-        sv = acc
-    elif f32:    # the first launch sets it
-        sv = torch.empty(lead + (H, W, D), dtype=acc_t, device=dev)
-    else:        # the reductions add into it
-        sv = torch.zeros(lead + (H, W, D), dtype=acc_t, device=dev)
-    carry = (torch.empty(lead + (nd, W, D), dtype=acc_t, device=dev)
+    carry = (torch.empty(lead + (nd, W, D), dtype=sv.dtype, device=dev)
              if return_carry else None)
 
     def carry_ptr(t, j):   # direction j's carry of the first frame
@@ -571,6 +668,7 @@ def vsweep(C, p1: int, p2: int, diagonals: bool, down: bool = True,
             carry_ptr(init_carry, j0), carry_ptr(carry, j0), _count(lead),
             nd * W * D, stream_handle(dev))
         vsweep.launches += 1
+        trace.count("ovo.vsweep")
         _build.check_launch(err, "vsweep")
     return (sv, carry) if return_carry else sv
 

@@ -14,16 +14,23 @@
 //     the lanes among them; other tunings), plus the walk with plain stores
 //     in place of the adds (its output is wrong: timing only), and the
 //     port's scalar fallback;
+//   - H2's top-down trio over 1-4, 8 and 16 frames (the cells run 1, 8 and
+//     16; 2-4 show where the trio walk starts to win): the port's line
+//     walk, the same walk with plain stores, and the trio walk
+//     (csrc/sgbm_trio.cu) at 16, 8 and 4 warps a block, with and without
+//     its slot tests (`probe trio` times these alone);
 //   - H5 (hwalk over float32 C) in the vector feed and in rings of several
 //     geometries.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o probe openvo_tpu_torch/tools/probe_warp_walk.cu && ./probe
 //
-// It includes csrc/sgbm.cu and csrc/sgbm_wta.cu, so it times the kernels
-// the port builds; H2's variants live here only.
+// It includes csrc/sgbm.cu, csrc/sgbm_trio.cu and csrc/sgbm_wta.cu, so it
+// times the kernels the port builds; H2's line-walk variants live here
+// only.
 
 #include "../csrc/sgbm.cu"
+#include "../csrc/sgbm_trio.cu"
 #include "../csrc/sgbm_wta.cu"
 
 #include <cstdio>
@@ -221,7 +228,8 @@ __global__ void __launch_bounds__(32 * kWalkWarps, T::kBlocks)
     vsweep_variant_kernel(const typename P::C* __restrict__ C,
                           typename P::L* sv, int H, int W, int D, int P1,
                           int P2, int dir0, int ndirs, int down, int per_way,
-                          int nlines, int assign, int ring_bytes) {
+                          int nlines, int assign, int ring_bytes,
+                          int frames) {
   using CT = typename P::C;
   using L = typename P::L;
   constexpr bool kExact = P::kSumsExact;
@@ -229,8 +237,13 @@ __global__ void __launch_bounds__(32 * kWalkWarps, T::kBlocks)
   constexpr bool kStaged = kExact && kOut == kTmaAdd;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= nlines) return;
+  int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= nlines * frames) return;
+  // line b of frame f, as the port's launch: a frame moves C and sv
+  const int f = b / nlines;
+  b -= f * nlines;
+  C += (size_t)f * H * W * D;
+  sv += (size_t)f * H * W * D;
   const VLine v =
       vline_in<T::kInterleave>(b, H, W, dir0, ndirs, down, per_way);
   const int d0 = VPL * lane, n = min(max(D - d0, 0), VPL);
@@ -524,7 +537,7 @@ void time_h2(int lines, const void* C, void* sv,
       kernel<<<(nlines + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps,
                kWalkWarps * wb>>>((const CT*)C, (L*)sv, H, W, D, p1, p2,
                                   dir0, ndirs, down, per_way, nlines, assign,
-                                  (int)wb);
+                                  (int)wb, 1);
     });
   };
   char tune[96] = "";
@@ -563,10 +576,98 @@ void time_h5(const float* C, float* out, std::vector<float>& ref) {
                 warps, ms, got == ref ? "equal" : "DIFFERS");
 }
 
+// H2's top-down trio over B frames (the cells run 1, 8 and 16; 2-4 show
+// where the trio walk starts to win) into a random partial sum: the port's
+// line walk in one launch (launch_vsweep, bulk reduce-adds), the same walk
+// with plain stores (timing only: its sum is wrong), and the trio walk
+// (csrc/sgbm_trio.cu) at 16, 8 and 4 warps a block, with and without the
+// slot tests, each checked against the line walk's sum.
+void time_trio(int B, unsigned char* scratch, long long scratch_bytes) {
+  const size_t n = (size_t)B * H * W * D;
+  int16_t* C;
+  int32_t *sv, *init;
+  check(cudaMalloc(&C, sizeof(int16_t) * n), "malloc");
+  check(cudaMalloc(&sv, sizeof(int32_t) * n), "malloc");
+  check(cudaMalloc(&init, sizeof(int32_t) * n), "malloc");
+  {
+    std::vector<int16_t> c((size_t)H * W * D);
+    std::vector<int32_t> s((size_t)H * W * D);
+    for (int f = 0; f < B; ++f) {
+      srand(100 + f);
+      for (auto& v : c) v = (int16_t)(rand() % 2000);
+      for (auto& v : s) v = rand() % 20000;
+      cudaMemcpy(C + (size_t)f * H * W * D, c.data(), c.size() * 2,
+                 cudaMemcpyHostToDevice);
+      cudaMemcpy(init + (size_t)f * H * W * D, s.data(), s.size() * 4,
+                 cudaMemcpyHostToDevice);
+    }
+  }
+  std::vector<int32_t> ref;
+  auto report = [&](const char* what, auto&& launch, bool compare) {
+    const float ms = time_ms(launch);
+    check(cudaMemcpy(sv, init, n * 4, cudaMemcpyDeviceToDevice), "copy");
+    launch();
+    check(cudaDeviceSynchronize(), what);
+    const char* same = "not compared";
+    if (compare) {
+      const auto out = fetch((const int32_t*)sv, n);
+      if (ref.empty()) ref = out;
+      same = out == ref ? "equal" : "DIFFERS";
+    }
+    std::printf("H2 top-down trio, B=%d, %s: %.4f ms, %.4f ms a frame, sum "
+                "%s\n", B, what, ms, ms / B, same);
+  };
+  report("the port's line walk (bulk reduce-adds)", [&] {
+    check((cudaError_t)launch_vsweep<X2>(C, sv, H, W, D, 400, 1600, 0, 3, 1,
+                                         0, 0, nullptr, nullptr, 0, B),
+          "H2 launch");
+  }, true);
+  {
+    using T = VTune<4, 8, true, 4, 2>;
+    auto kernel = vsweep_variant_kernel<X2, VPL, kVector, kStore, T>;
+    const int per_way = W + 2 * (W + H - 1);
+    report("the line walk with plain stores", [&] {
+      kernel<<<(per_way * B + kWalkWarps - 1) / kWalkWarps,
+               32 * kWalkWarps>>>(C, sv, H, W, D, 400, 1600, 0, 3, 1,
+                                  per_way, per_way, 0, 0, B);
+    }, false);
+  }
+  // all slots: no slot tests (D = 32 * VPL), as the port launches D = 128
+  auto trio = [&](auto full, int nw) {
+    constexpr bool kF = decltype(full)::value;
+    char what[128];
+    std::snprintf(what, sizeof what, "trio walk, %d warps a block, %s%s", nw,
+                  kF ? "full lanes" : "lanes tested",
+                  nw == trio_warps(W, B) && kF ? " (the port's)" : "");
+    report(what, [&] {
+      check((cudaError_t)launch_trio<VPL, kF>(C, sv, H, W, D, 400, 1600, 0,
+                                             B, scratch, scratch_bytes, 0,
+                                             nw),
+            "trio launch");
+    }, true);
+  };
+  for (int nw : {16, 8, 4}) {
+    trio(std::true_type(), nw);
+    trio(std::false_type(), nw);
+  }
+  cudaFree(C);
+  cudaFree(sv);
+  cudaFree(init);
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
+  // `probe trio` times H2's trio walk against the line walk only;
   // `probe h2h5` times H2 and H5 only
+  {
+    const long long sb = ovo_vsweep_trio_scratch();
+    unsigned char* scratch;
+    check(cudaMalloc(&scratch, sb), "malloc");  // each launch zeroes it
+    for (int B : {1, 2, 3, 4, 8, 16}) time_trio(B, scratch, sb);
+    cudaFree(scratch);
+    if (argc >= 2 && std::strcmp(argv[1], "trio") == 0) return 0;
+  }
   const bool all = argc < 2 || std::strcmp(argv[1], "h2h5") != 0;
   const size_t n = (size_t)H * W * D;
   std::vector<float> img((size_t)H * W);

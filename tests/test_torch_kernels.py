@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from openvo_tpu_torch import trace
 from openvo_tpu_torch.config import SGBMParams
 from openvo_tpu_torch.ops import (clique_cuda, jacobi_cuda, orb_cuda, sgbm,
                                   sgbm_cuda, speckle_cuda)
@@ -127,19 +128,54 @@ WALK_SHAPES = [(40, 112, 64), (40, 112, 48), (24, 70, 1), (24, 70, 16),
                (24, 70, 33), (16, 90, 128), (12, 300, 256), (6, 40, 1024),
                (70, 24, 48), (30, 1, 48), (1, 30, 48), (16, 12, 16)]
 # H2's cases: each shape as a whole volume; a few as a view that does not
-# start on 16 bytes (the scalar feed at a D the fast one takes) and, over
-# int16 C, adding into a given partial sum (acc)
+# start on 16 bytes (the scalar feed at a D the fast one takes), over int16
+# C adding into a given partial sum (acc), and as a batch of 2 to 5 frames
+# of other costs (where vsweep_design takes it, the trio walk: H > W,
+# W = 1, H = 1, and D at the edges of what the walk takes, 8 and 128, and
+# beyond them, 33 and 256; 2 frames, fewer than it takes)
 VSWEEP_CASES = (
     [(dt, s, "whole") for dt in (torch.int16, torch.float32)
      for s in WALK_SHAPES]
     + [(dt, s, "unaligned") for dt in (torch.int16, torch.float32)
        for s in [(40, 112, 64), (16, 90, 128), (70, 24, 48)]]
     + [(torch.int16, s, "acc") for s in [(40, 112, 64), (24, 70, 33),
-                                          (70, 24, 48)]])
+                                          (70, 24, 48)]]
+    + [(torch.int16, s, f"batch{b}") for s, b in [
+        ((40, 112, 64), 4), ((70, 24, 48), 5), ((30, 1, 48), 4),
+        ((1, 30, 48), 5), ((24, 70, 8), 4), ((16, 90, 128), 5),
+        ((24, 70, 33), 4), ((12, 300, 256), 4), ((12, 900, 16), 4),
+        ((40, 112, 64), 2)]])
 
 
 def case_id(case):
     return "-".join(str(v).replace("torch.", "") for v in case)
+
+
+def batch_walk_cost(C, frames):
+    """C and frames - 1 random int16 costs of its shape after it."""
+    rng = np.random.default_rng(frames)
+    rest = rng.integers(0, 4000, (frames - 1,) + tuple(C.shape))
+    return torch.cat([C[None], torch.from_numpy(rest.astype(np.int16)).to(
+        C.device)])
+
+
+def design_counts():
+    """{trace counter: its total} of the records since the last clear:
+    the H2 launches of each design."""
+    out = {"ovo.vsweep": 0, "ovo.vsweep_trio": 0}
+    for r in trace.records():
+        if r.name in out:
+            out[r.name] += r.n
+    return out
+
+
+@pytest.fixture
+def traced():
+    trace.clear()
+    trace.enable()
+    yield
+    trace.disable()
+    trace.clear()
 
 
 @pytest.mark.parametrize("dtype,shape,view", VSWEEP_CASES,
@@ -147,12 +183,17 @@ def case_id(case):
 @pytest.mark.parametrize("diagonals,down,up", [
     (True, True, False), (True, False, True), (True, True, True),
     (False, True, False), (False, False, True), (False, True, True)])
-def test_vsweep_variants_equal_plain(cuda, dtype, shape, view, diagonals,
-                                     down, up):
-    """H2 over int16 C (one launch for every line) and over float32 C (one
-    launch per direction, one direction of travel a call), at every lane
-    width, on unaligned views and, over int16 C, adding into ``acc``."""
+def test_vsweep_variants_equal_plain(cuda, traced, dtype, shape, view,
+                                     diagonals, down, up):
+    """H2 over int16 C (the trio walk, one launch a direction of travel,
+    where vsweep_design takes it, else one launch for every line) and over
+    float32 C (one launch per direction, one direction of travel a call),
+    at every lane width, on unaligned views, over int16 C adding into
+    ``acc`` and on batches; the trace counters name the kernel each launch
+    took."""
     C, p1, p2 = walk_cost(cuda, dtype, *shape)
+    if view.startswith("batch"):
+        C = batch_walk_cost(C, int(view[5:]))
     if dtype == torch.float32 and down and up:
         with pytest.raises(ValueError):
             sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up)
@@ -165,12 +206,76 @@ def test_vsweep_variants_equal_plain(cuda, dtype, shape, view, diagonals,
         acc = torch.from_numpy(np.random.default_rng(1).integers(
             0, 1 << 20, tuple(C.shape), dtype=np.int32)).to(cuda)
         ref = ref + acc
+    design = sgbm_cuda.vsweep_design(
+        dtype, diagonals, False, view != "unaligned", shape[2], shape[1],
+        C.shape[0] if C.ndim == 4 else 1)
     n0 = sgbm_cuda.vsweep.launches
     sv = sgbm_cuda.vsweep(C, p1, p2, diagonals, down, up, acc=acc)
-    launches = 3 if dtype == torch.float32 and diagonals else 1
+    launches = (down + up if design == "trio" else
+                3 if dtype == torch.float32 and diagonals else 1)
     assert sgbm_cuda.vsweep.launches == n0 + launches
+    assert design_counts() == {
+        "ovo.vsweep": 0 if design == "trio" else launches,
+        "ovo.vsweep_trio": launches if design == "trio" else 0}
     assert acc is None or sv is acc
     assert torch.equal(sv, ref)
+
+
+# The trio walk called directly (a single frame too, which vsweep gives to
+# the line walk), at KITTI's size in 1, 8 and 16 frames (the cells' batches)
+# and on small shapes that cut the strips otherwise: each direction of
+# travel, into a random partial sum (as into H1's s1)
+TRIO_CASES = [(1, 376, 1242, 128, "down"), (8, 376, 1242, 128, "down"),
+              (16, 376, 1242, 128, "down"), (1, 376, 1241, 128, "up"),
+              (8, 376, 1241, 128, "up"), (2, 376, 1242, 128, "both"),
+              (1, 70, 24, 48, "both"), (2, 30, 1, 48, "up"),
+              (1, 1, 30, 48, "down"), (3, 24, 70, 8, "both"),
+              (2, 16, 90, 16, "up"), (5, 40, 337, 128, "down")]
+
+
+@pytest.mark.parametrize("B,H,W,D,way", TRIO_CASES,
+                         ids=["-".join(map(str, c)) for c in TRIO_CASES])
+def test_vsweep_trio_equals_plain_and_lines(cuda, B, H, W, D, way):
+    """The trio walk into a partial sum equals the plain version's sum and
+    the line walk's (today's H2 for the other variants), bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(B * H * W + D)
+    C = torch.randint(0, 4000, (B, H, W, D), generator=g, device=cuda,
+                      dtype=torch.int16)
+    base = torch.randint(0, 1 << 20, (B, H, W, D), generator=g, device=cuda,
+                         dtype=torch.int32)
+    down, up = way != "up", way != "down"
+    if B == 1:
+        C, base = C[0], base[0]
+    trio = sgbm_cuda._vsweep_trio(C, base.clone(), 400, 1600, down, up)
+    lines = sgbm_cuda._vsweep_lines(C, base.clone(), 400, 1600, 3, down, up)
+    assert torch.equal(trio, lines)
+    assert torch.equal(trio, base + sgbm_cuda.vsweep_plain(
+        C, 400, 1600, True, down, up))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("call", ["trio", "single frame", "unaligned",
+                                  "carry", "straight", "float32"])
+def test_vsweep_design_takes_the_line_walk_where_it_must(cuda, traced, call):
+    """A batch of the int16 trio takes the trio walk; an unaligned view, a
+    carry, the straight line alone and float32 C keep the line walk, as
+    does a single frame; both equal the plain version."""
+    B = 1 if call == "single frame" else 4
+    dtype = torch.float32 if call == "float32" else torch.int16
+    C, p1, p2 = walk_cost(cuda, dtype, 40, 112, 64)
+    C = torch.stack([C] * B) if B > 1 else C
+    diagonals = call != "straight"
+    ref = sgbm_cuda.vsweep_plain(C, p1, p2, diagonals)
+    if call == "carry":
+        out = sgbm_cuda.vsweep(C, p1, p2, diagonals, return_carry=True)[0]
+    else:
+        out = sgbm_cuda.vsweep(shifted(C) if call == "unaligned" else C, p1,
+                               p2, diagonals)
+    assert torch.equal(out, ref)
+    trio = call == "trio"
+    lines = 3 if call == "float32" else 1
+    assert design_counts() == {"ovo.vsweep": 0 if trio else lines,
+                               "ovo.vsweep_trio": 1 if trio else 0}
 
 
 # (H, W, D, split row) of the carry cases
@@ -644,7 +749,10 @@ def test_batched_vsweep_equals_frames(cuda, D, dtype, diagonals, down, up):
     plain = sgbm_cuda.vsweep_plain(C, p1, p2, diagonals, **kw)
     out, n = launches(sgbm_cuda.vsweep,
                       lambda: sgbm_cuda.vsweep(C, p1, p2, diagonals, **kw))
-    assert n == (1 if dtype == torch.int16 else (3 if diagonals else 1))
+    trio = sgbm_cuda.vsweep_design(dtype, diagonals, False, True, D, 112,
+                                   FRAMES) == "trio"
+    assert n == (down + up if trio else 1 if dtype == torch.int16
+                 else (3 if diagonals else 1))
     assert_batch(out, frames, plain)
     if dtype == torch.int16:   # as the paths run it: into H1's s1
         base = torch.randint(0, 1000, C.shape, dtype=torch.int32,

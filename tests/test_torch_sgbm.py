@@ -266,3 +266,44 @@ def test_device_mismatch_raises():
     with pytest.raises(ValueError, match="device mismatch"):
         sgbm_cuda.cost_hsweep(lt, lt.to("meta"), 0, 32, 5, 504, 400, 1600,
                               True)
+
+
+# vsweep_design's cases: (C's dtype, diagonals, carry, aligned, D, W,
+# frames) -> the kernel it gives. One or two KITTI frames keep the line walk
+# and three take the trio walk, as measured on the H100 (TRIO_MIN_FRAMES).
+DESIGN_CASES = [
+    ("the 5-path trio of a rig", torch.int16, True, False, True, 128, 1241,
+     8, "trio"),
+    ("a replay chunk", torch.int16, True, False, True, 128, 1241, 16,
+     "trio"),
+    ("four frames", torch.int16, True, False, True, 64, 320, 4, "trio"),
+    ("three frames", torch.int16, True, False, True, 128, 1241, 3, "trio"),
+    ("D 8", torch.int16, True, False, True, 8, 30, 4, "trio"),
+    ("a single frame", torch.int16, True, False, True, 128, 1241, 1,
+     "lines"),
+    ("two frames", torch.int16, True, False, True, 128, 1241, 2, "lines"),
+    ("float32 C", torch.float32, True, False, True, 128, 1241, 8, "lines"),
+    ("the straight line alone", torch.int16, False, False, True, 128, 1241,
+     8, "lines"),
+    ("a carry", torch.int16, True, True, True, 128, 1241, 8, "lines"),
+    ("an unaligned volume", torch.int16, True, False, False, 128, 1241, 8,
+     "lines"),
+    ("D not a multiple of 8", torch.int16, True, False, True, 36, 1241, 8,
+     "lines"),
+    ("D beyond 128", torch.int16, True, False, True, 136, 1241, 8, "lines"),
+    ("D 256", torch.int16, True, False, True, 256, 1241, 8, "lines"),
+    ("wider than TRIO_MAX_W", torch.int16, True, False, True, 128,
+     sgbm_cuda.TRIO_MAX_W + 1, 8, "lines"),
+]
+
+
+@pytest.mark.parametrize("case", DESIGN_CASES,
+                         ids=[c[0] for c in DESIGN_CASES])
+def test_vsweep_design_takes_the_trio_walk_only_where_it_may(case):
+    """H2's choice between the trio walk and the line walk, a pure function
+    of what the call shows: the trio walk for a batch of the int16 trio
+    with aligned volumes and D a multiple of 8 up to 128; the line walk for
+    float32 C, the straight line alone, a carry, an unaligned volume, any
+    other D or width, and one or two frames."""
+    *args, want = case[1:]
+    assert sgbm_cuda.vsweep_design(*args) == want

@@ -13,6 +13,7 @@ launch and wait on the host clock.
 """
 
 import collections
+import dataclasses
 import types
 
 import numpy as np
@@ -367,3 +368,50 @@ def test_card_marks_sum_to_the_step_inside_launch_and_wait(seq, cuda, kind):
         wait = [r for r in recs if r.name == "ovo.wait" and r.call == s.call]
         if kind != "stream":
             assert s.end <= wait[0].end
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,changes,per_step", [
+    ("stereo", {}, 1), ("rig", {}, 1), ("stream", {}, 1),
+    ("rig", dict(num_paths=8), 2), ("rig", dict(num_paths=4), 1),
+    ("rig", dict(block_size=13, p1=8 * 169, p2=32 * 169), 3)],
+    ids=["stereo", "rig", "stream", "rig-hh8", "rig-hv4", "rig-block13"])
+def test_card_captured_steps_count_their_vsweep_design(seq, cuda, kind,
+                                                       changes, per_step):
+    """The H2 launches of each path's step while it is captured (its
+    warm-up and its capture), by trace counter: the int16 trio of 4 frames
+    (a rig of 4 cameras, a stream of 4-frame chunks; 8 paths: down, then
+    up) as ``ovo.vsweep_trio`` only, the straight lines (4 paths) and
+    float32 C (block 13) and a single frame (stereo) as ``ovo.vsweep``
+    only."""
+    from openvo_tpu_torch.models.stereo_camera import _sgbm_params_from_dict
+
+    params = dataclasses.replace(_sgbm_params_from_dict(SGBM), **changes)
+    cam = openvo_tpu_torch.StereoCamera(
+        seq["K"], seq["dist"], seq["K"], seq["dist"],
+        {"R": seq["R"], "T": seq["T"]}, params, IMG_SIZE, device=cuda)
+    lefts, rights = frames(seq, 4, "left"), frames(seq, 4, "right")
+    trace.enable()
+    if kind == "stereo":
+        odo = openvo_tpu_torch.StereoOdometer(cam)
+        for i in range(2):
+            odo.update(lefts[i], rights[i])
+    elif kind == "rig":
+        rig = RigOdometer(cam, 4)
+        for _ in range(2):
+            rig.update(lefts, rights)
+    else:
+        stream = make_stream_fn(cam, openvo_tpu_torch.OdometerConfig(),
+                                chunk=4)
+        state = init_state(cam.cropped_shape, 512, cam.device)
+        for _ in range(2):
+            state, _ = stream(state, lefts, rights)
+    counts = collections.Counter()
+    for r in trace.records():
+        if r.name in ("ovo.vsweep", "ovo.vsweep_trio"):
+            counts[r.name] += r.n
+    trio = (params.num_paths != 4 and params.block_size == 5
+            and kind != "stereo")
+    name = "ovo.vsweep_trio" if trio else "ovo.vsweep"
+    assert counts[name] > 0 and counts[name] % per_step == 0
+    assert sum(counts.values()) == counts[name]
