@@ -11,10 +11,13 @@ without state (``openvo_tpu/models/stereo_camera.py:181-188``). Here
 call on the card it
 
 - allocates static buffers for the state and the inputs;
-- runs ``fn`` once eagerly on a side stream (the warm-up): every one-time
-  call happens there, not in the capture (the kernel library's build and
-  load, each kernel's first launch and shared-memory attribute, H6's tap
-  tables, each ``ops/_dispatch.device_constant``'s upload);
+- runs ``fn`` once eagerly on the current stream, the one its replays
+  run on (the warm-up): every one-time call happens there, not in the
+  capture (the kernel library's build and load, each kernel's first
+  launch and shared-memory attribute, H6's tap tables, each
+  ``ops/_dispatch.device_constant``'s upload). Run on a side stream, the
+  step left the card slow for seconds: every later kernel of the process
+  started about 0.35 us later on an H100, for 0.6 to 18 s;
 - captures one call into a ``torch.cuda.CUDAGraph`` that ends by copying
   the new state into the static state buffers;
 
@@ -156,11 +159,8 @@ class CapturedStep:
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         drawn = [g.get_state() for g in gens]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with trace.span("ovo.warmup", always=True), torch.cuda.stream(side):
+        with trace.span("ovo.warmup", always=True):
             self.fn(self.state, *self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         for g, st in zip(gens, drawn):   # the warm-up draws nothing
             g.set_state(st)

@@ -21,6 +21,12 @@ the step into one program with ``trans_scale`` a traced float32 input
 one per input signature (the image's shape and type, and whether ``u`` is
 given), with ``trans_scale`` a 0-d float32 input and the state's generator
 registered with the graph, so a replay draws what the eager step draws.
+
+The step places the device's stage marks (``_graph.mark``): ``start``
+before the draw, ``orb`` after ORB (with the draw), ``match`` after the
+ratio test and the normalisation, ``ransac`` after the five-point RANSAC
+(sampling, null spaces, solver, MSAC and the refits), ``pose`` after
+recoverPose, the gates and the composition; the capture adds ``state``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from openvo_tpu_torch import trace
-from openvo_tpu_torch._graph import capture, capture_enabled
+from openvo_tpu_torch._graph import capture, capture_enabled, mark
 from openvo_tpu_torch.config import OdometerConfig
 from openvo_tpu_torch.geometry.se3 import rt_to_T
 from openvo_tpu_torch.ops._dispatch import target_device
@@ -110,10 +116,12 @@ def make_step(K, cfg: OdometerConfig, ransac_iters: int = 256,
 
     def step(state: MonoState, img, trans_scale, u=None):
         dev = state.c_T_w.device
+        mark("start")
         # drawn before anything else, every frame, as JAX splits its key
         u = uniforms(state.generator if u is None else u, (iters, 5), dev)
         feats = detect_and_compute(img, None, cfg.orb)
         frame = MonoFrame(feats["xy"], feats["desc"], feats["valid"])
+        mark("orb")
         n_kps = frame.kp_valid.to(torch.int32).sum()
         first = ~state.has_cur
 
@@ -123,9 +131,11 @@ def make_step(K, cfg: OdometerConfig, ransac_iters: int = 256,
         x1 = normalize(state.cur.kp_xy)
         x2 = normalize(frame.kp_xy[train_idx.to(torch.int64)])
         n_matches = mok.to(torch.int32).sum()
+        mark("match")
 
         E, inl, n_inl = ransac_essential_5pt(x1, x2, mok, u, iters=iters,
                                              inlier_threshold=thresh)
+        mark("ransac")
         R, t, support = recover_pose(E, x1, x2, inl)
         n_support = support.to(torch.int32).sum()
 
@@ -157,6 +167,7 @@ def make_step(K, cfg: OdometerConfig, ransac_iters: int = 256,
         )
         stats = {"n_kps": n_kps, "n_matches": n_matches, "n_inliers": n_inl,
                  "n_support": n_support, "skip_code": code}
+        mark("pose")
         return new_state, accept, stats
 
     return step
@@ -207,7 +218,8 @@ class MonoOdometer:
         (the first frame, or tracked). ``u``: the frame's (iters, 5)
         uniforms in place of the generator's draw. On the card (unless
         ``_graph.disable_capture()``) one replayed CUDA graph; its one host
-        sync is the copy of the results. Traced as ``ovo.update``
+        sync is the copy of the results, after which the replay's stage
+        marks are read. Traced as ``ovo.update``
         (``openvo_tpu_torch/trace.py``)."""
         with trace.span("ovo.update"):
             with trace.span("ovo.prepare"):
@@ -238,6 +250,7 @@ class MonoOdometer:
                 vals = torch.stack(
                     [accept.to(torch.int32), self._state.skipped]
                     + [stats[k].to(torch.int32) for k in names]).cpu()
+            trace.settle(self.device)
             with trace.span("ovo.unpack"):
                 self.skipped_frames = int(vals[1])
                 self.last_stats = {k: vals[2 + i].numpy() for i, k in

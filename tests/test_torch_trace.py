@@ -415,3 +415,59 @@ def test_card_captured_steps_count_their_vsweep_design(seq, cuda, kind,
     name = "ovo.vsweep_trio" if trio else "ovo.vsweep"
     assert counts[name] > 0 and counts[name] % per_step == 0
     assert sum(counts.values()) == counts[name]
+
+
+@pytest.mark.cuda
+def test_card_mono_marks_sum_to_the_step(seq, cuda):
+    """A captured MonoOdometer update, replayed 3 times: each replay gives
+    one ``dev.step`` inside its ``ovo.launch`` span's call and before the
+    sync returned, with the stages ``orb``, ``match``, ``ransac``,
+    ``pose``, ``state`` in the graph's order, summing to the step within
+    5%."""
+    from openvo_tpu_torch.models.mono_odometer import MonoOdometer
+
+    odo = MonoOdometer(seq["K"], device=cuda)
+    trace.enable()
+    for img in frames(seq, 3, "left"):
+        odo.update(img, 0.3)
+    assert odo.captured
+    recs = trace.records()
+    by_id = {r.id: r for r in recs}
+    steps = [r for r in recs if r.name == "dev.step"]
+    assert len(steps) == 3
+    for s in steps:
+        segs = sorted((r for r in recs if r.parent == s.id),
+                      key=lambda r: r.start)
+        assert [r.name[4:] for r in segs] == ["orb", "match", "ransac",
+                                              "pose", "state"]
+        total = sum(r.end - r.start for r in segs)
+        assert abs(total - (s.end - s.start)) <= 0.05 * (s.end - s.start)
+        launch = by_id[s.parent]
+        assert launch.name == "ovo.launch" and s.call == launch.call
+        wait = [r for r in recs if r.name == "ovo.wait" and r.call == s.call]
+        assert s.start >= launch.start and s.end <= wait[0].end
+
+
+@pytest.mark.cuda
+def test_card_capture_warms_up_on_the_replays_stream(cuda):
+    """The capture's warm-up runs eagerly on the caller's current stream,
+    the one the replays run on (a step's kernels on a side stream leave
+    every later kernel of the process slower on the card for seconds);
+    the capture itself runs on a stream of its own."""
+    from openvo_tpu_torch import _graph
+
+    seen = []
+
+    def fn(state, x):
+        seen.append(torch.cuda.current_stream())
+        return (), x * 2
+
+    step = _graph.capture(fn, device=cuda)
+    x = torch.ones(4, device=cuda)
+    for _ in range(2):
+        _, y = step((), x)
+    torch.cuda.synchronize()
+    assert len(seen) == 2   # the warm-up and the capture, then replays
+    assert seen[0] == torch.cuda.current_stream()
+    assert seen[1] != torch.cuda.current_stream()
+    assert torch.equal(y, x * 2)
