@@ -37,7 +37,10 @@ Phases, in order; any failure exits non-zero before the final line:
    and seeded clouds, H11 (the batched Jacobi SVD) on the inputs a mono
    frame gives it (the five-point rows, the top 8 candidates, the refit's
    9x9 Gram, one 3x3), all bit-equal, each H11 case also timed beside one
-   torch.linalg.svd of the same batch; and
+   torch.linalg.svd of the same batch; H12 (the five-point solver's root
+   stage) on mono frame 1's eliminated system and null-space basis and on
+   seeded five-point rows' (64 samples), bit-equal, timed by CUDA events
+   and by device time beside its plain version; and
    time block13's plain float32 cost volume alone and over the batch;
 3. run StereoOdometer.update over the 64-frame bench sequence (the
    corridor of bench.py, rendered here with numpy) on the card in five
@@ -72,9 +75,10 @@ Phases, in order; any failure exits non-zero before the final line:
    same 64 frames (ORB as off-lat, five-point RANSAC, recoverPose), first
    with the uniforms of JAX's draws replayed and held to JAX's run (the
    npz) frame by frame, then with the port's own sampler; each eagerly
-   (H4, H6 and H9 launch once a frame, H11 nine times, no SGBM kernel and
-   no torch.linalg.svd), then captured, each update one replayed CUDA
-   graph, equal to the eager run bit for bit with one host sync a frame
+   (H4, H6, H9 and H12 launch once a frame, H11 nine times, no SGBM
+   kernel and no torch.linalg.svd), then captured, each update one
+   replayed CUDA graph (H12 launched in the warm-up and at the capture
+   only), equal to the eager run bit for bit with one host sync a frame
    and none from pose/;
 5. `tiled4`: the row-tiled SGBM (parallel/tiling.py) on 4 ranks that share
    the card (a gloo group, messages staged through host memory: NCCL
@@ -227,6 +231,11 @@ RESIZE_SRC = "openvo_tpu_torch/csrc/resize.cu"   # H6
 SPECKLE_SRC = "openvo_tpu_torch/csrc/speckle.cu"   # H7
 CLIQUE_SRC = "openvo_tpu_torch/csrc/clique.cu"     # H8
 JACOBI_SRC = "openvo_tpu_torch/csrc/jacobi.cu"     # H10, H11
+FIVEPOINT_SRC = "openvo_tpu_torch/csrc/fivepoint.cu"   # H12
+# H12's JAX counterpart: Nister's solver after the elimination under jit,
+# left to XLA (no Pallas kernel)
+FIVEPOINT_JAX = ("openvo_tpu/pose/fivepoint.py:112-195 (_real_roots' "
+                 "fori_loop), :217-240 (the back-substitution), XLA")
 # H10's and H11's JAX counterparts: the Kabsch fit and jnp.linalg.svd under
 # jit, left to XLA (no Pallas kernel)
 KABSCH_JAX = ("openvo_tpu/pose/kabsch.py:22-60 (the fit; its jnp.linalg.svd "
@@ -411,6 +420,8 @@ class Case:
     # element (H10, H11: float64, counted from the inputs' sweeps)
     ops: float | None = None
     ops_per_s: float = FP32_OPS_PER_S
+    # also timed by device time under torch.profiler (H12)
+    device: bool = False
 
 
 def bound(case, outs):
@@ -1043,6 +1054,36 @@ def loop_kernel_cases(torch, seq, cam, cfg):
     return cases
 
 
+def roots_ops(samples):
+    """H12's float32 operations for ``samples`` samples (a sine, cosine,
+    power or tangent counted as one), from the plain version: B(z) 45; the
+    minors 27 x 19 and the cofactor terms 39 x 9, n 26, its scaling 27; the
+    scan 512 x 66 (sine, cosine, 26 powers, 26 products, 12 sums) and 511
+    x 2 sign tests; 48 bisection steps of 10 slots x 71 (the midpoint 2, q
+    66, the test 2, the update 1); then 10 slots x 200 (the tangent, 5
+    powers, B(z) 81, 3 cross products 27, the pick, x and y, E 45, its
+    norm 18, the division 9, validity, rounded up)."""
+    per = (45 + 27 * 19 + 39 * 9 + 26 + 27 + 512 * 66 + 511 * 2
+           + 48 * 10 * 71 + 10 * 200)
+    return float(per * samples)
+
+
+def device_ms(torch, fn, reps=20):
+    """fn()'s mean device time in ms over ``reps`` calls: its CUDA kernels'
+    time under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
 def svd_ops(sweeps, m, n):
     """H11's float64 operations on matrices of m x n that ran ``sweeps``
     sweeps each (its fourth output). A sweep of an m x n matrix: every
@@ -1112,19 +1153,22 @@ def fit_ops(mask):
 
 
 def svd_kernel_cases(torch, seq, cam, cfg):
-    """Phase 2's cases of the Kabsch fit and the small SVDs against their
-    plain versions: H10 on the `filters` path's clouds of frames 1 and 2
+    """Phase 2's cases of the Kabsch fit, the small SVDs and the five-point
+    solver's root stage against their plain versions: H10 on the `filters` path's clouds of frames 1 and 2
     against frame 0 (a frame's two attempts, as every single-frame stereo
     path batches them), on 16 clouds of consecutive frames as one batch (a
     rig step's), on seeded clouds of every kind and on degenerate clouds
     (``svd_cases.degenerate_clouds``); H11 on what a mono frame gives it:
     the five-point rows (64, 5, 9), the cheirality vote's 8 candidates,
     the refit's 9x9 Gram, one 3x3 matrix, and seeded 5x9 rows and
-    degenerate 3x3 matrices. Each H11 case is timed beside one
-    ``torch.linalg.svd`` of the same batch; no one PyTorch call computes a
-    Kabsch fit."""
-    from openvo_tpu_torch.ops import jacobi_cuda
-    from openvo_tpu_torch.pose import kabsch
+    degenerate 3x3 matrices; H12 on the eliminated systems and bases of
+    mono frame 1's 64 samples (from its five-point rows, as the step makes
+    them: H11's null space, the constraint rows, solve_ex) and of seeded
+    rows. Each H11 case is timed beside one ``torch.linalg.svd`` of the
+    same batch; no one PyTorch call computes a Kabsch fit or the root
+    stage."""
+    from openvo_tpu_torch.ops import fivepoint_cuda, jacobi_cuda
+    from openvo_tpu_torch.pose import fivepoint, kabsch
     from openvo_tpu_torch.tools import svd_cases
 
     dev = cam.device
@@ -1159,6 +1203,18 @@ def svd_kernel_cases(torch, seq, cam, cfg):
                     note=f"{tuple(a.shape)}, sweeps a matrix "
                          f"{sorted(set(sweeps.tolist()))}")
 
+    def h12(variant, path, rows):
+        basis = fivepoint.basis_of_rows(rows.to(dev).float()).contiguous()
+        M = fivepoint.eliminated_system(basis).contiguous()
+        valid = fivepoint_cuda.five_point_roots(M, basis)[1]
+        return Case("five_point_roots", variant, path,
+                    lambda: fivepoint_cuda.five_point_roots(M, basis),
+                    lambda: fivepoint.five_point_roots_plain(M, basis),
+                    FIVEPOINT_JAX, (M, basis), 0, FIVEPOINT_SRC,
+                    ops=roots_ops(len(M)), device=True,
+                    note=f"{tuple(M.shape)}, valid candidates "
+                         f"{int(valid.sum())} of {valid.numel()}")
+
     filters_cfg = dataclasses.replace(cfg, **FILTERS)
     two = real_clouds(torch, seq, cam, filters_cfg, [(0, 1), (0, 2)])
     sixteen = real_clouds(torch, seq, cam, filters_cfg,
@@ -1187,6 +1243,10 @@ def svd_kernel_cases(torch, seq, cam, cfg):
         h11("degenerate 3x3: rank 0-2, equal singular values, det -1, "
             "extreme scales", None,
             torch.from_numpy(svd_cases.degenerate_3x3())),
+        h12("mono frame 1: the eliminated systems of 64 samples", "mono",
+            five),
+        h12("seeded five-point rows of 64 samples", None,
+            torch.from_numpy(svd_cases.five_point_rows(0, 64))),
     ]
 
 
@@ -1257,6 +1317,10 @@ def check_kernels(torch, seq, cam, cfg):
         t_p2 = time_ms(torch, c.plain, reps_plain)
         r["ms"] = min(t_k1, t_k2) / c.frames
         r["plain_ms"] = min(t_p1, t_p2) / c.frames
+        if c.device:
+            r["device_ms"] = min(device_ms(torch, c.kern),
+                                 device_ms(torch, c.kern))
+            r["plain_device_ms"] = device_ms(torch, c.plain, 2)
         earlier = BLOCK_WALK_MS.get((c.name, c.variant))
         first = FIRST_DESIGN_MS.get((c.name, c.variant))
         single = ""
@@ -1276,7 +1340,10 @@ def check_kernels(torch, seq, cam, cfg):
             + ("" if first is None else
                f" (redesigned; the first design: {first} ms a frame)")
             + f", plain {t_p1:.4f} / {t_p2:.4f} ms, bound "
-            f"{r['bound_ms'] * c.frames:.4f} ms ({r['bound_by']})" + single)
+            f"{r['bound_ms'] * c.frames:.4f} ms ({r['bound_by']})" + single
+            + ("" if not c.device else
+               f"; device time {r['device_ms']:.4f} ms, plain "
+               f"{r['plain_device_ms']:.4f} ms"))
     return results
 
 
@@ -1383,7 +1450,7 @@ def expected_launches(params, filters=False):
     """Each kernel's launches per frame on a single-device path: H7 with
     the speckle filter on, H8 (one launch for both attempts' clouds) with
     the rigid clique on, H10 once for both attempts' fits (twice with the
-    outlier pass), H11 never (mono's alone)."""
+    outlier pass), H11 and H12 never (mono's alone)."""
     from openvo_tpu_torch.ops import sgbm
 
     f32 = sgbm.int16_sentinel(params.block_size,
@@ -1399,7 +1466,8 @@ def expected_launches(params, filters=False):
             "hsweep_wta_lr": 1,
             "brief_describe": 1, "resize_levels": 1, "corner_keys": 1,
             "speckle_keep": int(speckle), "greedy_clique": int(filters),
-            "kabsch_fit": 2 if filters else 1, "jacobi_svd": 0}
+            "kabsch_fit": 2 if filters else 1, "jacobi_svd": 0,
+            "five_point_roots": 0}
 
 
 def h2_design(params, frames):
@@ -1458,11 +1526,13 @@ def check_h2_designs(name, params, frames, call):
 
 def all_kernels():
     """Every kernel wrapper of the port (each with its launch count)."""
-    from openvo_tpu_torch.ops import (clique_cuda, jacobi_cuda, orb_cuda,
-                                      sgbm_cuda, speckle_cuda)
+    from openvo_tpu_torch.ops import (clique_cuda, fivepoint_cuda,
+                                      jacobi_cuda, orb_cuda, sgbm_cuda,
+                                      speckle_cuda)
 
     return (sgbm_cuda.KERNELS + orb_cuda.KERNELS + speckle_cuda.KERNELS
-            + clique_cuda.KERNELS + jacobi_cuda.KERNELS)
+            + clique_cuda.KERNELS + jacobi_cuda.KERNELS
+            + fivepoint_cuda.KERNELS)
 
 
 def plain_tripwires():
@@ -1472,7 +1542,7 @@ def plain_tripwires():
     import torch
 
     from openvo_tpu_torch.ops import orb, orb_cuda, sgbm, sgbm_cuda
-    from openvo_tpu_torch.pose import kabsch, rigid_clique
+    from openvo_tpu_torch.pose import fivepoint, kabsch, rigid_clique
 
     return {(sgbm_cuda, "cost_hsweep_plain"), (sgbm_cuda, "vsweep_plain"),
             (sgbm_cuda, "hsweep_plain"), (sgbm_cuda, "hsweep_wta_lr_plain"),
@@ -1483,6 +1553,7 @@ def plain_tripwires():
             (rigid_clique, "greedy_clique_plain"),
             (kabsch, "kabsch_fit_plain"), (kabsch, "rotation_3x3_plain"),
             (kabsch, "jacobi_svd_plain"),
+            (fivepoint, "five_point_roots_plain"),
             (torch.linalg, "svd")}
 
 
@@ -1905,13 +1976,17 @@ def run_mono(torch, seq, name, smi, profiled=4):
     stray = [k for k in syncs if k.startswith("openvo_tpu_torch/pose/")]
     if stray:
         raise AssertionError(f"{name}: host syncs in RANSAC at {stray}")
+    log(f"[{name}] H12 launches: {launches['five_point_roots']} in "
+        f"{N_FRAMES} eager frames")
     if (any(launches[k.__name__] != N_FRAMES for k in orb_cuda.KERNELS)
             or any(launches[k.__name__] for k in sgbm_cuda.KERNELS)
             or launches["jacobi_svd"] != MONO_SVDS * N_FRAMES
+            or launches["five_point_roots"] != N_FRAMES
             or launches["kabsch_fit"]):
         raise AssertionError(f"{name}: launches {launches}, expected H4, "
-                             f"H6 and H9 once a frame, H11 {MONO_SVDS} "
-                             f"times, no SGBM kernel and no H10")
+                             f"H6, H9 and H12 once a frame, H11 "
+                             f"{MONO_SVDS} times, no SGBM kernel and no "
+                             f"H10")
     if replay:
         ref_poses = np.linalg.inv(ref["mono_c_T_w"].astype(np.float64))
         rot, ang = motion_gaps(poses, ref_poses)
@@ -1956,14 +2031,18 @@ def run_mono_captured(torch, seq, name, smi, update, eager):
     """A mono path as users run it: a new odometer (its generator seeded
     as the eager run's), each update one replayed CUDA graph; ok, skip
     code and c_T_w equal to the ``eager`` run's at every frame, one host
-    sync a frame of frames 2-63, none of them in pose/; the replay's
-    kernels and kernel time under torch.profiler."""
+    sync a frame of frames 2-63, none of them in pose/; H12 launched in
+    the first frame's warm-up and capture only; the replay's kernels and
+    kernel time under torch.profiler."""
     from openvo_tpu_torch.models.mono_odometer import MonoOdometer
+    from openvo_tpu_torch.ops import fivepoint_cuda
 
     odo = MonoOdometer(seq["K"], device=DEVICE)
-    oks, codes, ctws, lat, syncs = [], [], [], [], []
+    oks, codes, ctws, lat, syncs, h12 = [], [], [], [], [], []
     for i in range(N_FRAMES):
+        n0 = fivepoint_cuda.five_point_roots.launches
         ok, n, secs = count_syncs(torch, lambda: update(odo, i))
+        h12.append(fivepoint_cuda.five_point_roots.launches - n0)
         if not odo.captured:
             raise AssertionError(f"{name}: frame {i} ran eagerly")
         oks.append(ok)
@@ -1982,6 +2061,11 @@ def run_mono_captured(torch, seq, name, smi, update, eager):
                  f"captured frame, by line: {pose_syncs}", "update latency",
                  smi)
     held_bit_equal(name, oks, codes, ctws, eager)
+    log(f"[{name} captured] H12 launches: {h12[0]} in frame 0 (the warm-up "
+        f"and the capture), {sum(h12[1:])} in frames 1-{N_FRAMES - 1}")
+    if h12[0] != 2 or any(h12[1:]):
+        raise AssertionError(f"{name}: captured H12 launches {h12}, "
+                             f"expected 2 at the capture, then none")
     if set(syncs[2:]) != {1}:
         raise AssertionError(f"{name}: captured frames' host syncs "
                              f"{syncs[2:]}, expected 1 a frame")

@@ -81,6 +81,8 @@ SIGNATURES = {
     # a (float32 where m < n, else float64), S, V, U (or NULL), sweeps, B,
     # m, n, tol, max sweeps, stream
     "ovo_jacobi_svd": (_P,) * 5 + (_I, _I, _I, _D, _I, _P),
+    # M, basis, Es, valid, S, stream
+    "ovo_five_point_roots": (_P, _P, _P, _P, _I, _P),
     # events (anchor, then a replay's marks), their count, ms out
     "ovo_event_times": (_P, _I, _P),
 }

@@ -17,6 +17,14 @@ dimension:
 5. back-substitution per root by null-vector cross products: up to 10
    candidate E's per sample, invalid slots masked.
 
+From the reduction to B(z) in step 3 to the end of step 5, the solver is
+:func:`five_point_roots`: on the card the kernel H12 (``csrc/fivepoint.cu``,
+``ops/fivepoint_cuda.py``), one launch for what ATen runs as ~800 small
+kernels; on the CPU its plain version :func:`five_point_roots_plain`. H12
+adds and multiplies in the order ATen's and cuBLAS's kernels take on the
+card (the kernel's header says which), so it gives the plain version's
+bits there, and the benchmark's frozen reference's.
+
 A singular 10x10 system gives NaN or garbage candidates, which lose the
 RANSAC vote, as in JAX: ``torch.linalg.solve_ex`` neither raises nor syncs.
 """
@@ -28,6 +36,7 @@ import itertools
 import numpy as np
 import torch
 
+from openvo_tpu_torch.ops import fivepoint_cuda
 from openvo_tpu_torch.ops._dispatch import device_constant
 from openvo_tpu_torch.pose.kabsch import svd
 
@@ -152,25 +161,34 @@ def _theta_grid():
     return np.append(g, hi).astype(np.float32)
 
 
+def _q(c, theta):
+    """q(theta) = sum_i c_i sin^i cos^(12-i) of coefficients c (..., 13) at
+    theta (..., m): (..., m)."""
+    deg = c.shape[-1] - 1
+    exps = device_constant(tuple(range(deg + 1)), c.device)
+    s, co = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
+    return (c[..., None, :] * torch.pow(s, exps)
+            * torch.pow(co, deg - exps)).sum(-1)
+
+
+def _scan(n_coeffs):
+    """The sign-change scan of :func:`_real_roots`: the coefficients over
+    their largest |c_i| + 1e-30 (..., 13), q at the theta grid (..., 512)
+    and the cells whose ends differ in sign (..., 511)."""
+    scale = n_coeffs.abs().amax(dim=-1, keepdim=True) + 1e-30
+    c = n_coeffs / scale
+    grid = device_constant(_theta_grid, c.device)
+    qs = _q(c, grid.expand(c.shape[:-1] + (_N_GRID,)))
+    return c, qs, qs[..., :-1] * qs[..., 1:] < 0
+
+
 def _real_roots(n_coeffs):
     """Up to 10 real roots of the degree-<=12 polynomials (..., 13), over
     the whole real line by z = tan(theta): q(theta) = sum_i c_i sin^i
     cos^(12-i) is bounded and has the sign pattern of n(z). Returns roots
     (..., 10) and valid (..., 10)."""
-    deg = n_coeffs.shape[-1] - 1
-    scale = n_coeffs.abs().amax(dim=-1, keepdim=True) + 1e-30
-    c = n_coeffs / scale
-    dev = c.device
-    exps = device_constant(tuple(range(deg + 1)), dev)
-
-    def q(theta):   # theta (..., m) -> (..., m)
-        s, co = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
-        return (c[..., None, :] * torch.pow(s, exps)
-                * torch.pow(co, deg - exps)).sum(-1)
-
-    grid = device_constant(_theta_grid, dev)
-    qs = q(grid.expand(c.shape[:-1] + (_N_GRID,)))
-    sc = qs[..., :-1] * qs[..., 1:] < 0
+    c, qs, sc = _scan(n_coeffs)
+    grid = device_constant(_theta_grid, c.device)
     # lax.top_k of (sc - cell * 1e-9) takes the sign-change cells in
     # ascending order, then the other cells: a stable sort on ~sc
     idx = torch.sort((~sc).to(torch.uint8), dim=-1,
@@ -178,38 +196,23 @@ def _real_roots(n_coeffs):
     valid = torch.gather(sc, -1, idx)
     lo = grid[idx]
     hi = grid[(idx + 1).clamp_max(_N_GRID - 1)]
-    qlo = q(lo)
+    qlo = _q(c, lo)
     for _ in range(_N_BISECT):
         mid = 0.5 * (lo + hi)
-        qm = q(mid)
+        qm = _q(c, mid)
         same = qm * qlo > 0
         lo, hi, qlo = (torch.where(same, mid, lo), torch.where(same, hi, mid),
                        torch.where(same, qm, qlo))
     return torch.tan(0.5 * (lo + hi)), valid
 
 
-def epipolar_rows(x1, x2):
-    """(..., n, 9) rows of x2^T E x1 = 0 for correspondences (..., n, 2)."""
-    return torch.stack([
-        x2[..., 0] * x1[..., 0], x2[..., 0] * x1[..., 1], x2[..., 0],
-        x2[..., 1] * x1[..., 0], x2[..., 1] * x1[..., 1], x2[..., 1],
-        x1[..., 0], x1[..., 1], torch.ones_like(x1[..., 0]),
-    ], dim=-1)
-
-
-def null_space_basis(x1, x2):
-    """The (..., 4, 3, 3) basis X, Y, Z (free), W (affine) of the null
-    space of 5 correspondences (..., 5, 2) each. Unique only up to a
-    rotation in 4-D: LAPACK builds and cuSOLVER give different bases."""
-    _, _, vt = svd(epipolar_rows(x1, x2), full_matrices=True)
-    return vt[..., 5:9, :].flip(-2).reshape(vt.shape[:-2] + (4, 3, 3))
-
-
-def five_point_from_basis(basis):
-    """Candidate E's (..., 10, 3, 3), unit Frobenius norm, and their
-    validity (..., 10) from a null-space basis (..., 4, 3, 3)."""
-    A = _constraint_rows(basis)                            # (..., 10, 20)
-    M = -torch.linalg.solve_ex(A[..., :10], A[..., 10:]).result
+def five_point_roots_plain(M, basis):
+    """H12's plain version: the candidate E's (..., 10, 3, 3), unit
+    Frobenius norm, and their validity (..., 10) from the eliminated system
+    M (..., 10, 10) (``-solve(A[..., :10], A[..., 10:])`` of the constraint
+    rows) and the null-space basis (..., 4, 3, 3): B(z), its determinant,
+    the real roots, then per root the null vector of B(z) from the row pair
+    with the largest |v_3| and E = x X + y Y + z Z + W."""
     B = _z_matrix(M)                                       # (..., 3, 3, 5)
     roots, valid = _real_roots(_det_poly(B))
     zp = torch.pow(roots[..., None], device_constant(tuple(range(5)),
@@ -236,6 +239,54 @@ def five_point_from_basis(basis):
     flat = flat / fro.clamp_min(1e-12)
     valid = valid & ok_w & torch.isfinite(flat).all(dim=-1)
     return flat.reshape(Es.shape), valid
+
+
+def five_point_roots(M, basis):
+    """:func:`five_point_roots_plain` on a CPU tensor; on a CUDA tensor the
+    kernel H12 (``ops/fivepoint_cuda.five_point_roots``), one launch over
+    the leading dimensions flattened, which raises rather than fall back."""
+    if M.device.type == "cpu":
+        return five_point_roots_plain(M, basis)
+    lead = M.shape[:-2]
+    Es, valid = fivepoint_cuda.five_point_roots(
+        M.reshape(-1, 10, 10).contiguous(),
+        basis.reshape(-1, 4, 3, 3).contiguous())
+    return Es.reshape(lead + Es.shape[1:]), valid.reshape(lead + (-1,))
+
+
+def epipolar_rows(x1, x2):
+    """(..., n, 9) rows of x2^T E x1 = 0 for correspondences (..., n, 2)."""
+    return torch.stack([
+        x2[..., 0] * x1[..., 0], x2[..., 0] * x1[..., 1], x2[..., 0],
+        x2[..., 1] * x1[..., 0], x2[..., 1] * x1[..., 1], x2[..., 1],
+        x1[..., 0], x1[..., 1], torch.ones_like(x1[..., 0]),
+    ], dim=-1)
+
+
+def null_space_basis(x1, x2):
+    """The (..., 4, 3, 3) basis X, Y, Z (free), W (affine) of the null
+    space of 5 correspondences (..., 5, 2) each. Unique only up to a
+    rotation in 4-D: LAPACK builds and cuSOLVER give different bases."""
+    return basis_of_rows(epipolar_rows(x1, x2))
+
+
+def basis_of_rows(a):
+    """:func:`null_space_basis` of the epipolar rows (..., 5, 9)."""
+    _, _, vt = svd(a, full_matrices=True)
+    return vt[..., 5:9, :].flip(-2).reshape(vt.shape[:-2] + (4, 3, 3))
+
+
+def eliminated_system(basis):
+    """Gauss-Jordan of the constraint rows of a null-space basis (..., 4,
+    3, 3): M = -A[..., :10]^-1 A[..., 10:] (..., 10, 10)."""
+    A = _constraint_rows(basis)                            # (..., 10, 20)
+    return -torch.linalg.solve_ex(A[..., :10], A[..., 10:]).result
+
+
+def five_point_from_basis(basis):
+    """Candidate E's (..., 10, 3, 3), unit Frobenius norm, and their
+    validity (..., 10) from a null-space basis (..., 4, 3, 3)."""
+    return five_point_roots(eliminated_system(basis), basis)
 
 
 def five_point_candidates(x1, x2):

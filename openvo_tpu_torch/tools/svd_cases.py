@@ -120,6 +120,58 @@ def five_point_rows(seed=0, samples=64):
                      for _ in range(samples)])
 
 
+def system_of_z_matrix(B):
+    """(S, 10, 10) float32 eliminated systems M whose Nister z-matrix
+    (``pose/fivepoint._z_matrix``) is B (S, 3, 3, 5): in each row pair and
+    column group the top power's coefficient from the pair's second row,
+    the others from its first; the entries B does not read are 0. Columns
+    0 and 1 take powers z^0..z^3 (B[..., 4] must be 0 there), column 2
+    z^0..z^4."""
+    S = B.shape[0]
+    M = np.zeros((S, 10, 10), np.float32)
+    groups = [(2, 1, 0), (5, 4, 3), (9, 8, 7, 6)]
+    for r, (pe, pf) in enumerate([(4, 5), (6, 7), (8, 9)]):
+        for c, ks in enumerate(groups):
+            for p, k in enumerate(ks):
+                M[:, pe, k] = B[:, r, c, p]
+            M[:, pf, ks[-1]] = -B[:, r, c, len(ks)]
+    return M
+
+
+# Triple, triple and fourfold roots (a, b, c) of the z-matrices of
+# "clustered roots": the first two give ATen's float32 scan 13 sign changes
+# on the H100, the others 9 or 10
+CLUSTERED_ROOTS = [(1.5, -1.0, 1.5), (-1.0, 1.5, 1.5), (3.0, 0.5, 0.5),
+                   (0.5, -0.5, -0.5), (-1.0, -1.0, -1.0), (2.0, 1.0, 1.5),
+                   (1.5, 1.5, 0.75), (1.5, -2.0, -2.0)]
+
+
+def z_matrices(kind, samples=8, seed=0):
+    """(samples, 3, 3, 5) float32 diagonal z-matrices B(z) whose
+    determinant has, by ``kind``:
+
+    - "no real root": (z^2 + b)^4 times a positive factor, so no cell of
+      the five-point scan changes sign;
+    - "clustered roots": (z - a)^3 (z - b)^3 (z - c)^4 for the triples of
+      CLUSTERED_ROOTS in turn, whose flat zeros give the float32 scan sign
+      changes beyond the polynomial's own (rounding flips the sign of q
+      cell after cell)."""
+    rng = np.random.default_rng(seed)
+    B = np.zeros((samples, 3, 3, 5), np.float32)
+    for i in range(samples):
+        if kind == "no real root":
+            b = rng.uniform(0.2, 3.0)
+            quad = np.array([b, 0.0, 1.0]) * rng.uniform(0.5, 2.0, 3)[:, None]
+            diag = [quad[0], quad[1], np.convolve(quad[2], [b, 0.0, 1.0])]
+        else:
+            a, b, c = CLUSTERED_ROOTS[i % len(CLUSTERED_ROOTS)]
+            diag = [np.poly([a] * 3)[::-1], np.poly([b] * 3)[::-1],
+                    np.poly([c] * 4)[::-1]]
+        for j, coef in enumerate(diag):
+            B[i, j, j, :len(coef)] = coef
+    return B
+
+
 def essentials(seed=1, count=8):
     """(count, 3, 3) float64 essential matrices [t]x R (rank 2, singular
     values (s, s, 0))."""

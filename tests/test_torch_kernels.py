@@ -13,9 +13,9 @@ import torch
 
 from openvo_tpu_torch import trace
 from openvo_tpu_torch.config import SGBMParams
-from openvo_tpu_torch.ops import (clique_cuda, jacobi_cuda, orb_cuda, sgbm,
-                                  sgbm_cuda, speckle_cuda)
-from openvo_tpu_torch.pose import kabsch
+from openvo_tpu_torch.ops import (clique_cuda, fivepoint_cuda, jacobi_cuda,
+                                  orb_cuda, sgbm, sgbm_cuda, speckle_cuda)
+from openvo_tpu_torch.pose import fivepoint, kabsch
 from openvo_tpu_torch.tools import loop_cases, svd_cases
 
 pytestmark = pytest.mark.cuda
@@ -1452,6 +1452,172 @@ def test_jacobi_kernels_reject_wrong_input(cuda):
     with pytest.raises(TypeError, match="dtype"):   # wide: float32 only
         jacobi_cuda.jacobi_svd(torch.zeros((1, 5, 9), dtype=torch.float64,
                                            device=cuda), 1e-14, 12)
+
+
+def equal_bits(a, b):
+    """Equal to the bit (signed zeros too), NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def mono_system(dev, seed, samples):
+    """(M, basis) as the mono path makes them on the card from seeded
+    five-point rows: H11's null space, the constraint rows, solve_ex."""
+    rows = torch.from_numpy(svd_cases.five_point_rows(seed, samples)).to(
+        dev).float()
+    basis = fivepoint.basis_of_rows(rows).contiguous()
+    return fivepoint.eliminated_system(basis).contiguous(), basis
+
+
+def assert_roots_equal_plain(M, basis):
+    """H12 against its plain version run on the card: Es to the bit and
+    valid equal; one launch, one ``ovo.five_point_roots`` count."""
+    n0 = fivepoint_cuda.five_point_roots.launches
+    trace.enable()
+    try:
+        Es, valid = fivepoint_cuda.five_point_roots(M, basis)
+        counted = sum(r.n for r in trace.records()
+                      if r.name == "ovo.five_point_roots")
+    finally:
+        trace.disable()
+        trace.clear()
+    assert fivepoint_cuda.five_point_roots.launches == n0 + 1
+    assert counted == 1
+    Ep, vp = fivepoint.five_point_roots_plain(M, basis)
+    assert equal_bits(Es, Ep)
+    assert torch.equal(valid, vp)
+    return Es, valid
+
+
+@pytest.mark.parametrize("samples", [64, 16])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_five_point_roots_equals_plain_on_mono_inputs(cuda, samples, seed):
+    """H12 on the mono path's inputs (the cell's 64 samples, and 16, the
+    fewest any ``ransac_iters`` gives), bit-equal to its plain version on
+    the card, each sample equal to its own launch."""
+    M, basis = mono_system(cuda, seed, samples)
+    Es, valid = assert_roots_equal_plain(M, basis)
+    assert valid.any() and not valid.all()
+    for i in (0, samples - 1):
+        one = fivepoint_cuda.five_point_roots(M[i:i + 1], basis[i:i + 1])
+        assert equal_bits(one[0][0], Es[i]) and torch.equal(one[1][0],
+                                                             valid[i])
+    torch.cuda.synchronize()
+
+
+def built_root_case(name, dev):
+    """(M, basis) of the built cases on the card (see
+    ``test_five_point_roots_built_cases``)."""
+    if name in ("no real root", "clustered roots"):
+        B = svd_cases.z_matrices(name, 16)
+        basis = np.random.default_rng(1).normal(size=(16, 4, 3, 3))
+        return (torch.from_numpy(svd_cases.system_of_z_matrix(B)).to(dev),
+                torch.from_numpy(basis).float().to(dev))
+    M, basis = mono_system(dev, 3, 16)
+    if name == "singular":
+        basis[2] = 0
+        basis[5, 1] = 0
+        M = fivepoint.eliminated_system(basis).contiguous()
+        M[6, 4, 2] = float("inf")    # entries B(z) reads
+        M[7, 5, 2] = float("nan")
+    else:   # |w| <= 1e-12: column 0 of B(z) scaled by 1e-20
+        M[:8, 4:10, 0:3] *= 1e-20
+    return M, basis
+
+
+@pytest.mark.parametrize("name", ["no real root", "clustered roots",
+                                  "singular", "tiny w"])
+def test_five_point_roots_built_cases(cuda, name):
+    """H12 against its plain version on built cases: a determinant with
+    no real root (every slot invalid); clustered roots whose flat zeros
+    give the scan more than ten sign changes (the first ten kept, in
+    ascending order); singular 10x10 systems and an inf and a NaN in M
+    (NaN candidates, the same validity); picked null vectors with |w| <=
+    1e-12 (slots the scan found, invalid)."""
+    M, basis = built_root_case(name, cuda)
+    Es, valid = assert_roots_equal_plain(M, basis)
+    n = fivepoint._det_poly(fivepoint._z_matrix(M))
+    sc = fivepoint._scan(n)[2]
+    scan_valid = fivepoint._real_roots(n)[1]
+    if name == "no real root":
+        assert not sc.any() and not valid.any()
+    elif name == "clustered roots":
+        many = sc.sum(-1) > 10
+        assert many.any() and scan_valid[many].all()
+    elif name == "singular":
+        # a B(z) not finite makes n or its scale NaN or inf: no sign change
+        bad = ~torch.isfinite(fivepoint._z_matrix(M).flatten(1)).all(1)
+        assert bad[[2, 5, 6, 7]].all() and not valid[bad].any()
+        assert valid[~bad].any()
+    else:
+        assert int(scan_valid[:8].sum()) - int(valid[:8].sum()) >= 8
+    torch.cuda.synchronize()
+
+
+def test_five_point_roots_reject_wrong_input(cuda):
+    M = torch.zeros((4, 10, 10), device=cuda)
+    basis = torch.zeros((4, 4, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        fivepoint_cuda.five_point_roots(M.cpu(), basis.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        fivepoint_cuda.five_point_roots(M, basis.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        fivepoint_cuda.five_point_roots(M.double(), basis)
+    with pytest.raises(ValueError, match="shape"):
+        fivepoint_cuda.five_point_roots(M, basis[:3])
+    with pytest.raises(ValueError, match="contiguous"):
+        fivepoint_cuda.five_point_roots(M.transpose(1, 2), basis)
+    Es, valid = fivepoint_cuda.five_point_roots(M[:0], basis[:0])
+    assert Es.shape == (0, 10, 3, 3) and valid.shape == (0, 10)
+
+
+def test_captured_mono_step_launches_h12_once(cuda):
+    """The mono step launches H12 once: eagerly once an update; captured,
+    once in the warm-up and once at the capture, then never (each replay
+    runs the graph's node); ``ovo.five_point_roots`` counts the same. The
+    captured updates equal the eager ones bit for bit."""
+    from openvo_tpu_torch import _graph
+    from openvo_tpu_torch.io.synthetic import render_stereo_sequence
+    from openvo_tpu_torch.models.mono_odometer import MonoOdometer
+
+    seq = render_stereo_sequence(n_frames=5, img_size=(320, 240), f=280.0,
+                                 baseline=0.5, seed=0, step=0.3,
+                                 yaw_rate=0.004)
+    imgs = [np.clip(x, 0, 255).astype(np.uint8) for x in seq["left"]]
+
+    def run(captured):
+        odo = MonoOdometer(seq["K"], device=cuda)
+        launches, counts, out = [], [], []
+        trace.enable()
+        try:
+            for img in imgs:
+                n0 = fivepoint_cuda.five_point_roots.launches
+                trace.clear()
+                if captured:
+                    ok = odo.update(img, 0.3)
+                else:
+                    with _graph.disable_capture():
+                        ok = odo.update(img, 0.3)
+                launches.append(fivepoint_cuda.five_point_roots.launches
+                                - n0)
+                counts.append(sum(r.n for r in trace.records()
+                                  if r.name == "ovo.five_point_roots"))
+                assert odo.captured == captured
+                out.append((ok, int(odo.last_stats["skip_code"]),
+                            odo.state.c_T_w.clone()))
+        finally:
+            trace.disable()
+            trace.clear()
+        return launches, counts, out
+
+    launches, counts, eager = run(False)
+    assert launches == counts == [1] * len(imgs)
+    launches, counts, captured = run(True)
+    assert launches == counts == [2] + [0] * (len(imgs) - 1)
+    for (ok_e, code_e, T_e), (ok_c, code_c, T_c) in zip(eager, captured):
+        assert ok_e == ok_c and code_e == code_c
+        assert equal_bits(T_e, T_c)
 
 
 def test_compute_3d_is_captured_and_returns_copies(cuda):
